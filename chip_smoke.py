@@ -21,7 +21,14 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            kernel and the device's busy share of the wall time
   kernels  each kernel's wrapper on the inputs the main path gave it, held
            against its plain PyTorch version; kernel, plain and library
-           times (CUDA events, median of 7 after a warm-up) beside the bound
+           times (CUDA events, median of 7 after a warm-up) beside the bound,
+           the device time and device operations (kernels, memsets) of one
+           call from torch.profiler, and the host time to enqueue one call,
+           for the wrapper and (where it is launch-bound) the library call
+  kernel_sweep  segment_extreme and dense_build (redesigned for Hopper)
+           against their plain versions at shapes beyond the main path's:
+           global-atomic path, sorted ids, one group, 2^21-row builds, and
+           dense_build's paths on both sides of its plan's threshold
 
 Any failed phase exits non-zero. The line before the last is the kernel
 table as JSON; the last line is {"ok": true, "device": {...}}.
@@ -279,6 +286,55 @@ def cuda_ms(torch, fn, reps=7):
     return float(np.median(times))
 
 
+def host_us(torch, fn, reps=100):
+    """Mean host time (us) to enqueue one call of `fn`: the wrapper's checks,
+    allocations, launch and any torch ops around it, timed call by call
+    with the device drained every 10 calls outside the timed part."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for i in range(reps):
+        t = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t
+        if i % 10 == 9:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return total / reps * 1e6
+
+
+def device_time(torch, fn, reps=5):
+    """(device ms, device operations) of one call of `fn`: torch.profiler
+    over `reps` calls after a warm-up, kernels, memsets and copies only,
+    divided by `reps`. The window opens with a marker kernel
+    (torch.cuda._sleep's spin kernel), left out of the sums: the tracer may
+    drop the first device activity of a window, and the marker takes that
+    place. (None, None) when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, ops = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        # device activity rows (kernels, memsets, copies), not the marker
+        if us > 0 and e.self_cpu_time_total == 0 and "spin_kernel" not in e.key:
+            dev_us += us
+            ops += e.count
+    if ops == 0:
+        return None, None
+    return dev_us / 1e3 / reps, ops / reps
+
+
 def kernel_rows(torch, GK, captured, launches):
     """Kernel vs plain on the main path's own inputs: agreement, times and
     the byte bound of each kernel."""
@@ -380,9 +436,101 @@ def kernel_rows(torch, GK, captured, launches):
         rec["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
         rec["library_ms"] = cuda_ms(torch, lib)
+        rec["device_ms"], rec["device_ops"] = device_time(torch, run_k)
+        rec["host_us"] = host_us(torch, run_k)
+        # the library call's host and device time only where it is
+        # launch-bound (the others take hundreds of ms a call)
+        rec["library_host_us"] = rec["library_device_ms"] = None
+        rec["library_device_ops"] = None
+        if rec["library_ms"] < 1.0:
+            rec["library_host_us"] = host_us(torch, lib)
+            rec["library_device_ms"], rec["library_device_ops"] = (
+                device_time(torch, lib))
         emit({"phase": "kernel", **rec, **extra})
         out.append(rec)
     return out
+
+
+def kernel_sweep(torch, GK, dev, seed, scale=1.0):
+    """The two kernels redesigned for Hopper at shapes the main path does
+    not give them: segment_extreme's global-atomic path (2^26 lanes, 65,536
+    groups), sorted ids and one group (single-group warps), and dense_build
+    at customer scale (2^21 rows, 2^21 slots); then dense_build's owner and
+    cooperative paths on both sides of the plan's threshold. Each case must
+    equal the plain version exactly; kernel ms (CUDA events), device ms and
+    operations (profiler), plain ms and the byte bound beside it. These
+    launches are not the main path's and are not counted there. `scale` < 1
+    cuts the row counts."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+
+    def timed(rec, run_k, run_p, nbytes, check):
+        if not check():
+            fail(f"kernel_sweep {rec}: kernel disagrees with plain version")
+        rec["exact"] = True
+        rec["ms"] = cuda_ms(torch, run_k)
+        rec["device_ms"], rec["device_ops"] = device_time(torch, run_k)
+        rec["plain_ms"] = cuda_ms(torch, run_p, reps=3) if run_p else None
+        rec["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
+        rec["bound_by"] = "bytes"
+        emit({"phase": "kernel_sweep", **rec})
+        rows.append(rec)
+
+    for case, n, g in [("global", 1 << 26, 65536), ("sorted", 1 << 26, 1024),
+                       ("one_group", 1 << 24, 1)]:
+        n = max(1024, int(n * scale))
+        vals = torch.randn(n, generator=gen, device=dev)
+        gid = torch.randint(-1, g, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if case == "sorted":
+            gid = torch.sort(gid).values
+        elif case == "one_group":
+            gid.zero_()
+
+        def check(vals=vals, gid=gid, g=g):
+            ke, kc = GK.segment_extreme(vals, gid, g, True)
+            pe, pc = GK.segment_extreme_plain(vals, gid, g, True)
+            return bool(torch.equal(kc, pc)) and bool(torch.equal(ke, pe))
+        plan = GK.segment_extreme_plan(n, g, n_sm)
+        timed({"name": "segment_extreme", "case": case, "n": n, "groups": g,
+               "tables": plan.tables, "blocks": plan.blocks},
+              lambda: GK.segment_extreme(vals, gid, g, True),
+              lambda: GK.segment_extreme_plain(vals, gid, g, True),
+              n * 8 + g * 8, check)
+        del vals, gid
+
+    def dense_case(n, cap, paths, case):
+        perm = torch.randperm(cap, generator=gen, device=dev)[:n]
+        rkey = perm.to(torch.int64) - 5
+        rlive = torch.rand(n, generator=gen, device=dev) > 0.04
+        for path in paths:
+            plan = (GK.dense_build_plan(0, cap) if path == "owner" else
+                    GK.DensePlan(path, 0, 0))
+
+            def check(plan=plan):
+                kp, kr = GK.dense_build(rkey, rlive, -5, cap, plan=plan)
+                pp, pr = GK.dense_build_plain(rkey, rlive, -5, cap)
+                return bool(torch.equal(kp, pp)) and bool(torch.equal(kr, pr))
+            chosen = GK.dense_build_plan(n, cap).path
+            timed({"name": "dense_build", "case": case, "n": n,
+                   "table_cap": cap, "path": plan.path,
+                   "slots": plan.slots,
+                   "plan_picks": chosen == path},
+                  lambda plan=plan: GK.dense_build(rkey, rlive, -5, cap,
+                                                   plan=plan),
+                  (lambda: GK.dense_build_plain(rkey, rlive, -5, cap))
+                  if path == chosen else None,
+                  n * 9 + cap * 5, check)
+
+    big = max(1024, int((1 << 21) * scale))
+    dense_case(big, 1 << 21, ("cooperative",), "customer")
+    for cap in (1 << 18, 1 << 21):
+        edge = GK.dense_owner_max_rows(cap)
+        for n in sorted({1024, 4096, edge // 2, edge, 2 * edge, 8 * edge}):
+            dense_case(n, cap, ("owner", "cooperative"), "threshold")
+    return rows
 
 
 def profile_query(torch, run_once, q, top=10):
@@ -565,6 +713,11 @@ def main(argv=None):
 
     # -- kernels ---------------------------------------------------------
     kernels = kernel_rows(torch, GK, captured, launches)
+
+    # -- kernel_sweep ------------------------------------------------------
+    del tables, s_on, s_off, captured
+    torch.cuda.empty_cache()
+    kernel_sweep(torch, GK, dev, args.seed, min(1.0, args.scale))
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

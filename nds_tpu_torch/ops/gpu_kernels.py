@@ -27,6 +27,8 @@ Sums accumulate in f32, as the TPU kernel's contract states.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -59,19 +61,24 @@ _SIGNATURES = {
     ("segment_sums", "seg_sums_launch"):
         [_P, _P, _I64, _INT, _P, _P, _INT, _P],
     ("segment_extreme", "seg_extreme_launch"):
-        [_P, _P, _I64, _INT, _INT, _P, _P, _P, _INT, _P],
+        [_P, _P, _I64, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _P],
     ("dense_build", "dense_build_launch"):
-        [_P, _P, _I64, _I64, _I64, _P, _P, _INT, _P],
+        [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _INT, _INT, _INT, _P],
     ("sort_perm", "sort_perm_launch"):
         [_P, _I64, _INT, _I64, _INT, _P, _P, _P, _P, _P, _P],
 }
 
 
+_FNS = {}  # (source, symbol) -> ctypes function, argtypes set
+
+
 def _fn(source: str, symbol: str):
-    fn = getattr(_build.load(source), symbol)
-    if fn.argtypes is None:
+    fn = _FNS.get((source, symbol))
+    if fn is None:
+        fn = getattr(_build.load(source), symbol)
         fn.argtypes = _SIGNATURES[(source, symbol)]
         fn.restype = ctypes.c_int
+        _FNS[(source, symbol)] = fn
     return fn
 
 
@@ -98,10 +105,19 @@ def _check(what: str, t: torch.Tensor, dtype, n=None):
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
+_SM_COUNT = {}  # device index -> streaming multiprocessors
+
+
 def _launch_args(t: torch.Tensor):
     dev = t.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    return n_sm, torch.cuda.current_stream(dev).cuda_stream
+    n_sm = _SM_COUNT.get(dev.index)
+    if n_sm is None:
+        n_sm = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    # the raw cudaStream_t of the current stream, without building a
+    # torch.cuda.Stream object on every launch (what torch's own generated
+    # kernels call)
+    return n_sm, torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _raise_if(rc: int, what: str):
@@ -181,6 +197,47 @@ def _order_key(f: float) -> int:
     return b if b >= 0 else b ^ 0x7FFFFFFF
 
 
+#: shared memory of one Hopper SM and the most one block may use (H100:
+#: 228 KB and 227 KB; the runtime keeps 1 KB of the SM per resident block)
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+_SMEM_RESERVED = 1024
+
+#: segment_extreme's launch shape (csrc/segment_extreme.cu): 512 threads,
+#: two 16-byte loads of four rows each in flight per thread and array
+SEG_THREADS = 512
+SEG_ROWS_PER_THREAD = 8
+
+
+class SegPlan(NamedTuple):
+    tables: int  # private shared-memory tables per block; 0 = global path
+    threads: int
+    blocks: int
+    smem: int  # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def segment_extreme_plan(n: int, n_groups: int, n_sm: int) -> SegPlan:
+    """Launch plan of the segment_extreme kernel: private shared-memory
+    tables (12 bytes per group each) while they fit, one per warp where
+    room allows and else one per group of warps, two blocks per SM while
+    the tables leave room for both; beyond one block's shared memory the
+    global-atomic path (tables 0). One persistent grid: at most two blocks
+    per SM, never more blocks than rows need, at least one."""
+    warps = SEG_THREADS // 32
+    table = 12 * max(1, n_groups)
+    two_per_sm = (SMEM_PER_SM - 2 * _SMEM_RESERVED) // 2
+    if table <= two_per_sm:
+        per_sm, tables = 2, min(warps, two_per_sm // table)
+    elif table <= SMEM_PER_BLOCK:
+        per_sm, tables = 1, min(warps, SMEM_PER_BLOCK // table)
+    else:
+        per_sm, tables = 2, 0
+    need = -(-n // (SEG_THREADS * SEG_ROWS_PER_THREAD))
+    blocks = max(1, min(per_sm * n_sm, need))
+    return SegPlan(tables, SEG_THREADS, blocks, tables * table)
+
+
 def segment_extreme(vals, gid, n_groups: int, is_max: bool):
     """segment_extreme_pallas's counterpart."""
     if not _on_card(vals, "segment_extreme"):
@@ -193,13 +250,16 @@ def segment_extreme(vals, gid, n_groups: int, is_max: bool):
     keys = torch.full((n_groups,), ident, dtype=torch.int32, device=dev)
     counts = torch.zeros(n_groups, dtype=torch.int32, device=dev)
     nan_flag = torch.zeros(n_groups, dtype=torch.int32, device=dev)
-    n_sm, stream = _launch_args(vals)
-    rc = _fn("segment_extreme", "seg_extreme_launch")(
-        vals.data_ptr(), gid.data_ptr(), n, n_groups, int(bool(is_max)),
-        keys.data_ptr(), counts.data_ptr(), nan_flag.data_ptr(), n_sm, stream,
-    )
-    _raise_if(rc, "segment_extreme")
-    LAUNCHES["segment_extreme"] += 1
+    if n > 0 and n_groups > 0:
+        n_sm, stream = _launch_args(vals)
+        plan = segment_extreme_plan(n, n_groups, n_sm)
+        rc = _fn("segment_extreme", "seg_extreme_launch")(
+            vals.data_ptr(), gid.data_ptr(), n, n_groups, int(bool(is_max)),
+            keys.data_ptr(), counts.data_ptr(), nan_flag.data_ptr(),
+            plan.tables, plan.threads, plan.blocks, stream,
+        )
+        _raise_if(rc, "segment_extreme")
+        LAUNCHES["segment_extreme"] += 1
     bits = torch.where(keys >= 0, keys, keys ^ 0x7FFFFFFF)
     ext = torch.where(nan_flag != 0, float("nan"), bits.view(torch.float32))
     return ext, counts
@@ -228,23 +288,76 @@ def dense_build_plain(rkey, rlive, rmin: int, table_cap: int):
     return presence[:table_cap], rows[:table_cap]
 
 
-def dense_build(rkey, rlive, rmin: int, table_cap: int):
-    """dense_build_pallas's counterpart."""
+#: dense_build's owner path (csrc/dense_build.cu): slots one CTA owns (16 KB
+#: of shared memory), and the largest build side it takes: at most this
+#: many rows, and at most this many key reads over all its CTAs. Past
+#: either, the cooperative path is faster (chip_smoke.py's kernel_sweep).
+DENSE_OWNER_SLOTS = 4096
+DENSE_OWNER_MAX_ROWS = 8192
+DENSE_OWNER_MAX_READS = 1 << 22
+_DENSE_PATHS = {"owner": 0, "cooperative": 1}
+
+
+class DensePlan(NamedTuple):
+    path: str  # "owner" or "cooperative"
+    slots: int  # slots per owner CTA (0 otherwise)
+    grid: int  # owner CTAs (0: the launch sizes the grid)
+
+
+def _dense_owner_shape(table_cap: int):
+    slots = min(DENSE_OWNER_SLOTS, -(-table_cap // 16) * 16)
+    return slots, max(1, -(-table_cap // slots))
+
+
+def dense_owner_max_rows(table_cap: int) -> int:
+    """The most build rows dense_build's owner path takes for a table of
+    `table_cap` slots."""
+    _, grid = _dense_owner_shape(table_cap)
+    return min(DENSE_OWNER_MAX_ROWS, DENSE_OWNER_MAX_READS // grid)
+
+
+@functools.lru_cache(maxsize=256)
+def dense_build_plan(n: int, table_cap: int) -> DensePlan:
+    """Launch plan of the dense_build kernel for `n` build rows and
+    `table_cap` slots: the owner path (CTAs of up to DENSE_OWNER_SLOTS
+    slots, a multiple of 16) up to dense_owner_max_rows, else the
+    cooperative init + scatter kernel, whose grid the launch sizes from the
+    occupancy."""
+    if n <= dense_owner_max_rows(table_cap):
+        return DensePlan("owner", *_dense_owner_shape(table_cap))
+    return DensePlan("cooperative", 0, 0)
+
+
+def dense_build(rkey, rlive, rmin: int, table_cap: int, plan=None):
+    """dense_build_pallas's counterpart. One device operation per call: the
+    kernel writes every slot of two uninitialised tables (two allocations
+    cost less host time than views into one). `plan` (a DensePlan)
+    overrides dense_build_plan's choice, to time one path against
+    another."""
     if not _on_card(rkey, "dense_build"):
         return dense_build_plain(rkey, rlive, rmin, table_cap)
     n = rkey.shape[0]
     _check("dense_build rkey", rkey, torch.int64)
     _check("dense_build rlive", rlive, torch.bool, n)
-    dev = rkey.device
-    presence = torch.zeros(table_cap, dtype=torch.bool, device=dev)
-    rows = torch.zeros(table_cap, dtype=torch.int32, device=dev)
+    if n >= 1 << 31 or table_cap <= 0:
+        raise ValueError(f"dense_build: {n} build rows (int32 row indices) "
+                         f"or table_cap {table_cap} out of range")
     n_sm, stream = _launch_args(rkey)
+    if plan is None:
+        plan = dense_build_plan(n, table_cap)
+    cap_pad = -(-table_cap // 16) * 16  # whole 16-byte stores
+    dev = rkey.device
+    rows = torch.empty(cap_pad, dtype=torch.int32, device=dev)
+    presence = torch.empty(cap_pad, dtype=torch.bool, device=dev)
     rc = _fn("dense_build", "dense_build_launch")(
         rkey.data_ptr(), rlive.data_ptr(), n, int(rmin), int(table_cap),
-        presence.data_ptr(), rows.data_ptr(), n_sm, stream,
+        cap_pad, rows.data_ptr(), presence.data_ptr(),
+        _DENSE_PATHS[plan.path], plan.slots, n_sm, stream,
     )
     _raise_if(rc, "dense_build")
     LAUNCHES["dense_build"] += 1
+    if cap_pad != table_cap:
+        return presence[:table_cap], rows[:table_cap]
     return presence, rows
 
 

@@ -64,3 +64,149 @@ def test_dense_build_and_sort_match_plain_on_card(cuda):
         r, h = GK.sort_rank(w.int(), dom)
         pr_, ph = GK.sort_rank_plain(w.int(), dom)
         assert torch.equal(r, pr_) and torch.equal(h, ph)
+
+
+# ---------------------------------------------------------------------------
+# The shapes on which the redesigned segment_extreme and dense_build kernels
+# branch: 16-byte chunks and their ragged tail, unaligned heads, the plan's
+# shared-memory limits, single-group warps, NaN, the owner and cooperative
+# paths of dense_build. Kernel against plain version, exactly.
+# ---------------------------------------------------------------------------
+
+_TWO_PER_SM = (GK.SMEM_PER_SM - 2 * 1024) // 2
+G_TWO = _TWO_PER_SM // 12
+G_ONE = GK.SMEM_PER_BLOCK // 12
+
+
+def _same_extreme(v, i, g):
+    for is_max in (False, True):
+        ke, kc = GK.segment_extreme(v, i, g, is_max)
+        pe, pc = GK.segment_extreme_plain(v, i, g, is_max)
+        assert torch.equal(kc, pc)
+        # NaN where the plain version has NaN, equal values elsewhere
+        assert torch.equal(torch.isnan(ke), torch.isnan(pe))
+        assert torch.equal(torch.nan_to_num(ke), torch.nan_to_num(pe))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 5, 4097])
+@pytest.mark.parametrize(
+    "g", [10, G_TWO, G_TWO + 1, G_ONE, G_ONE + 1])
+def test_segment_extreme_tail_and_table_limits_on_card(cuda, n, g):
+    vals, gid = _seg_inputs(n, g, n + g, -500, 500)
+    _same_extreme(torch.from_numpy(vals).to(cuda),
+                  torch.from_numpy(gid).to(cuda), g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_group", "one_of_many", "sorted",
+                                  "dead_tail"])
+def test_segment_extreme_uniform_runs_on_card(cuda, case):
+    n = (1 << 20) + 3
+    vals, gid = _seg_inputs(n, 300, 5, -500, 500)
+    g = 300
+    if case == "one_group":  # 2^20 rows, one group: no 32-way contention
+        g, gid = 1, np.zeros_like(gid)
+    elif case == "one_of_many":
+        gid = np.full_like(gid, 7)
+    elif case == "sorted":
+        gid = np.sort(gid)
+    else:  # live rows, then padding lanes, as at fact width
+        gid[n // 2:] = -1
+    _same_extreme(torch.from_numpy(vals).to(cuda),
+                  torch.from_numpy(gid).to(cuda), g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ids", ["random", "one_group"])
+def test_segment_extreme_nan_on_card(cuda, ids):
+    g = 8
+    vals, gid = _seg_inputs(4099, g, 11, -50, 50)
+    if ids == "one_group":
+        gid = np.where(gid >= 0, 5, gid).astype(np.int32)
+    vals[:2], gid[:2] = np.nan, [-1, g]  # dead lanes: no effect
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(gid).to(cuda)
+    _same_extreme(v, i, g)
+    assert not torch.isnan(GK.segment_extreme(v, i, g, True)[0]).any()
+    vals[4098], gid[4098] = np.nan, 5  # the last row (the ragged tail), live
+    vals[2000], gid[2000] = np.nan, 3  # a row of a 16-byte chunk, live
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(gid).to(cuda)
+    _same_extreme(v, i, g)
+    ext = GK.segment_extreme(v, i, g, False)[0]
+    assert bool(torch.isnan(ext[5])) and bool(torch.isnan(ext[3]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off_v,off_g", [(1, 1), (2, 2), (3, 3), (1, 0),
+                                         (0, 3)])
+def test_segment_extreme_unaligned_slices_on_card(cuda, off_v, off_g):
+    n = 100_003
+    vals, gid = _seg_inputs(n + 3, 50, off_v * 4 + off_g, -500, 500)
+    v = torch.from_numpy(vals).to(cuda)[off_v:off_v + n]
+    i = torch.from_numpy(gid).to(cuda)[off_g:off_g + n]
+    assert v.is_contiguous() and i.is_contiguous()
+    _same_extreme(v, i, 50)
+
+
+def _same_dense(keys, live, rmin, cap, plan=None):
+    kp, kr = GK.dense_build(keys, live, rmin, cap, plan=plan)
+    pp, pr = GK.dense_build_plain(keys, live, rmin, cap)
+    assert torch.equal(kp, pp) and torch.equal(kr, pr)
+
+
+def _dense_inputs(cuda, n, rmin, cap, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(rmin - 50, rmin + cap + 50, n).astype(np.int64)
+    live = rng.random(n) > 0.2
+    return (torch.from_numpy(keys).to(cuda), torch.from_numpy(live).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 4097])
+@pytest.mark.parametrize("rmin", [-100, 0, 2_450_815])
+def test_dense_build_small_on_card(cuda, n, rmin):
+    keys, live = _dense_inputs(cuda, n, rmin, 1 << 18, n + rmin % 997)
+    if n >= 3:  # a duplicate key (the larger row wins) and the last slot
+        keys[:3] = torch.tensor([rmin, rmin, rmin + (1 << 18) - 1])
+        live[:3] = True
+    _same_dense(keys, live, rmin, 1 << 18)
+    _same_dense(keys, live, rmin, 1000)  # a table not a multiple of 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1 << 18, 1 << 21, 1 << 23])
+@pytest.mark.parametrize("side", [0, 1])
+def test_dense_build_across_owner_threshold_on_card(cuda, cap, side):
+    n = GK.dense_owner_max_rows(cap) + side
+    keys, live = _dense_inputs(cuda, n, -3, cap, cap + side)
+    _same_dense(keys, live, -3, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["owner", "cooperative"])
+def test_dense_build_every_path_on_card(cuda, path):
+    for n, cap in [(0, 64), (5000, 1 << 18), (70_000, 100_000)]:
+        plan = GK.dense_build_plan(0, cap)  # the owner layout
+        if path != "owner":
+            plan = GK.DensePlan(path, 0, 0)
+        keys, live = _dense_inputs(cuda, n, 7, cap, n)
+        _same_dense(keys, live, 7, cap, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off_k,off_l", [(1, 1), (1, 3), (0, 2)])
+@pytest.mark.parametrize("n", [4097, 300_001])
+def test_dense_build_unaligned_slices_on_card(cuda, n, off_k, off_l):
+    keys, live = _dense_inputs(cuda, n + 3, -9, 1 << 18, n + off_l)
+    _same_dense(keys[off_k:off_k + n], live[off_l:off_l + n], -9, 1 << 18)
+
+
+@pytest.mark.gpu
+def test_dense_build_customer_scale_on_card(cuda):
+    """2^21 build rows into 2^21 slots (customer at SF100): the
+    cooperative path, a unique permuted key per row."""
+    rng = np.random.default_rng(21)
+    n = 1 << 21
+    keys = torch.from_numpy(rng.permutation(n).astype(np.int64) + 1).to(cuda)
+    live = torch.from_numpy(rng.random(n) > 0.04).to(cuda)
+    _same_dense(keys, live, 1, n)

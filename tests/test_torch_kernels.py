@@ -160,3 +160,162 @@ def test_plain_path_launches_no_kernel():
     GK.segment_sums(torch.ones(4), torch.zeros(4, dtype=torch.int32), 2)
     GK.sort_perm(torch.zeros(4, dtype=torch.int64), 128)
     assert all(v == 0 for v in GK.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# The shapes on which the redesigned segment_extreme and dense_build kernels
+# branch (csrc/segment_extreme.cu, csrc/dense_build.cu): the plain versions
+# the wrappers run on the CPU, held against the TPU kernels there. The
+# kernels themselves meet the same cases on the card (test_torch_gpu.py).
+# ---------------------------------------------------------------------------
+
+_TWO_PER_SM = (GK.SMEM_PER_SM - 2 * 1024) // 2
+#: largest n_groups whose table lets two blocks share an SM, and largest
+#: whose table fits one block (past it: the global-atomic path)
+G_TWO = _TWO_PER_SM // 12
+G_ONE = GK.SMEM_PER_BLOCK // 12
+
+
+def _extreme_vs_pallas(vals, gid, g, is_max):
+    je, jc = PK.segment_extreme_pallas(jnp.asarray(vals), jnp.asarray(gid),
+                                       g, is_max, interpret=True)
+    te, tc = GK.segment_extreme(torch.from_numpy(vals),
+                                torch.from_numpy(gid), g, is_max)
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc).astype(np.int32))
+    return te
+
+
+@pytest.mark.parametrize("is_max", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 5, 4097])
+def test_segment_extreme_plain_matches_pallas_vector_tail(n, is_max):
+    """n not a multiple of 4: the kernel's 16-byte chunks leave a tail."""
+    vals, gid = _seg_inputs(n, 10, 40 + n, -500, 500)
+    _extreme_vs_pallas(vals, gid, 10, is_max)
+
+
+@pytest.mark.parametrize(
+    "g,is_max",
+    [(G_TWO, True), (G_TWO + 1, False), (G_ONE, False), (G_ONE + 1, True)],
+)
+def test_segment_extreme_plain_matches_pallas_at_table_limits(g, is_max):
+    """n_groups on both sides of each shared-memory limit of the plan."""
+    vals, gid = _seg_inputs(4097, g, g, -500, 500)
+    gid[:2] = [g - 1, 0]  # the last and first slot both live
+    _extreme_vs_pallas(vals, gid, g, is_max)
+
+
+@pytest.mark.parametrize("is_max", [False, True])
+@pytest.mark.parametrize("case", ["one_group", "one_of_many", "sorted"])
+def test_segment_extreme_plain_matches_pallas_uniform_runs(case, is_max):
+    """Runs of one id: the kernel's single-group warp reduction."""
+    vals, gid = _seg_inputs(4097, 300, 9, -500, 500)
+    g = 300
+    if case == "one_group":
+        g, gid = 1, np.zeros_like(gid)
+    elif case == "one_of_many":
+        gid = np.full_like(gid, 7)
+        gid[-3:] = -1  # a dead tail after the run
+    else:
+        gid = np.sort(gid)
+    _extreme_vs_pallas(vals, gid, g, is_max)
+
+
+@pytest.mark.parametrize("is_max", [False, True])
+@pytest.mark.parametrize("ids", ["random", "one_group"])
+def test_segment_extreme_nan_dead_lanes_ignored_live_propagates(ids, is_max):
+    g = 8
+    vals, gid = _seg_inputs(1030, g, 11, -50, 50)
+    if ids == "one_group":
+        gid = np.where(gid >= 0, 5, gid).astype(np.int32)
+    vals[0] = np.nan
+    gid[0] = -1  # dead: padding lane
+    vals[1] = np.nan
+    gid[1] = g  # dead: id past the last group
+    te = _extreme_vs_pallas(vals, gid, g, is_max)
+    assert not np.isnan(te.numpy()).any()
+    vals[1029] = np.nan  # the last row, live
+    gid[1029] = 5
+    te = _extreme_vs_pallas(vals, gid, g, is_max)
+    assert np.isnan(te[5].item())
+    assert np.isnan(te.numpy()).sum() == 1
+
+
+def _dense_vs_tpu(keys, live, rmin, cap, pallas=True):
+    tp, tr = GK.dense_build(torch.from_numpy(keys), torch.from_numpy(live),
+                            rmin, cap)
+    xp, xr = JK.dense_build(jnp.asarray(keys), jnp.asarray(live), rmin, cap)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(xp))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(xr))
+    if pallas:
+        jp, jr = PK.dense_build_pallas(jnp.asarray(keys), jnp.asarray(live),
+                                       rmin, cap, interpret=True)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    return tp, tr
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4097])
+def test_dense_build_plain_matches_tpu_negative_rmin_dups_out_of_range(n):
+    rng = np.random.default_rng(70 + n)
+    rmin, cap = -100, 1024
+    keys = rng.integers(rmin - 60, rmin + cap + 60, n).astype(np.int64)
+    live = rng.random(n) > 0.25
+    if n >= 3:
+        keys[:3] = [rmin, rmin, rmin + cap - 1]  # a duplicate and the last slot
+        live[:3] = True
+    tp, tr = _dense_vs_tpu(keys, live, rmin, cap)
+    if n >= 3:
+        assert tp[0] and tp[cap - 1]
+        assert int(tr[0]) >= 1  # the larger duplicate row wins
+
+
+@pytest.mark.parametrize("cap", [1 << 18, 1 << 21, 1 << 23])
+@pytest.mark.parametrize("side", [0, 1])
+def test_dense_build_plain_matches_xla_across_owner_threshold(cap, side):
+    n = GK.dense_owner_max_rows(cap) + side
+    assert GK.dense_build_plan(n, cap).path == (
+        "owner" if side == 0 else "cooperative")
+    rng = np.random.default_rng(cap + side)
+    rmin = -3
+    keys = rng.integers(rmin - 10, rmin + cap + 10, n).astype(np.int64)
+    live = rng.random(n) > 0.1
+    _dense_vs_tpu(keys, live, rmin, cap, pallas=False)
+
+
+@pytest.mark.parametrize("n_sm", [1, 132])
+@pytest.mark.parametrize("n", [0, 1, 4097, 1 << 29])
+@pytest.mark.parametrize(
+    "g", [1, 2, 1024, G_TWO, G_TWO + 1, G_ONE, G_ONE + 1, 65536, 1 << 20])
+def test_segment_extreme_plan_fits_hopper(g, n, n_sm):
+    plan = GK.segment_extreme_plan(n, g, n_sm)
+    assert 1 <= plan.blocks <= 2 * n_sm
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert plan.smem == 12 * g * plan.tables <= GK.SMEM_PER_BLOCK
+    assert 0 <= plan.tables <= plan.threads // 32
+    # every n_groups has a path: shared tables while one fits a block
+    assert (plan.tables > 0) == (12 * g <= GK.SMEM_PER_BLOCK)
+    if plan.smem > _TWO_PER_SM:  # one block per SM: the grid says so
+        assert plan.blocks <= n_sm
+
+
+@pytest.mark.parametrize("cap", [1, 16, 1000, 1 << 18, 1 << 21, 1 << 26])
+@pytest.mark.parametrize("n", [0, 1, 4096, 8193, 1 << 21])
+def test_dense_build_plan_fits_hopper(n, cap):
+    plan = GK.dense_build_plan(n, cap)
+    if plan.path == "owner":
+        assert plan.slots % 16 == 0 and plan.slots > 0
+        assert plan.grid >= 1 and plan.grid * plan.slots >= cap
+        assert n <= GK.DENSE_OWNER_MAX_ROWS
+        assert n * plan.grid <= GK.DENSE_OWNER_MAX_READS
+        assert plan.slots * 4 <= 48 * 1024  # no shared-memory attribute
+    else:
+        assert plan.path == "cooperative" and n > 0
+
+
+def test_dense_build_plan_q3_shape_takes_owner_path():
+    """q3 at SF100 builds 4,096 item rows into 2^18 slots: the owner path;
+    customer at SF100 (2^21 rows and slots) the cooperative one."""
+    plan = GK.dense_build_plan(4096, 1 << 18)
+    assert plan.path == "owner" and plan.grid == 64
+    assert GK.dense_build_plan(1 << 21, 1 << 21).path == "cooperative"
