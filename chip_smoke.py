@@ -25,10 +25,16 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            the device time and device operations (kernels, memsets) of one
            call from torch.profiler, and the host time to enqueue one call,
            for the wrapper and (where it is launch-bound) the library call
-  kernel_sweep  segment_extreme and dense_build (redesigned for Hopper)
-           against their plain versions at shapes beyond the main path's:
-           global-atomic path, sorted ids, one group, 2^21-row builds, and
-           dense_build's paths on both sides of its plan's threshold
+  kernel_sweep  the kernels redesigned for Hopper against their plain
+           versions at shapes beyond the main path's: segment_extreme's
+           global-atomic path, sorted ids and one group; 2^21-row builds
+           and dense_build's paths on both sides of its plan's threshold;
+           sort_perm at 2^24 rows over domains 128..2048, one key, sorted,
+           reverse-sorted, ragged, int32 and int64 words, its one-CTA and
+           grid paths on both sides of the plan's threshold, sort_rank with
+           -1 lanes; segment_sums at 2^26 rows (random, sorted, 65,536
+           groups on the global path), 2^24 rows of one group, and q3's
+           4,096 groups with one row and with 2^18 dead rows
 
 Any failed phase exits non-zero. The line before the last is the kernel
 table as JSON; the last line is {"ok": true, "device": {...}}.
@@ -41,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -304,12 +311,15 @@ def host_us(torch, fn, reps=100):
 
 
 def device_time(torch, fn, reps=5):
-    """(device ms, device operations) of one call of `fn`: torch.profiler
-    over `reps` calls after a warm-up, kernels, memsets and copies only,
-    divided by `reps`. The window opens with a marker kernel
+    """(device ms, device operations, {operation: [ms, count]}) of one call
+    of `fn`: torch.profiler over `reps` calls after a warm-up, kernels,
+    memsets and copies only, divided by `reps`; the last item names each
+    device operation (kernel name, cut to 70 characters), so the passes of
+    a multi-kernel call show apart. The window opens with a marker kernel
     (torch.cuda._sleep's spin kernel), left out of the sums: the tracer may
     drop the first device activity of a window, and the marker takes that
-    place. (None, None) when the profiler records no device activity."""
+    place. (None, None, None) when the profiler records no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -321,7 +331,7 @@ def device_time(torch, fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev_us, ops = 0.0, 0
+    dev_us, ops, by_op = 0.0, 0, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -330,9 +340,10 @@ def device_time(torch, fn, reps=5):
         if us > 0 and e.self_cpu_time_total == 0 and "spin_kernel" not in e.key:
             dev_us += us
             ops += e.count
+            by_op[e.key[:70]] = [us / 1e3 / reps, e.count / reps]
     if ops == 0:
-        return None, None
-    return dev_us / 1e3 / reps, ops / reps
+        return None, None, None
+    return dev_us / 1e3 / reps, ops / reps, by_op
 
 
 def kernel_rows(torch, GK, captured, launches):
@@ -436,7 +447,8 @@ def kernel_rows(torch, GK, captured, launches):
         rec["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
         rec["library_ms"] = cuda_ms(torch, lib)
-        rec["device_ms"], rec["device_ops"] = device_time(torch, run_k)
+        (rec["device_ms"], rec["device_ops"],
+         rec["device_by_op"]) = device_time(torch, run_k)
         rec["host_us"] = host_us(torch, run_k)
         # the library call's host and device time only where it is
         # launch-bound (the others take hundreds of ms a call)
@@ -444,7 +456,7 @@ def kernel_rows(torch, GK, captured, launches):
         rec["library_device_ops"] = None
         if rec["library_ms"] < 1.0:
             rec["library_host_us"] = host_us(torch, lib)
-            rec["library_device_ms"], rec["library_device_ops"] = (
+            rec["library_device_ms"], rec["library_device_ops"], _ = (
                 device_time(torch, lib))
         emit({"phase": "kernel", **rec, **extra})
         out.append(rec)
@@ -452,13 +464,15 @@ def kernel_rows(torch, GK, captured, launches):
 
 
 def kernel_sweep(torch, GK, dev, seed, scale=1.0):
-    """The two kernels redesigned for Hopper at shapes the main path does
-    not give them: segment_extreme's global-atomic path (2^26 lanes, 65,536
+    """The kernels redesigned for Hopper at shapes the main path does not
+    give them: segment_extreme's global-atomic path (2^26 lanes, 65,536
     groups), sorted ids and one group (single-group warps), and dense_build
     at customer scale (2^21 rows, 2^21 slots); then dense_build's owner and
-    cooperative paths on both sides of the plan's threshold. Each case must
-    equal the plain version exactly; kernel ms (CUDA events), device ms and
-    operations (profiler), plain ms and the byte bound beside it. These
+    cooperative paths on both sides of the plan's threshold; sort_perm's
+    and segment_sums' cases (module docstring). Each case must equal the
+    plain version exactly (segment_sums: counts exactly, sums within
+    f32_sum_rtol of an f64 sum); kernel ms (CUDA events), device ms and
+    operations, by operation (profiler), plain ms and the byte bound. These
     launches are not the main path's and are not counted there. `scale` < 1
     cuts the row counts."""
     gen = torch.Generator(device=dev)
@@ -471,7 +485,8 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
             fail(f"kernel_sweep {rec}: kernel disagrees with plain version")
         rec["exact"] = True
         rec["ms"] = cuda_ms(torch, run_k)
-        rec["device_ms"], rec["device_ops"] = device_time(torch, run_k)
+        (rec["device_ms"], rec["device_ops"],
+         rec["device_by_op"]) = device_time(torch, run_k)
         rec["plain_ms"] = cuda_ms(torch, run_p, reps=3) if run_p else None
         rec["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
@@ -530,6 +545,126 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         edge = GK.dense_owner_max_rows(cap)
         for n in sorted({1024, 4096, edge // 2, edge, 2 * edge, 8 * edge}):
             dense_case(n, cap, ("owner", "cooperative"), "threshold")
+
+    # -- sort_perm / sort_rank ---------------------------------------------
+    def sort_case(case, n, dom, dtype=torch.int64, path=None):
+        w = torch.randint(0, dom, (n,), generator=gen, device=dev,
+                          dtype=dtype)
+        if case == "one_key":
+            w.fill_(dom // 2)
+        elif case == "sorted":
+            w = torch.sort(w).values
+        elif case == "reverse":
+            w = torch.sort(w, descending=True).values
+        plan = GK.sort_perm_plan(n, dom, n_sm, path)
+        chosen = GK.sort_perm_plan(n, dom, n_sm).path
+
+        def check():
+            return bool(torch.equal(GK.sort_perm(w, dom, plan=plan),
+                                    GK.sort_perm_plain(w, dom)))
+        timed({"name": "sort_perm", "case": case, "n": n, "domain": dom,
+               "word": str(dtype).split(".")[-1], "path": plan.path,
+               "blocks": plan.blocks, "plan_picks": chosen == plan.path},
+              lambda: GK.sort_perm(w, dom, plan=plan),
+              lambda: GK.sort_perm_plain(w, dom),
+              n * w.element_size() + n * 4, check)
+
+    big = max(4096, int((1 << 24) * scale))
+    sort_case("random", big, 2048)
+    sort_case("random", big, 128)
+    sort_case("one_key", big, 384)
+    sort_case("sorted", big, 2048)
+    sort_case("reverse", big, 2048)
+    sort_case("ragged", big - 1, 384)
+    sort_case("random", big, 384, torch.int32)
+    sort_case("random", big, 384, torch.int64)
+    for n in (100, 4096, 4097, 8192, 16384, 65536):
+        for path in ("one_cta", "grid"):
+            sort_case("threshold", n, 384, torch.int64, path)
+    v = torch.randint(0, 384, (big,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    v[::17] = -1  # padding lanes: counted nowhere, rank unspecified
+    live = v >= 0
+
+    def rank_check():
+        r, h = GK.sort_rank(v, 384)
+        pr, ph = GK.sort_rank_plain(v, 384)
+        return bool(torch.equal(h, ph)) and bool(torch.equal(r[live],
+                                                              pr[live]))
+    timed({"name": "sort_rank", "case": "padding_lanes", "n": big,
+           "domain": 384, "path": GK.sort_perm_plan(big, 384, n_sm).path},
+          lambda: GK.sort_rank(v, 384), lambda: GK.sort_rank_plain(v, 384),
+          big * 4 + big * 4 + 384 * 4, rank_check)
+    del v, live
+
+    # -- segment_sums ------------------------------------------------------
+    # non-negative values, so f32_sum_rtol bounds each sum against an f64
+    # one; counts exact against the plain version
+    # q3's 4,096 groups with one row (launch, zeroing and the grid barrier
+    # alone) and with 2^18 dead rows (the loads too, no folding): what the
+    # main path's 2^18 rows cost beyond them is the folding
+    for case, n, g in [("random", 1 << 26, 1024), ("global", 1 << 26, 65536),
+                       ("sorted", 1 << 26, 1024), ("one_group", 1 << 24, 1),
+                       ("one_row", 1, 4096), ("all_dead", 1 << 18, 4096)]:
+        n = max(1, int(n * scale)) if n == 1 else max(1024, int(n * scale))
+        vals = torch.rand(n, generator=gen, device=dev)
+        gid = torch.randint(-1, g, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if case == "sorted":
+            gid = torch.sort(gid).values
+        elif case == "one_group":
+            gid.zero_()
+        elif case == "all_dead":
+            gid.fill_(-1)
+        slot = torch.where(gid >= 0, gid, g).long()
+        exact = torch.zeros(g + 1, dtype=torch.float64,
+                            device=dev).index_add_(0, slot, vals.double())[:g]
+        plan = GK.segment_sums_plan(n, g, n_sm)
+        rec = {"name": "segment_sums", "case": case, "n": n, "groups": g,
+               "tables": plan.tables, "blocks": plan.blocks}
+
+        def check(vals=vals, gid=gid, g=g, exact=exact, rec=rec):
+            ks, kc = GK.segment_sums(vals, gid, g)
+            _, pc = GK.segment_sums_plain(vals, gid, g)
+            rec["rtol"] = f32_sum_rtol(int(pc.max().item()))
+            rel = ((ks.double() - exact).abs()
+                   / exact.abs().clamp(min=1e-300))[pc > 0]
+            rec["max_rel_vs_f64"] = (float(rel.max().item()) if rel.numel()
+                                     else 0.0)
+            rec["counts_exact"] = bool(torch.equal(kc, pc))
+            return rec["counts_exact"] and rec["max_rel_vs_f64"] <= rec["rtol"]
+        timed(rec, lambda: GK.segment_sums(vals, gid, g),
+              lambda: GK.segment_sums_plain(vals, gid, g),
+              n * 8 + g * 8, check)
+        del vals, gid, slot, exact
+
+    # q3's shape (2^18 rows, 4,096 groups): ~230K live rows sorted into
+    # 2,870 runs, 4% dead lanes between them, a dead tail; the plan's grid
+    # against wider ones (fewer rows per warp, shorter chains of shuffles)
+    n, g = 1 << 18, 4096
+    live_n = int(n * 0.88)
+    gid = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    gid[:live_n] = torch.sort(torch.randint(
+        0, 2870, (live_n,), generator=gen, device=dev,
+        dtype=torch.int32)).values
+    gid[torch.rand(n, generator=gen, device=dev) < 0.04] = -1
+    vals = torch.rand(n, generator=gen, device=dev)
+    chosen = GK.segment_sums_plan(n, g, n_sm)
+    for blocks in sorted({chosen.blocks, n_sm, 2 * n_sm}):
+        plan = chosen._replace(blocks=blocks)
+
+        def check(plan=plan):
+            ks, kc = GK.segment_sums(vals, gid, g, plan=plan)
+            ps, pc = GK.segment_sums_plain(vals, gid, g)
+            rtol = f32_sum_rtol(int(pc.max().item()))
+            return bool(torch.equal(kc, pc)) and bool(
+                ((ks - ps).abs() <= 2 * rtol * ps.abs()).all())
+        timed({"name": "segment_sums", "case": "q3_shape", "n": n,
+               "groups": g, "tables": plan.tables, "blocks": blocks,
+               "plan_picks": blocks == chosen.blocks},
+              lambda plan=plan: GK.segment_sums(vals, gid, g, plan=plan),
+              lambda: GK.segment_sums_plain(vals, gid, g),
+              n * 8 + g * 8, check)
     return rows
 
 
@@ -608,8 +743,14 @@ def main(argv=None):
     # -- build -----------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
+    spills = {}  # ptxas's spill stores per source, where it built here
+    for name in built:
+        with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
+            spills[name] = sum(int(b) for b in re.findall(
+                r"(\d+) bytes spill stores", f.read()))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(built), "sources": _build.sources()})
+          "built": sorted(built), "sources": _build.sources(),
+          "spill_store_bytes": spills})
 
     # -- data ------------------------------------------------------------
     t0 = time.perf_counter()

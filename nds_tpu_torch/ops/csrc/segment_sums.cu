@@ -7,124 +7,341 @@
 // bound by device-memory bytes (n * 8 B over 3.35 TB/s), and atomics in
 // shared memory are cheap.
 //
-// Design:
-//   * grid-stride loop over rows, all 32 lanes of a warp in lock-step (the
-//     loop bound is warp-uniform), so full-mask warp intrinsics are legal;
-//   * warp pre-reduction of equal group ids before any atomic: the sort-based
-//     aggregation feeds gid in SORTED order, where a whole warp hits one
-//     address. `__match_any_sync` finds the lanes sharing a gid; a warp whose
-//     lanes all agree reduces with a butterfly, a warp whose gids are all
-//     distinct skips the reduction, and a mixed warp sums its peer groups with
-//     one 32-step shuffle sweep;
-//   * when n_groups fits shared memory each block keeps (f32 sum, u32 count)
-//     per group there and flushes one global atomic per touched group at the
-//     end; otherwise the peer leaders add straight into global memory.
-// Numerics: f32 accumulation, the TPU kernel's stated contract; counts exact.
-// A gid outside [0, n_groups) is a dead row and contributes nothing.
+// What kept the first port from that bound at the aggregation's shapes
+// (2^18 rows, 4,096 groups: 0.6 us of bytes): two memsets before the
+// kernel, each block zeroing and flushing a whole table for 2,048 rows, and
+// a 32-step shuffle sweep in every mixed warp. The design:
+//   * ONE device operation per call, no memset: a cooperative kernel
+//     (cudaLaunchCooperativeKernel; the host-side plan
+//     gpu_kernels.segment_sums_plan sizes a grid that is co-resident, two
+//     blocks per SM at most) zeroes its slice of the outputs, and
+//     grid.sync()s before its first global atomic: on the shared-table path
+//     only after all its rows are folded, so the barrier's wait overlaps
+//     with the streaming of the slower blocks;
+//   * streaming as segment_extreme.cu: each thread makes 16-byte loads (four
+//     values, four ids), two of each in flight, with the streaming cache
+//     hint; an unaligned head and the ragged tail go row by row, and vals
+//     and gid misaligned by different amounts load row by row;
+//   * per 128 rows a warp takes the smallest and largest live id with two
+//     redux instructions: no live row (the dead padding lanes): skip; one
+//     group (sorted ids: the aggregation's usual input): a butterfly sum, a
+//     redux count and one atomic of each; several groups whose live ids
+//     do not decrease along the rows (sorted ids with dead lanes between:
+//     runs of ~100 rows, so most warps of the aggregation are mixed): per
+//     row slot j, a max-scan over the lanes gives each lane its run's id
+//     and a segmented shuffle reduction one atomic per run, because 32
+//     lanes adding floats to one shared address serialise (this measured
+//     15.9 us at 2^18 rows x 4,096 groups where one atomic per row was
+//     left); the four slots' shuffle chains run side by side, since a
+//     warp at that shape folds only 256 rows and waits on their latency;
+//     ids in no order: each live row goes straight to an atomicAdd on its
+//     group's sum and count (no peer sweep);
+//   * tables: while 8 bytes per group fit, each block keeps private tables
+//     in dynamic shared memory (several where rows and room allow, one per
+//     group of warps), and flushes only the groups between the smallest and
+//     largest id it saw, one global atomic per touched group. Beyond shared
+//     memory the same code adds straight into the global arrays.
+// Numerics: f32 accumulation, the TPU kernel's stated contract; counts
+// exact. A gid outside [0, n_groups) is a dead row and contributes nothing
+// (its value is never read into a sum, NaN or not).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kUnroll = 2;  // 16-byte loads in flight per array per thread
 constexpr unsigned kFull = 0xffffffffu;
-// 8 bytes per group: 6144 groups fill the default 48 KB of shared memory
-constexpr int kSmemGroups = 6144;
 
-// Sum of `v` over the lanes whose bit is set in `peers`, valid in every
-// lane (each lane gets its own peer group's sum). All 32 lanes must call.
-__device__ __forceinline__ float peer_sum(float v, unsigned peers,
-                                          bool uniform, bool distinct) {
-  if (distinct) return v;
-  if (uniform) {
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-    return v;
+struct Tables {
+  float* sum;
+  int32_t* cnt;
+};
+
+// Fold four rows per lane into the tables; widen [lo, hi] to the live ids
+// seen. Warp-collective: all 32 lanes call it together (a lane with no
+// rows passes dead ids).
+__device__ __forceinline__ void fold4(const float4 v4, const int4 g4,
+                                      int n_groups, const Tables& t, int& lo,
+                                      int& hi) {
+  const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+  const int g[4] = {g4.x, g4.y, g4.z, g4.w};
+  int l = INT_MAX, h = -1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (static_cast<unsigned>(g[j]) < static_cast<unsigned>(n_groups)) {
+      l = min(l, g[j]);
+      h = max(h, g[j]);
+    }
   }
-  float s = 0.f;
-  for (int src = 0; src < 32; ++src) {
-    const float x = __shfl_sync(kFull, v, src);
-    if (peers & (1u << src)) s += x;
+  const int wh = __reduce_max_sync(kFull, h);
+  if (wh < 0) return;  // no live row in these 128
+  const int wl = __reduce_min_sync(kFull, l);
+  lo = min(lo, wl);
+  hi = max(hi, wh);
+  if (wl == wh) {
+    float s = 0.f;
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (g[j] == wl) {
+        s += v[j];
+        ++c;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+    c = __reduce_add_sync(kFull, c);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(&t.sum[wl], s);
+      atomicAdd(&t.cnt[wl], static_cast<int32_t>(c));
+    }
+    return;
   }
-  return s;
+  // Several groups. Row j of every lane (rows 4 * lane + j) in order: where
+  // their live ids do not decrease (sorted ids, dead lanes in between), a
+  // segmented shuffle reduction leaves one atomic per run of one id; the
+  // four row slots go through it side by side (independent shuffle chains).
+  // Otherwise (ids in no order) each live row makes its own atomics.
+  const int lane = threadIdx.x & 31;
+  bool live[4];
+  bool mono = true;  // first a lane-local test: ids in no order pay no scan
+  int last = -1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    live[j] = static_cast<unsigned>(g[j]) < static_cast<unsigned>(n_groups);
+    if (live[j]) {
+      mono = mono && g[j] >= last;
+      last = g[j];
+    }
+  }
+  if (__all_sync(kFull, mono)) {
+    // run id: the largest live id at or before this lane (-1 before any)
+    int key[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) key[j] = live[j] ? g[j] : -1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = __shfl_up_sync(kFull, key[j], off);
+        if (lane >= off) key[j] = max(key[j], k);
+      }
+    }
+    bool sorted = true;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sorted = sorted && (!live[j] || key[j] == g[j]);
+    if (__all_sync(kFull, sorted)) {
+      float s[4];
+      int c[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j] = live[j] ? v[j] : 0.f;
+        c[j] = live[j] ? 1 : 0;
+      }
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float ts = __shfl_down_sync(kFull, s[j], off);
+          const int tc = __shfl_down_sync(kFull, c[j], off);
+          const int tk = __shfl_down_sync(kFull, key[j], off);
+          if (lane + off < 32 && tk == key[j]) {
+            s[j] += ts;
+            c[j] += tc;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int prev = __shfl_up_sync(kFull, key[j], 1);
+        if (key[j] >= 0 && (lane == 0 || prev != key[j])) {  // run's first lane
+          atomicAdd(&t.sum[key[j]], s[j]);
+          atomicAdd(&t.cnt[key[j]], c[j]);
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (live[j]) {
+      atomicAdd(&t.sum[g[j]], v[j]);
+      atomicAdd(&t.cnt[g[j]], 1);
+    }
+  }
 }
 
 template <bool kShared>
-__global__ void seg_sums_kernel(const float* __restrict__ vals,
-                                const int32_t* __restrict__ gid, int64_t n,
-                                int n_groups, float* __restrict__ sums,
-                                int32_t* __restrict__ counts) {
-  extern __shared__ unsigned char smem[];
-  float* s_sum = reinterpret_cast<float*>(smem);
-  unsigned* s_cnt = reinterpret_cast<unsigned*>(s_sum + (kShared ? n_groups : 0));
-  if (kShared) {
-    for (int g = threadIdx.x; g < n_groups; g += blockDim.x) {
-      s_sum[g] = 0.f;
-      s_cnt[g] = 0u;
-    }
-    __syncthreads();
-  }
+__global__ void __launch_bounds__(kThreads, 2)
+    seg_sums_kernel(const float* __restrict__ vals,
+                    const int32_t* __restrict__ gid, int64_t n, int n_groups,
+                    int n_tables, float* __restrict__ sums,
+                    int32_t* __restrict__ counts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_lo, s_hi;
+  cg::grid_group grid = cg::this_grid();
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t warps_per_grid = (int64_t)gridDim.x * (blockDim.x / 32);
-  const int64_t warp_id = (int64_t)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
-  for (int64_t base = warp_id * 32; base < n; base += warps_per_grid * 32) {
-    const int64_t i = base + lane;
-    int g = -1;
-    float v = 0.f;
-    if (i < n) {
-      g = gid[i];
-      v = vals[i];
-    }
-    const bool live = g >= 0 && g < n_groups;
-    if (!live) {
-      g = -1;
-      v = 0.f;
-    }
-    const unsigned peers = __match_any_sync(kFull, g);
-    const bool uniform = __all_sync(kFull, peers == kFull);
-    const bool distinct = __all_sync(kFull, __popc(peers) == 1);
-    const float s = peer_sum(v, peers, uniform, distinct);
-    const bool leader = live && (__ffs(peers) - 1) == lane;
-    if (leader) {
-      const unsigned c = __popc(peers);
-      if (kShared) {
-        atomicAdd(&s_sum[g], s);
-        atomicAdd(&s_cnt[g], c);
-      } else {
-        atomicAdd(&sums[g], s);
-        atomicAdd(&counts[g], (int32_t)c);
-      }
-    }
+
+  // this block's slice of the outputs
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t g = tid; g < n_groups; g += stride) {
+    sums[g] = 0.f;
+    counts[g] = 0;
   }
+  Tables t{sums, counts};
   if (kShared) {
+    float* tsum = reinterpret_cast<float*>(smem);
+    int32_t* tcnt = reinterpret_cast<int32_t*>(tsum + n_tables * n_groups);
+    for (int i = threadIdx.x; i < n_tables * n_groups; i += kThreads) {
+      tsum[i] = 0.f;
+      tcnt[i] = 0;
+    }
+    if (threadIdx.x == 0) {
+      s_lo = INT_MAX;
+      s_hi = -1;
+    }
+    const int tb = warp % n_tables;
+    t = Tables{tsum + tb * n_groups, tcnt + tb * n_groups};
     __syncthreads();
-    for (int g = threadIdx.x; g < n_groups; g += blockDim.x) {
-      const unsigned c = s_cnt[g];
+  } else {
+    grid.sync();  // every output zeroed before the first global atomic
+  }
+
+  const uintptr_t av = reinterpret_cast<uintptr_t>(vals);
+  const uintptr_t ag = reinterpret_cast<uintptr_t>(gid);
+  const bool vec = ((av ^ ag) & 15) == 0;
+  int64_t head = vec ? static_cast<int64_t>(((16 - (av & 15)) & 15) >> 2) : 0;
+  if (head > n) head = n;
+  const int64_t n_chunks = vec ? (n - head) >> 2 : (n + 3) >> 2;
+  const float4* v4 = reinterpret_cast<const float4*>(vals + head);
+  const int4* g4 = reinterpret_cast<const int4*>(gid + head);
+
+  int lo = INT_MAX, hi = -1;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads >> 5);
+  const int64_t step = warps * 32 * kUnroll;
+  for (int64_t c0 = (static_cast<int64_t>(blockIdx.x) * (kThreads >> 5) + warp) *
+                    32 * kUnroll;
+       c0 < n_chunks; c0 += step) {
+    float4 v[kUnroll];
+    int4 g[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t c = c0 + u * 32 + lane;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      g[u] = make_int4(-1, -1, -1, -1);
+      if (c < n_chunks) {
+        if (vec) {
+          v[u] = __ldcs(v4 + c);
+          g[u] = __ldcs(g4 + c);
+        } else {
+          const int64_t r = 4 * c;
+          float* vp = &v[u].x;
+          int* gp = &g[u].x;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (r + j < n) {
+              vp[j] = __ldcs(vals + r + j);
+              gp[j] = __ldcs(gid + r + j);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) fold4(v[u], g[u], n_groups, t, lo, hi);
+  }
+
+  // The rows the 16-byte chunks left out: the head before the first aligned
+  // chunk (lanes 0..3) and the ragged tail after the last (lanes 4..7).
+  if (vec && blockIdx.x == 0 && warp == 0) {
+    const int64_t tail0 = head + 4 * n_chunks;
+    int64_t r = -1;
+    if (lane < 4 && lane < head) r = lane;
+    else if (lane >= 4 && lane < 8 && tail0 + (lane - 4) < n) r = tail0 + (lane - 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    int4 g = make_int4(-1, -1, -1, -1);
+    if (r >= 0) {
+      v.x = vals[r];
+      g.x = gid[r];
+    }
+    fold4(v, g, n_groups, t, lo, hi);
+  }
+
+  if (kShared) {
+    if (lane == 0 && hi >= 0) {
+      atomicMin(&s_lo, lo);
+      atomicMax(&s_hi, hi);
+    }
+    __syncthreads();
+    grid.sync();  // every output zeroed before the first global atomic
+    const float* tsum = reinterpret_cast<const float*>(smem);
+    const int32_t* tcnt =
+        reinterpret_cast<const int32_t*>(tsum + n_tables * n_groups);
+    const int g_lo = s_hi >= 0 ? s_lo : 0, g_hi = s_hi;  // none: no flush
+    for (int g = g_lo + threadIdx.x; g <= g_hi; g += kThreads) {
+      float s = 0.f;
+      int32_t c = 0;
+      for (int tb = 0; tb < n_tables; ++tb) {
+        s += tsum[tb * n_groups + g];
+        c += tcnt[tb * n_groups + g];
+      }
       if (c) {
-        atomicAdd(&sums[g], s_sum[g]);
-        atomicAdd(&counts[g], (int32_t)c);
+        atomicAdd(&sums[g], s);
+        atomicAdd(&counts[g], c);
       }
     }
   }
+}
+
+template <bool kShared>
+int launch(const float* vals, const int32_t* gid, int64_t n, int n_groups,
+           int n_tables, float* sums, int32_t* counts, int blocks, int smem,
+           cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    static int granted = 48 * 1024;  // per instantiation; raise only
+    if (smem > granted) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          seg_sums_kernel<kShared>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      granted = smem;
+    }
+  }
+  void* args[] = {&vals, &gid, &n, &n_groups, &n_tables, &sums, &counts};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(seg_sums_kernel<kShared>), dim3(blocks),
+      dim3(kThreads), args, static_cast<size_t>(smem), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// sums/counts must be zero-filled by the caller. Returns cudaGetLastError().
+// sums/counts: any contents, every entry written. n_tables > 0 selects the
+// shared-memory tables (n_tables * 8 * n_groups bytes per block, beside 16
+// bytes of static shared memory), 0 the
+// global path. `blocks` must be co-resident (the plan's grid); a grid that
+// is not is refused by the runtime and its error returned. Returns
+// cudaGetLastError() or the refused call's error.
 extern "C" int seg_sums_launch(const float* vals, const int32_t* gid,
                                int64_t n, int n_groups, float* sums,
-                               int32_t* counts, int n_sm, void* stream) {
-  if (n == 0 || n_groups == 0) return 0;
-  const int64_t want = (n + kThreads * 8 - 1) / (kThreads * 8);
-  const int blocks = (int)(want < (int64_t)n_sm * 8 ? want : (int64_t)n_sm * 8);
+                               int32_t* counts, int n_tables, int blocks,
+                               void* stream) {
+  if (n_groups <= 0 || blocks <= 0 || n_tables < 0 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem64 = static_cast<int64_t>(n_tables) * 8 * n_groups;
+  if (smem64 > 232448 - 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_groups <= kSmemGroups) {
-    const size_t smem = (size_t)n_groups * 8;
-    seg_sums_kernel<true><<<blocks, kThreads, smem, s>>>(vals, gid, n, n_groups,
-                                                         sums, counts);
-  } else {
-    seg_sums_kernel<false><<<blocks, kThreads, 0, s>>>(vals, gid, n, n_groups,
-                                                       sums, counts);
-  }
-  return (int)cudaGetLastError();
+  if (n_tables > 0)
+    return launch<true>(vals, gid, n, n_groups, n_tables, sums, counts, blocks,
+                        static_cast<int>(smem64), s);
+  return launch<false>(vals, gid, n, n_groups, 0, sums, counts, blocks, 0, s);
 }

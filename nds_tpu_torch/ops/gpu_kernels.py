@@ -59,13 +59,13 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _SIGNATURES = {
     ("segment_sums", "seg_sums_launch"):
-        [_P, _P, _I64, _INT, _P, _P, _INT, _P],
+        [_P, _P, _I64, _INT, _P, _P, _INT, _INT, _P],
     ("segment_extreme", "seg_extreme_launch"):
         [_P, _P, _I64, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _P],
     ("dense_build", "dense_build_launch"):
         [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _INT, _INT, _INT, _P],
     ("sort_perm", "sort_perm_launch"):
-        [_P, _I64, _INT, _I64, _INT, _P, _P, _P, _P, _P, _P],
+        [_P, _INT, _I64, _INT, _INT, _I64, _INT, _P, _P, _P, _P, _P],
 }
 
 
@@ -147,19 +147,63 @@ def segment_sums_plain(vals, gid, n_groups: int):
     return sums[:n_groups], counts[:n_groups]
 
 
-def segment_sums(vals, gid, n_groups: int):
-    """segment_sums_pallas's counterpart (and the platform dispatcher's)."""
+#: segment_sums' launch shape (csrc/segment_sums.cu): 512 threads, two
+#: 16-byte loads of four rows each in flight per thread and array
+SUMS_THREADS = 512
+SUMS_ROWS_PER_THREAD = 8
+SUMS_MAX_TABLES = 4
+_SUMS_STATIC_SMEM = 16  # the block's smallest and largest id seen
+
+
+def _sums_table_limits():
+    """(largest n_groups whose table lets two blocks share an SM, largest
+    whose table fits one block) of segment_sums' shared path."""
+    two = (SMEM_PER_SM - 2 * (_SMEM_RESERVED + _SUMS_STATIC_SMEM)) // 2
+    return two // 8, (SMEM_PER_BLOCK - _SUMS_STATIC_SMEM) // 8
+
+
+@functools.lru_cache(maxsize=256)
+def segment_sums_plan(n: int, n_groups: int, n_sm: int) -> SegPlan:
+    """Launch plan of the segment_sums kernel: one co-resident grid (the
+    kernel grid.sync()s), never more blocks than rows need, at least one;
+    private shared-memory tables (8 bytes per group each) while one fits a
+    block: up to SUMS_MAX_TABLES where two blocks still share an SM and the
+    block's rows outnumber the table entries it would zero, else one;
+    beyond one block's shared memory the global-atomic path (tables 0)."""
+    g = max(1, n_groups)
+    g_two, g_one = _sums_table_limits()
+    need = -(-n // (SUMS_THREADS * SUMS_ROWS_PER_THREAD))
+    if g <= g_two:
+        blocks = max(1, min(2 * n_sm, need))
+        rows = -(-n // blocks)
+        tables = max(1, min(SUMS_MAX_TABLES, g_two // g, rows // g))
+    elif g <= g_one:
+        blocks, tables = max(1, min(n_sm, need)), 1
+    else:
+        blocks, tables = max(1, min(2 * n_sm, need)), 0
+    return SegPlan(tables, SUMS_THREADS, blocks, tables * 8 * g)
+
+
+def segment_sums(vals, gid, n_groups: int, plan=None):
+    """segment_sums_pallas's counterpart (and the platform dispatcher's).
+    One device operation per call: the kernel writes every entry of two
+    uninitialised outputs. `plan` (a SegPlan) overrides
+    segment_sums_plan's choice, to time one grid against another."""
     if not _on_card(vals, "segment_sums"):
         return segment_sums_plain(vals, gid, n_groups)
     n = vals.shape[0]
     _check("segment_sums vals", vals, torch.float32)
     _check("segment_sums gid", gid, torch.int32, n)
-    sums = torch.zeros(n_groups, dtype=torch.float32, device=vals.device)
-    counts = torch.zeros(n_groups, dtype=torch.int32, device=vals.device)
+    sums = torch.empty(n_groups, dtype=torch.float32, device=vals.device)
+    counts = torch.empty(n_groups, dtype=torch.int32, device=vals.device)
+    if n_groups <= 0:
+        return sums, counts
     n_sm, stream = _launch_args(vals)
+    if plan is None:
+        plan = segment_sums_plan(n, n_groups, n_sm)
     rc = _fn("segment_sums", "seg_sums_launch")(
         vals.data_ptr(), gid.data_ptr(), n, n_groups, sums.data_ptr(),
-        counts.data_ptr(), n_sm, stream,
+        counts.data_ptr(), plan.tables, plan.blocks, stream,
     )
     _raise_if(rc, "segment_sums")
     LAUNCHES["segment_sums"] += 1
@@ -390,47 +434,99 @@ def sort_perm_plain(word, domain: int):
     )
 
 
-def _sort_pipeline(vals, domain: int):
-    n = vals.shape[0]
-    _check("sort_perm vals", vals, torch.int32)
+#: sort_perm's launch shape (csrc/sort_perm.cu): CTAs of 512 threads that
+#: walk whole tiles of 4,096 rows; a 16-bit count per (key, warp), three
+#: int tables per key and a staged tile in pass 2's shared memory
+SORT_THREADS = 512
+SORT_TILE = 4096
+#: the most rows the one-CTA path takes (one launch: histogram, scan and
+#: scatter in one block); past it three launches over the whole card are
+#: faster (chip_smoke.py's kernel_sweep times both on either side)
+SORT_ONE_CTA_MAX_ROWS = 4096
+_SORT_PATHS = {"one_cta": 0, "grid": 1}
+
+
+def sort_rank_smem(domain: int) -> int:
+    """Dynamic shared memory (bytes) of sort_perm's pass 2 and one-CTA
+    kernels for `domain` keys."""
+    return domain * ((SORT_THREADS // 32) * 2 + 12) + SORT_TILE * 6
+
+
+class SortPlan(NamedTuple):
+    path: str  # "one_cta" or "grid"
+    blocks: int  # CTAs of passes 1 and 2 (1 on the one-CTA path)
+    rows_per_block: int  # contiguous rows each CTA owns: whole tiles
+    smem: int  # pass 2's dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def sort_perm_plan(n: int, domain: int, n_sm: int, path=None) -> SortPlan:
+    """Launch plan of the counting sort of `n` keys in [0, `domain`): one
+    CTA up to SORT_ONE_CTA_MAX_ROWS rows, else a persistent grid of two
+    CTAs per SM (pass 2's shared memory lets two share an SM for every
+    domain up to SORT_MAX_DOMAIN), each owning a contiguous run of whole
+    tiles, never more CTAs than tiles. `path` ("one_cta" or "grid") forces
+    a path, to time one against the other."""
     if not 0 < domain <= SORT_MAX_DOMAIN:
         raise ValueError(f"sort_perm: domain {domain} outside "
                          f"(0, {SORT_MAX_DOMAIN}]")
+    if path is None:
+        path = "one_cta" if n <= SORT_ONE_CTA_MAX_ROWS else "grid"
+    smem = sort_rank_smem(domain)
+    tiles = max(1, -(-n // SORT_TILE))
+    if path == "one_cta":
+        return SortPlan("one_cta", 1, tiles * SORT_TILE, smem)
+    per_sm = 2 if 2 * (smem + _SMEM_RESERVED + 64) <= SMEM_PER_SM else 1
+    blocks = min(per_sm * n_sm, tiles)
+    rows_per_block = -(-tiles // blocks) * SORT_TILE
+    return SortPlan("grid", -(-max(1, n) // rows_per_block), rows_per_block,
+                    smem)
+
+
+def _sort_pipeline(keys, domain: int, want_rank: bool, plan=None):
+    """(rank or None, hist, perm) from one call of the counting sort."""
+    n = keys.shape[0]
+    if keys.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"sort_perm: expected an int32 or int64 word, got "
+                        f"{keys.dtype}")
+    _check("sort_perm keys", keys, keys.dtype)
     if n > SORT_MAX_ROWS:
         raise ValueError(f"sort_perm: {n} rows exceed {SORT_MAX_ROWS}")
-    dev = vals.device
-    rows_per_block = max(4096, -(-n // 4096))
-    n_blocks = max(1, -(-n // rows_per_block))
-    block_hist = torch.empty(n_blocks * domain, dtype=torch.int32, device=dev)
-    key_base = torch.empty(domain, dtype=torch.int32, device=dev)
-    hist = torch.empty(domain, dtype=torch.int32, device=dev)
-    rank = torch.empty(n, dtype=torch.int32, device=dev)
-    perm = torch.zeros(n, dtype=torch.int32, device=dev)
-    _, stream = _launch_args(vals)
+    n_sm, stream = _launch_args(keys)
+    if plan is None:
+        plan = sort_perm_plan(n, domain, n_sm)
+    dev = keys.device
+    scratch = 0 if plan.path == "one_cta" else plan.blocks * domain
+    hist = torch.empty(scratch + domain, dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    rank = torch.empty(n, dtype=torch.int32, device=dev) if want_rank else None
     rc = _fn("sort_perm", "sort_perm_launch")(
-        vals.data_ptr(), n, domain, rows_per_block, n_blocks,
-        block_hist.data_ptr(), key_base.data_ptr(), hist.data_ptr(),
-        rank.data_ptr(), perm.data_ptr(), stream,
+        keys.data_ptr(), keys.element_size(), n, domain,
+        _SORT_PATHS[plan.path], plan.rows_per_block, plan.blocks,
+        hist.data_ptr(), hist.data_ptr() + 4 * scratch,
+        rank.data_ptr() if want_rank else None, perm.data_ptr(), stream,
     )
     _raise_if(rc, "sort_perm")
     LAUNCHES["sort_perm"] += 1
-    return rank, hist, perm
+    return rank, (hist[scratch:] if scratch else hist), perm
 
 
-def sort_rank(vals, domain: int):
-    """sort_rank_pallas's counterpart."""
+def sort_rank(vals, domain: int, plan=None):
+    """sort_rank_pallas's counterpart. `plan` (a SortPlan) overrides
+    sort_perm_plan's choice, to time one path against another."""
     if not _on_card(vals, "sort_rank"):
         return sort_rank_plain(vals, domain)
-    rank, hist, _ = _sort_pipeline(vals, domain)
+    _check("sort_rank vals", vals, torch.int32)
+    rank, hist, _ = _sort_pipeline(vals, domain, True, plan)
     return rank, hist
 
 
-def sort_perm(word, domain: int):
+def sort_perm(word, domain: int, plan=None):
     """sort_perm_pallas's counterpart: the stable ascending argsort of one
-    small-domain sort word, identical to kernels.sort_by_words([word])."""
+    small-domain sort word, identical to kernels.sort_by_words([word]). The
+    kernel reads an int32 or int64 word as it is (no conversion pass) in one
+    launch for small n and three otherwise, with no memset. `plan` as for
+    sort_rank."""
     if not _on_card(word, "sort_perm"):
         return sort_perm_plain(word, domain)
-    if word.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"sort_perm: expected an integer word, got "
-                        f"{word.dtype}")
-    return _sort_pipeline(word.to(torch.int32).contiguous(), domain)[2]
+    return _sort_pipeline(word.contiguous(), domain, False, plan)[2]

@@ -210,3 +210,160 @@ def test_dense_build_customer_scale_on_card(cuda):
     keys = torch.from_numpy(rng.permutation(n).astype(np.int64) + 1).to(cuda)
     live = torch.from_numpy(rng.random(n) > 0.04).to(cuda)
     _same_dense(keys, live, 1, n)
+
+
+# ---------------------------------------------------------------------------
+# The shapes on which the redesigned sort_perm and segment_sums kernels
+# branch: the one-CTA path and the grid path on both sides of the plan's
+# threshold, whole and ragged 4,096-row tiles, domains 1..2048, one key,
+# sorted and reverse-sorted words, -1 lanes, int32 and int64 words,
+# unaligned slices; segment_sums' shared tables on both sides of their
+# limits, sorted ids with dead lanes, one group, the global path.
+# Kernel against plain version, exactly.
+# ---------------------------------------------------------------------------
+
+SORT_NS = [0, 1, 3, 4095, 4096, 4097, GK.SORT_ONE_CTA_MAX_ROWS,
+           GK.SORT_ONE_CTA_MAX_ROWS + 1, 65536, (1 << 20) + 3]
+
+
+def _same_sort(w, dom, plan=None):
+    got = GK.sort_perm(w, dom, plan=plan)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, GK.sort_perm_plain(w, dom))
+
+
+def _sort_plans(n, dom):
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return [GK.sort_perm_plan(n, dom, n_sm, path)
+            for path in ("one_cta", "grid")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dom", [1, 128, 129, 2048])
+@pytest.mark.parametrize("n", SORT_NS)
+def test_sort_perm_matches_plain_on_card(cuda, n, dom):
+    rng = np.random.default_rng(n + dom)
+    w = torch.from_numpy(rng.integers(0, dom, n)).to(cuda)
+    _same_sort(w, dom)
+    _same_sort(w.int(), dom)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4097, 65536, 300_001])
+@pytest.mark.parametrize("path", [0, 1])
+def test_sort_perm_every_path_on_card(cuda, n, path):
+    rng = np.random.default_rng(n)
+    for dom in (1, 384, 2048):
+        w = torch.from_numpy(rng.integers(0, dom, n)).to(cuda)
+        _same_sort(w, dom, _sort_plans(n, dom)[path])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_key", "sorted", "reverse", "runs"])
+@pytest.mark.parametrize("n", [4097, (1 << 20) + 3])
+def test_sort_perm_patterns_on_card(cuda, case, n):
+    rng = np.random.default_rng(3)
+    dom = 2048
+    w = rng.integers(0, dom, n)
+    if case == "one_key":
+        w[:] = dom - 1
+    elif case == "sorted":
+        w.sort()
+    elif case == "reverse":
+        w = np.sort(w)[::-1].copy()
+    else:  # runs of a few keys, as an ORDER BY over a filtered fact
+        w = rng.integers(96, 101, n)
+    _same_sort(torch.from_numpy(w).to(cuda), dom)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("n", [4097, 100_003])
+def test_sort_perm_unaligned_slices_on_card(cuda, off, n):
+    rng = np.random.default_rng(off + n)
+    w = torch.from_numpy(rng.integers(0, 384, n + 3)).to(cuda)
+    for word in (w, w.int()):
+        s = word[off:off + n]
+        assert s.is_contiguous()
+        _same_sort(s, 384)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dom", [1, 129, 2048])
+@pytest.mark.parametrize("n", [3, 4097, GK.SORT_ONE_CTA_MAX_ROWS + 1,
+                               (1 << 20) + 3])
+def test_sort_rank_padding_lanes_on_card(cuda, n, dom):
+    rng = np.random.default_rng(n * 3 + dom)
+    v = rng.integers(0, dom, n).astype(np.int32)
+    v[::17] = -1  # padding lanes: counted nowhere, rank unspecified
+    v[5::23] = dom  # past the domain: the same
+    vals = torch.from_numpy(v).to(cuda)
+    live = torch.from_numpy((v >= 0) & (v < dom)).to(cuda)
+    for plan in _sort_plans(n, dom):
+        r, h = GK.sort_rank(vals, dom, plan=plan)
+        pr, ph = GK.sort_rank_plain(vals, dom)
+        assert torch.equal(h, ph)
+        assert torch.equal(r[live], pr[live])
+
+
+@pytest.mark.gpu
+def test_sort_perm_tail_is_zero_and_counts_launches(cuda):
+    """A word with keys past the domain: in-domain rows sorted first, the
+    rest of perm zero (the contract the TPU kernel's scatter leaves)."""
+    w = torch.tensor([5, 1, 9, 1, 0], dtype=torch.int64, device=cuda)
+    GK.reset_launches()
+    for plan in _sort_plans(5, 8):
+        got = GK.sort_perm(w, 8, plan=plan)
+        assert got.tolist() == [4, 1, 3, 0, 0]
+    assert GK.LAUNCHES["sort_perm"] == 2
+
+
+_SUMS_TWO, _SUMS_ONE = GK._sums_table_limits()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 4097, 262_147])
+@pytest.mark.parametrize("g", [1, 4096, _SUMS_TWO, _SUMS_TWO + 1, _SUMS_ONE,
+                               _SUMS_ONE + 1, 65536])
+def test_segment_sums_tables_and_tails_on_card(cuda, n, g):
+    vals, gid = _seg_inputs(n, g, n + g, 0, 100)
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(gid).to(cuda)
+    ks, kc = GK.segment_sums(v, i, g)
+    ps, pc = GK.segment_sums_plain(v, i, g)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sorted_dead", "one_group", "all_dead",
+                                  "nan_dead"])
+def test_segment_sums_runs_on_card(cuda, case):
+    n, g = (1 << 20) + 3, 4096
+    vals, gid = _seg_inputs(n, g, 17, 0, 4)
+    if case == "sorted_dead":  # sorted ids, dead lanes in between
+        gid = np.sort(gid)
+        gid[np.random.default_rng(1).random(n) < 0.3] = -1
+    elif case == "one_group":  # 2^20 rows of one group: sums < 2^24, exact
+        g, gid = 1, np.zeros_like(gid)
+    elif case == "all_dead":
+        gid[:] = -1
+    else:  # NaN in dead lanes only: must not reach a sum
+        vals[gid < 0] = np.nan
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(gid).to(cuda)
+    GK.reset_launches()
+    ks, kc = GK.segment_sums(v, i, g)
+    assert GK.LAUNCHES["segment_sums"] == 1
+    ps, pc = GK.segment_sums_plain(v, i, g)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off_v,off_g", [(1, 1), (2, 2), (3, 3), (1, 0),
+                                         (0, 3)])
+def test_segment_sums_unaligned_slices_on_card(cuda, off_v, off_g):
+    n = 100_003
+    vals, gid = _seg_inputs(n + 3, 50, off_v * 4 + off_g)
+    v = torch.from_numpy(vals).to(cuda)[off_v:off_v + n]
+    i = torch.from_numpy(gid).to(cuda)[off_g:off_g + n]
+    ks, kc = GK.segment_sums(v, i, 50)
+    ps, pc = GK.segment_sums_plain(v, i, 50)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)

@@ -319,3 +319,166 @@ def test_dense_build_plan_q3_shape_takes_owner_path():
     plan = GK.dense_build_plan(4096, 1 << 18)
     assert plan.path == "owner" and plan.grid == 64
     assert GK.dense_build_plan(1 << 21, 1 << 21).path == "cooperative"
+
+
+# ---------------------------------------------------------------------------
+# The shapes on which the redesigned sort_perm and segment_sums kernels
+# branch (csrc/sort_perm.cu, csrc/segment_sums.cu): whole and ragged
+# 4,096-row tiles, the one-CTA threshold, domains 1..2048, one key, sorted
+# and reverse-sorted words, -1 lanes, int32 and int64 words; segment_sums'
+# sorted ids with dead lanes and n_groups on both sides of its shared-memory
+# limits. The plain versions the wrappers run on the CPU, held against the
+# TPU kernels there; the kernels meet the same cases on the card
+# (test_torch_gpu.py).
+# ---------------------------------------------------------------------------
+
+SORT_EDGE_NS = sorted({1, 3, GK.SORT_TILE - 1, GK.SORT_TILE,
+                       GK.SORT_TILE + 1, GK.SORT_ONE_CTA_MAX_ROWS + 1})
+
+
+def _sort_vs_pallas(w, dom):
+    jperm = PK.sort_perm_pallas(jnp.asarray(w), dom, interpret=True)
+    tperm = GK.sort_perm(torch.from_numpy(w), dom)
+    assert tperm.dtype == torch.int32
+    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
+    return tperm
+
+
+@pytest.mark.parametrize("dom", [1, 128, 129, 2048])
+@pytest.mark.parametrize("n", SORT_EDGE_NS)
+def test_sort_perm_plain_matches_pallas_at_tile_edges(n, dom):
+    rng = np.random.default_rng(n * 7 + dom)
+    _sort_vs_pallas(rng.integers(0, dom, n).astype(np.int64), dom)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["one_key", "sorted", "reverse", "runs"])
+def test_sort_perm_plain_matches_pallas_patterns(case, dtype):
+    rng = np.random.default_rng(11)
+    n, dom = GK.SORT_TILE + 1, 2048
+    w = rng.integers(0, dom, n)
+    if case == "one_key":
+        w[:] = dom - 1
+    elif case == "sorted":
+        w.sort()
+    elif case == "reverse":
+        w = np.sort(w)[::-1].copy()
+    else:  # runs of five keys, as the ORDER BY over a filtered fact
+        w = rng.integers(96, 101, n)
+    tperm = _sort_vs_pallas(w.astype(dtype), dom)
+    canon = JK.sort_by_words([jnp.asarray(w.astype(np.int64))])
+    np.testing.assert_array_equal(tperm.numpy(), np.asarray(canon))
+
+
+@pytest.mark.parametrize("dom", [1, 129, 2048])
+@pytest.mark.parametrize("n", [3, GK.SORT_TILE + 1])
+def test_sort_rank_plain_matches_pallas_padding_lanes(n, dom):
+    rng = np.random.default_rng(n + 3 * dom)
+    v = rng.integers(0, dom, n).astype(np.int32)
+    v[::17] = -1  # padding lanes: counted nowhere, rank unspecified
+    jr, jh = PK.sort_rank_pallas(jnp.asarray(v), dom, interpret=True)
+    tr, th = GK.sort_rank(torch.from_numpy(v), dom)
+    live = v >= 0
+    np.testing.assert_array_equal(tr.numpy()[live],
+                                  np.asarray(jr).astype(np.int32)[live])
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh).astype(np.int32))
+
+
+_SUMS_TWO, _SUMS_ONE = GK._sums_table_limits()
+
+
+def _sums_vs_pallas(vals, gid, g):
+    js, jc = PK.segment_sums_pallas(jnp.asarray(vals), jnp.asarray(gid), g,
+                                    interpret=True)
+    ts, tc = GK.segment_sums(torch.from_numpy(vals), torch.from_numpy(gid), g)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc).astype(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4097])
+def test_segment_sums_plain_matches_pallas_sorted_dead_lanes(n):
+    """Sorted ids with dead lanes in between (the sort-based aggregation's
+    input): the kernel's segmented warp reduction."""
+    vals, gid = _seg_inputs(n, 300, 50 + n)
+    gid = np.sort(gid)
+    gid[np.random.default_rng(n).random(n) < 0.3] = -1
+    _sums_vs_pallas(vals, gid, 300)
+
+
+@pytest.mark.parametrize("g", [_SUMS_TWO, _SUMS_TWO + 1, _SUMS_ONE,
+                               _SUMS_ONE + 1])
+def test_segment_sums_plain_matches_pallas_at_table_limits(g):
+    """n_groups on both sides of each shared-memory limit of the plan."""
+    vals, gid = _seg_inputs(4097, g, g)
+    gid[:2] = [g - 1, 0]  # the last and first slot both live
+    _sums_vs_pallas(vals, gid, g)
+
+
+@pytest.mark.parametrize("n_sm", [1, 132])
+@pytest.mark.parametrize(
+    "n", [0, 1, 100, 4095, 4096, 4097, 65536, 14_398_885, (1 << 24) - 1,
+          1 << 24])
+def test_sort_perm_plan_fits_hopper(n, n_sm):
+    """Every domain in 1..2048 has a path at every n: one CTA at or below
+    the threshold, else a grid of whole tiles that covers n, at most two
+    CTAs per SM, each with pass 2's shared memory inside one block's."""
+    for dom in range(1, GK.SORT_MAX_DOMAIN + 1):
+        plan = GK.sort_perm_plan(n, dom, n_sm)
+        assert plan.smem == GK.sort_rank_smem(dom) <= GK.SMEM_PER_BLOCK
+        assert 2 * (plan.smem + 1024 + 64) <= GK.SMEM_PER_SM
+        assert plan.rows_per_block % GK.SORT_TILE == 0
+        assert plan.blocks >= 1 and plan.blocks * plan.rows_per_block >= n
+        if n <= GK.SORT_ONE_CTA_MAX_ROWS:
+            assert plan.path == "one_cta" and plan.blocks == 1
+        else:
+            assert plan.path == "grid" and plan.blocks <= 2 * n_sm
+            # no CTA without rows
+            assert (plan.blocks - 1) * plan.rows_per_block < n
+    GK.sort_perm_plan.cache_clear()
+
+
+def test_sort_perm_plan_rejects_domains_past_the_cap():
+    for dom in (0, GK.SORT_MAX_DOMAIN + 1):
+        with pytest.raises(ValueError, match="domain"):
+            GK.sort_perm_plan(100, dom, 132)
+
+
+def test_sort_perm_plan_order_shape_takes_grid_path():
+    """The ORDER BY query hands the sort 2^24 int64 keys over domain 384:
+    the grid path, two CTAs per SM on 132 SMs, 16 tiles each; a grouped
+    result of a few hundred rows takes the one-CTA path."""
+    plan = GK.sort_perm_plan(1 << 24, 384, 132)
+    assert plan.path == "grid"
+    assert plan.blocks == 256 and plan.rows_per_block == 16 * GK.SORT_TILE
+    assert GK.sort_perm_plan(300, 384, 132).path == "one_cta"
+
+
+@pytest.mark.parametrize("n_sm", [1, 132])
+@pytest.mark.parametrize("n", [0, 1, 4097, 262_144, 1 << 26])
+@pytest.mark.parametrize(
+    "g", [1, 2, 1024, 4096, _SUMS_TWO, _SUMS_TWO + 1, _SUMS_ONE,
+          _SUMS_ONE + 1, 65536, 1 << 20])
+def test_segment_sums_plan_fits_hopper(g, n, n_sm):
+    plan = GK.segment_sums_plan(n, g, n_sm)
+    assert plan.threads == GK.SUMS_THREADS
+    assert plan.smem == 8 * g * plan.tables
+    assert plan.smem + 16 <= GK.SMEM_PER_BLOCK
+    assert 0 <= plan.tables <= GK.SUMS_MAX_TABLES
+    # every n_groups has a path: shared tables while one fits a block
+    assert (plan.tables > 0) == (g <= _SUMS_ONE)
+    # the grid is co-resident (the kernel grid.sync()s): two blocks per SM
+    # only where two blocks' shared memory fits one SM
+    per_sm = 2 if 2 * (plan.smem + 16 + 1024) <= GK.SMEM_PER_SM else 1
+    assert 1 <= plan.blocks <= per_sm * n_sm
+    assert plan.blocks <= max(1, -(-n // (GK.SUMS_THREADS *
+                                         GK.SUMS_ROWS_PER_THREAD)))
+
+
+def test_segment_sums_plan_q3_shape_takes_shared_path():
+    """q3 at SF100 aggregates 2^18 rows into 4,096 groups: one shared table
+    per block (no more table entries to zero than rows), 64 blocks; 2^26
+    ids over 65,536 groups take the global path."""
+    plan = GK.segment_sums_plan(262_144, 4096, 132)
+    assert plan.tables == 1 and plan.blocks == 64
+    assert GK.segment_sums_plan(1 << 26, 65536, 132).tables == 0
+    assert GK.segment_sums_plan(1 << 26, 1024, 132).tables == 4
