@@ -30,11 +30,12 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            global-atomic path, sorted ids and one group; 2^21-row builds
            and dense_build's paths on both sides of its plan's threshold;
            sort_perm at 2^24 rows over domains 128..2048, one key, sorted,
-           reverse-sorted, ragged, int32 and int64 words, its one-CTA and
-           grid paths on both sides of the plan's threshold, sort_rank with
-           -1 lanes; segment_sums at 2^26 rows (random, sorted, 65,536
-           groups on the global path), 2^24 rows of one group, and q3's
-           4,096 groups with one row and with 2^18 dead rows
+           reverse-sorted, ragged, int32 and int64 words, small sorts of
+           100..65,536 rows, sort_rank with -1 lanes; segment_sums at 2^26
+           rows (random and sorted with one shared table per block against
+           four, 65,536 groups on the global path), 2^24 rows of one group,
+           and q3's 4,096 groups with one row, with 2^18 dead rows and
+           q3-shaped on three grids
 
 Any failed phase exits non-zero. The line before the last is the kernel
 table as JSON; the last line is {"ok": true, "device": {...}}.
@@ -214,6 +215,22 @@ def f32_sum_rtol(max_group_rows: int) -> float:
     (rows + 1) * 2^-24 of the sum. Never tighter than the validator's
     1e-5 epsilon (nds_tpu/validate.py compare)."""
     return max(1e-5, (max_group_rows + 1) * 2.0**-24)
+
+
+#: the sweep's bound on segment_sums' relative error against an f64 sum, for
+#: non-negative values: a row's value reaches its group's f32 sum through
+#: at most 9 roundings in its warp (four rows a lane, five shuffle steps),
+#: one per add into its block's shared table before it, and one per block
+#: flushed into the output before its own; each rounds by at most 2^-24 of
+#: a partial sum no larger than the whole. The sweep's shapes make at most
+#: ~800 (one group of 2^24 rows on 264 blocks: 9 + 497 + 264), ~4.8e-5;
+#: the cap leaves twice that. Without it f32_sum_rtol's count-based bound
+#: reaches ~1.0 at 2^24 rows of one group, where a zero sum would pass.
+SWEEP_SUM_RTOL_CAP = 1e-4
+
+
+def sweep_sum_rtol(max_group_rows: int) -> float:
+    return min(f32_sum_rtol(max_group_rows), SWEEP_SUM_RTOL_CAP)
 
 
 def q3_groups(res):
@@ -471,7 +488,7 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
     cooperative paths on both sides of the plan's threshold; sort_perm's
     and segment_sums' cases (module docstring). Each case must equal the
     plain version exactly (segment_sums: counts exactly, sums within
-    f32_sum_rtol of an f64 sum); kernel ms (CUDA events), device ms and
+    sweep_sum_rtol of an f64 sum); kernel ms (CUDA events), device ms and
     operations, by operation (profiler), plain ms and the byte bound. These
     launches are not the main path's and are not counted there. `scale` < 1
     cuts the row counts."""
@@ -547,7 +564,7 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
             dense_case(n, cap, ("owner", "cooperative"), "threshold")
 
     # -- sort_perm / sort_rank ---------------------------------------------
-    def sort_case(case, n, dom, dtype=torch.int64, path=None):
+    def sort_case(case, n, dom, dtype=torch.int64):
         w = torch.randint(0, dom, (n,), generator=gen, device=dev,
                           dtype=dtype)
         if case == "one_key":
@@ -556,16 +573,14 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
             w = torch.sort(w).values
         elif case == "reverse":
             w = torch.sort(w, descending=True).values
-        plan = GK.sort_perm_plan(n, dom, n_sm, path)
-        chosen = GK.sort_perm_plan(n, dom, n_sm).path
+        plan = GK.sort_perm_plan(n, dom, n_sm)
 
         def check():
-            return bool(torch.equal(GK.sort_perm(w, dom, plan=plan),
+            return bool(torch.equal(GK.sort_perm(w, dom),
                                     GK.sort_perm_plain(w, dom)))
         timed({"name": "sort_perm", "case": case, "n": n, "domain": dom,
-               "word": str(dtype).split(".")[-1], "path": plan.path,
-               "blocks": plan.blocks, "plan_picks": chosen == plan.path},
-              lambda: GK.sort_perm(w, dom, plan=plan),
+               "word": str(dtype).split(".")[-1], "blocks": plan.blocks},
+              lambda: GK.sort_perm(w, dom),
               lambda: GK.sort_perm_plain(w, dom),
               n * w.element_size() + n * 4, check)
 
@@ -578,9 +593,8 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
     sort_case("ragged", big - 1, 384)
     sort_case("random", big, 384, torch.int32)
     sort_case("random", big, 384, torch.int64)
-    for n in (100, 4096, 4097, 8192, 16384, 65536):
-        for path in ("one_cta", "grid"):
-            sort_case("threshold", n, 384, torch.int64, path)
+    for n in (100, 4096, 4097, 65536):
+        sort_case("small", n, 384)
     v = torch.randint(0, 384, (big,), generator=gen, device=dev,
                       dtype=torch.int32)
     v[::17] = -1  # padding lanes: counted nowhere, rank unspecified
@@ -592,14 +606,14 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         return bool(torch.equal(h, ph)) and bool(torch.equal(r[live],
                                                               pr[live]))
     timed({"name": "sort_rank", "case": "padding_lanes", "n": big,
-           "domain": 384, "path": GK.sort_perm_plan(big, 384, n_sm).path},
+           "domain": 384, "blocks": GK.sort_perm_plan(big, 384, n_sm).blocks},
           lambda: GK.sort_rank(v, 384), lambda: GK.sort_rank_plain(v, 384),
           big * 4 + big * 4 + 384 * 4, rank_check)
     del v, live
 
     # -- segment_sums ------------------------------------------------------
-    # non-negative values, so f32_sum_rtol bounds each sum against an f64
-    # one; counts exact against the plain version
+    # non-negative values, so each sum is held against an f64 one within
+    # sweep_sum_rtol; counts exact against the plain version
     # q3's 4,096 groups with one row (launch, zeroing and the grid barrier
     # alone) and with 2^18 dead rows (the loads too, no folding): what the
     # main path's 2^18 rows cost beyond them is the folding
@@ -619,23 +633,33 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         slot = torch.where(gid >= 0, gid, g).long()
         exact = torch.zeros(g + 1, dtype=torch.float64,
                             device=dev).index_add_(0, slot, vals.double())[:g]
-        plan = GK.segment_sums_plan(n, g, n_sm)
-        rec = {"name": "segment_sums", "case": case, "n": n, "groups": g,
-               "tables": plan.tables, "blocks": plan.blocks}
+        chosen = GK.segment_sums_plan(n, g, n_sm)
+        plans = [chosen]
+        if chosen.tables > 1:  # one shared table per block against several
+            plans.append(chosen._replace(tables=1, smem=8 * g))
+        for plan in plans:
+            rec = {"name": "segment_sums", "case": case, "n": n, "groups": g,
+                   "tables": plan.tables, "blocks": plan.blocks,
+                   "plan_picks": plan == chosen}
 
-        def check(vals=vals, gid=gid, g=g, exact=exact, rec=rec):
-            ks, kc = GK.segment_sums(vals, gid, g)
-            _, pc = GK.segment_sums_plain(vals, gid, g)
-            rec["rtol"] = f32_sum_rtol(int(pc.max().item()))
-            rel = ((ks.double() - exact).abs()
-                   / exact.abs().clamp(min=1e-300))[pc > 0]
-            rec["max_rel_vs_f64"] = (float(rel.max().item()) if rel.numel()
-                                     else 0.0)
-            rec["counts_exact"] = bool(torch.equal(kc, pc))
-            return rec["counts_exact"] and rec["max_rel_vs_f64"] <= rec["rtol"]
-        timed(rec, lambda: GK.segment_sums(vals, gid, g),
-              lambda: GK.segment_sums_plain(vals, gid, g),
-              n * 8 + g * 8, check)
+            def check(vals=vals, gid=gid, g=g, exact=exact, rec=rec,
+                      plan=plan):
+                ks, kc = GK._segment_sums_launch(vals, gid, g, plan)
+                _, pc = GK.segment_sums_plain(vals, gid, g)
+                rec["rtol"] = sweep_sum_rtol(int(pc.max().item()))
+                rel = ((ks.double() - exact).abs()
+                       / exact.abs().clamp(min=1e-300))[pc > 0]
+                rec["max_rel_vs_f64"] = (float(rel.max().item())
+                                         if rel.numel() else 0.0)
+                rec["counts_exact"] = bool(torch.equal(kc, pc))
+                return (rec["counts_exact"]
+                        and rec["max_rel_vs_f64"] <= rec["rtol"])
+            timed(rec,
+                  lambda plan=plan: GK._segment_sums_launch(vals, gid, g,
+                                                            plan),
+                  (lambda: GK.segment_sums_plain(vals, gid, g))
+                  if plan == chosen else None,
+                  n * 8 + g * 8, check)
         del vals, gid, slot, exact
 
     # q3's shape (2^18 rows, 4,096 groups): ~230K live rows sorted into
@@ -654,7 +678,7 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         plan = chosen._replace(blocks=blocks)
 
         def check(plan=plan):
-            ks, kc = GK.segment_sums(vals, gid, g, plan=plan)
+            ks, kc = GK._segment_sums_launch(vals, gid, g, plan)
             ps, pc = GK.segment_sums_plain(vals, gid, g)
             rtol = f32_sum_rtol(int(pc.max().item()))
             return bool(torch.equal(kc, pc)) and bool(
@@ -662,7 +686,7 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         timed({"name": "segment_sums", "case": "q3_shape", "n": n,
                "groups": g, "tables": plan.tables, "blocks": blocks,
                "plan_picks": blocks == chosen.blocks},
-              lambda plan=plan: GK.segment_sums(vals, gid, g, plan=plan),
+              lambda plan=plan: GK._segment_sums_launch(vals, gid, g, plan),
               lambda: GK.segment_sums_plain(vals, gid, g),
               n * 8 + g * 8, check)
     return rows

@@ -4,7 +4,7 @@ Each `csrc/<name>.cu` compiles with nvcc for sm_90a into its own shared
 library `_build/lib<name>.so` with a plain C interface, loaded with ctypes
 (no PyTorch headers, so a build takes seconds, not minutes). All sources
 compile in parallel, one nvcc process each. A library is rebuilt when its
-source is newer; the build writes to a temporary name and renames it into
+source or a shared header of csrc/ (`*.cuh`) is newer; the build writes to a temporary name and renames it into
 place, so a concurrent loader never sees a half-written library.
 
 Nothing here runs at import time: the first `load()` builds.
@@ -55,8 +55,11 @@ def _lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [f"{name}.cu"] + [f for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(os.path.join(CSRC, f)) for f in deps)
+    return os.path.getmtime(lib) < newest
 
 
 def build_all(names=None) -> dict:

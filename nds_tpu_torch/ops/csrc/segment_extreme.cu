@@ -13,12 +13,10 @@
 //
 // Design:
 //   * streaming: one persistent grid (a few blocks per SM, from the host-side
-//     plan gpu_kernels.segment_extreme_plan); each thread makes 16-byte
-//     loads (four rows of values, four of ids), kUnroll of each in flight
-//     before it reduces any, with the streaming cache hint. An unaligned
-//     head (vals/gid not on a 16-byte boundary) and the ragged tail (< 4
-//     rows each) go row by row; when vals and gid are misaligned by
-//     different amounts, every chunk of four is loaded row by row instead;
+//     plan gpu_kernels.segment_extreme_plan); seg_stream.cuh's 16-byte
+//     loads, two of each array in flight per thread before it reduces any,
+//     with the streaming cache hint; an unaligned head and the ragged tail
+//     go row by row;
 //   * reduction: floats map to order-preserving int32 keys (non-negative:
 //     the bits; negative: the bits with the magnitude flipped), so min/max
 //     is an integer atomic. Per 128 rows (four per lane) a warp takes the
@@ -47,10 +45,11 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "seg_stream.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 512;
-constexpr int kUnroll = 2;  // 16-byte loads in flight per array per thread
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int32_t order_key(float f) {
@@ -151,7 +150,6 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   const int32_t ident = kMax ? order_key(-__int_as_float(0x7f800000))
                              : order_key(__int_as_float(0x7f800000));
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   Tables t{keys, counts, nan_flag};
   if (kShared) {
     for (int i = threadIdx.x; i < n_tables * n_groups; i += blockDim.x) {
@@ -166,67 +164,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     t = Tables{mine, mine + n_groups, mine + 2 * n_groups};
   }
 
-  // vals and gid share their misalignment (the usual case: both fresh, or
-  // both sliced alike): 16-byte loads after a head of `head` rows.
-  const uintptr_t av = reinterpret_cast<uintptr_t>(vals);
-  const uintptr_t ag = reinterpret_cast<uintptr_t>(gid);
-  const bool vec = ((av ^ ag) & 15) == 0;
-  int64_t head = vec ? static_cast<int64_t>(((16 - (av & 15)) & 15) >> 2) : 0;
-  if (head > n) head = n;
-  const int64_t n_chunks = vec ? (n - head) >> 2 : (n + 3) >> 2;
-  const float4* v4 = reinterpret_cast<const float4*>(vals + head);
-  const int4* g4 = reinterpret_cast<const int4*>(gid + head);
-
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
-  const int64_t step = warps * 32 * kUnroll;
-  for (int64_t c0 = (static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp) *
-                    32 * kUnroll;
-       c0 < n_chunks; c0 += step) {
-    float4 v[kUnroll];
-    int4 g[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t c = c0 + u * 32 + lane;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      g[u] = make_int4(-1, -1, -1, -1);
-      if (c < n_chunks) {
-        if (vec) {
-          v[u] = __ldcs(v4 + c);
-          g[u] = __ldcs(g4 + c);
-        } else {
-          const int64_t r = 4 * c;
-          float* vp = &v[u].x;
-          int* gp = &g[u].x;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (r + j < n) {
-              vp[j] = __ldcs(vals + r + j);
-              gp[j] = __ldcs(gid + r + j);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      fold4<kMax, kShared>(v[u], g[u], n_groups, ident, t);
-  }
-
-  // The rows the 16-byte chunks left out: the head before the first aligned
-  // chunk (lanes 0..3) and the ragged tail after the last (lanes 4..7).
-  if (vec && blockIdx.x == 0 && warp == 0) {
-    const int64_t tail0 = head + 4 * n_chunks;
-    int64_t r = -1;
-    if (lane < 4 && lane < head) r = lane;
-    else if (lane >= 4 && lane < 8 && tail0 + (lane - 4) < n) r = tail0 + (lane - 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    int4 g = make_int4(-1, -1, -1, -1);
-    if (r >= 0) {
-      v.x = vals[r];
-      g.x = gid[r];
-    }
+  auto fold = [&](const float4 v, const int4 g) {
     fold4<kMax, kShared>(v, g, n_groups, ident, t);
-  }
+  };
+  seg_stream::for_each_chunk(vals, gid, n, fold);
 
   if (kShared) {
     __syncthreads();

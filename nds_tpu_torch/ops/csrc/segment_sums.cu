@@ -18,10 +18,11 @@
 //     grid.sync()s before its first global atomic: on the shared-table path
 //     only after all its rows are folded, so the barrier's wait overlaps
 //     with the streaming of the slower blocks;
-//   * streaming as segment_extreme.cu: each thread makes 16-byte loads (four
-//     values, four ids), two of each in flight, with the streaming cache
-//     hint; an unaligned head and the ragged tail go row by row, and vals
-//     and gid misaligned by different amounts load row by row;
+//   * streaming shared with segment_extreme.cu (seg_stream.cuh): each thread
+//     makes 16-byte loads (four values, four ids), two of each in flight,
+//     with the streaming cache hint; an unaligned head and the ragged tail
+//     go row by row, and vals and gid misaligned by different amounts load
+//     row by row;
 //   * per 128 rows a warp takes the smallest and largest live id with two
 //     redux instructions: no live row (the dead padding lanes): skip; one
 //     group (sorted ids: the aggregation's usual input): a butterfly sum, a
@@ -50,12 +51,13 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "seg_stream.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kUnroll = 2;  // 16-byte loads in flight per array per thread
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Tables {
@@ -215,65 +217,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     grid.sync();  // every output zeroed before the first global atomic
   }
 
-  const uintptr_t av = reinterpret_cast<uintptr_t>(vals);
-  const uintptr_t ag = reinterpret_cast<uintptr_t>(gid);
-  const bool vec = ((av ^ ag) & 15) == 0;
-  int64_t head = vec ? static_cast<int64_t>(((16 - (av & 15)) & 15) >> 2) : 0;
-  if (head > n) head = n;
-  const int64_t n_chunks = vec ? (n - head) >> 2 : (n + 3) >> 2;
-  const float4* v4 = reinterpret_cast<const float4*>(vals + head);
-  const int4* g4 = reinterpret_cast<const int4*>(gid + head);
-
   int lo = INT_MAX, hi = -1;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads >> 5);
-  const int64_t step = warps * 32 * kUnroll;
-  for (int64_t c0 = (static_cast<int64_t>(blockIdx.x) * (kThreads >> 5) + warp) *
-                    32 * kUnroll;
-       c0 < n_chunks; c0 += step) {
-    float4 v[kUnroll];
-    int4 g[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t c = c0 + u * 32 + lane;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      g[u] = make_int4(-1, -1, -1, -1);
-      if (c < n_chunks) {
-        if (vec) {
-          v[u] = __ldcs(v4 + c);
-          g[u] = __ldcs(g4 + c);
-        } else {
-          const int64_t r = 4 * c;
-          float* vp = &v[u].x;
-          int* gp = &g[u].x;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (r + j < n) {
-              vp[j] = __ldcs(vals + r + j);
-              gp[j] = __ldcs(gid + r + j);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) fold4(v[u], g[u], n_groups, t, lo, hi);
-  }
-
-  // The rows the 16-byte chunks left out: the head before the first aligned
-  // chunk (lanes 0..3) and the ragged tail after the last (lanes 4..7).
-  if (vec && blockIdx.x == 0 && warp == 0) {
-    const int64_t tail0 = head + 4 * n_chunks;
-    int64_t r = -1;
-    if (lane < 4 && lane < head) r = lane;
-    else if (lane >= 4 && lane < 8 && tail0 + (lane - 4) < n) r = tail0 + (lane - 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    int4 g = make_int4(-1, -1, -1, -1);
-    if (r >= 0) {
-      v.x = vals[r];
-      g.x = gid[r];
-    }
+  auto fold = [&](const float4 v, const int4 g) {
     fold4(v, g, n_groups, t, lo, hi);
-  }
+  };
+  seg_stream::for_each_chunk(vals, gid, n, fold);
 
   if (kShared) {
     if (lane == 0 && hi >= 0) {

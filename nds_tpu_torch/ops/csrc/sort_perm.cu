@@ -41,10 +41,10 @@
 //     steps run on 384 threads, not on 96 with four keys each: the rank
 //     pass measured 101.5 -> 91.8 us at the ORDER BY shape). The
 //     tile's row ids are staged there in shared memory, then written out as
-//     one contiguous run of perm per key (coalesced stores, not scatter);
-//   * small n (the usual ORDER BY over an aggregated result): ONE launch of
-//     one CTA does histogram, scan and rank + scatter (threshold measured
-//     by chip_smoke.py's kernel_sweep).
+//     one contiguous run of perm per key (coalesced stores, not scatter).
+//     One path for every n: three launches, 8.5 us of device time at
+//     n = 100 on an H100 (a one-CTA kernel took 5.5 us there, but no query
+//     of the port sorts so few rows with this kernel, so it was not kept).
 // Keys outside [0, domain) (the -1 padding lanes of the TPU contract) are
 // counted nowhere and ranked nowhere; their rank entries are left as they
 // were.
@@ -68,9 +68,8 @@ constexpr int kHistRows = 16;             // pass 1: loads in flight per thread
 constexpr int kScanThreads = 256;
 constexpr int kScanPer = 8;               // block offsets per lane per step
 
-// Shared memory of pass 2 (and of the one-CTA path), in bytes:
-//   cnt    uint16 [domain][kWarps]  (pass 1 of the one-CTA path: int
-//                                    [kHistTables][domain], the same bytes)
+// Shared memory of pass 2, in bytes:
+//   cnt    uint16 [domain][kWarps]
 //   start  int [domain]  tile-local first slot of each key
 //   delta  int [domain]  perm position minus tile-local slot, per key
 //   base   int [domain]  first perm position of each key
@@ -386,29 +385,6 @@ __global__ void __launch_bounds__(kScanThreads)
   if (lane == 0) hist[key] = carry;
 }
 
-// Key bases from the owned keys' totals h[]: s.base, run[] = base + offset
-// of this block, and the count of in-domain rows.
-__device__ __forceinline__ int set_bases(const int (&h)[kKeysPerThread],
-                                         const int32_t* block_off,
-                                         int n_blocks, int domain,
-                                         const RankSmem& s, int* wsum,
-                                         int (&run)[kKeysPerThread]) {
-  int excl[kKeysPerThread];
-  const int total = keys_excl_scan(h, excl, domain, wsum);
-#pragma unroll
-  for (int i = 0; i < kKeysPerThread; ++i) {
-    const int k = owned_key(i);
-    run[i] = 0;
-    if (k < domain) {
-      s.base[k] = excl[i];
-      run[i] = excl[i] + (block_off != nullptr
-                              ? block_off[(int64_t)k * n_blocks + blockIdx.x]
-                              : 0);
-    }
-  }
-  return total;
-}
-
 // Pass 2. Dynamic shared memory: rank_smem(domain).
 template <typename K>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -425,45 +401,23 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int k = owned_key(i);
     h[i] = k < domain ? hist[k] : 0;
   }
-  int run[kKeysPerThread];
-  const int total = set_bases(h, block_off, gridDim.x, domain, s, wsum, run);
+  // key bases: s.base, run[] = base + this block's offset
+  int excl[kKeysPerThread], run[kKeysPerThread];
+  const int total = keys_excl_scan(h, excl, domain, wsum);
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int k = owned_key(i);
+    run[i] = 0;
+    if (k < domain) {
+      s.base[k] = excl[i];
+      run[i] = excl[i] + block_off[(int64_t)k * gridDim.x + blockIdx.x];
+    }
+  }
   zero_cnt(s, domain);
   __syncthreads();
   const int64_t start = (int64_t)blockIdx.x * rows_per_block;
   const int64_t end = min(n, start + rows_per_block);
   rank_scatter_range(keys, start, end, domain, run, s, wsum, rank, perm);
-  zero_tail(perm, total, n);
-}
-
-// Small n: the whole sort in one CTA. Dynamic shared memory:
-// rank_smem(domain) (its cnt bytes hold the histogram tables first).
-template <typename K>
-__global__ void __launch_bounds__(kThreads)
-    one_cta_kernel(const K* __restrict__ keys, int64_t n, int domain,
-                   int32_t* __restrict__ hist, int32_t* __restrict__ rank,
-                   int32_t* __restrict__ perm) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int wsum[kWarps];
-  const RankSmem s = carve(smem, domain);
-  int* tables = reinterpret_cast<int*>(s.cnt);
-  for (int q = threadIdx.x; q < kHistTables * domain; q += kThreads)
-    tables[q] = 0;
-  __syncthreads();
-  histogram_range(keys, 0, n, domain, tables);
-  __syncthreads();
-  int h[kKeysPerThread];
-  merge_tables(tables, domain, h);
-#pragma unroll
-  for (int i = 0; i < kKeysPerThread; ++i) {
-    const int k = owned_key(i);
-    if (k < domain) hist[k] = h[i];
-  }
-  int run[kKeysPerThread];
-  const int total = set_bases(h, nullptr, 1, domain, s, wsum, run);
-  __syncthreads();  // every table read before the counters overwrite them
-  zero_cnt(s, domain);
-  __syncthreads();
-  rank_scatter_range(keys, (int64_t)0, n, domain, run, s, wsum, rank, perm);
   zero_tail(perm, total, n);
 }
 
@@ -479,19 +433,13 @@ int allow_smem(F* kernel, int64_t bytes, int& granted) {
 }
 
 template <typename K>
-int launch(const K* keys, int64_t n, int domain, int path,
-           int64_t rows_per_block, int n_blocks, int32_t* block_hist,
-           int32_t* hist, int32_t* rank, int32_t* perm, cudaStream_t s) {
-  static int granted_hist = 48 * 1024, granted_rank = 48 * 1024,
-             granted_one = 48 * 1024;  // per instantiation; raise only
+int launch(const K* keys, int64_t n, int domain, int64_t rows_per_block,
+           int n_blocks, int32_t* block_hist, int32_t* hist, int32_t* rank,
+           int32_t* perm, cudaStream_t s) {
+  static int granted_hist = 48 * 1024,
+             granted_rank = 48 * 1024;  // per instantiation; raise only
   const int64_t rsmem = rank_smem(domain);
   int rc;
-  if (path == 0) {
-    if ((rc = allow_smem(one_cta_kernel<K>, rsmem, granted_one))) return rc;
-    one_cta_kernel<K><<<1, kThreads, rsmem, s>>>(keys, n, domain, hist, rank,
-                                                 perm);
-    return (int)cudaGetLastError();
-  }
   if (n_blocks <= 0 || rows_per_block <= 0 || rows_per_block % kTile != 0 ||
       (int64_t)n_blocks * rows_per_block < n)
     return (int)cudaErrorInvalidValue;
@@ -511,24 +459,23 @@ int launch(const K* keys, int64_t n, int domain, int path,
 }  // namespace
 
 // keys: int32 (key_bytes 4) or int64 (key_bytes 8), n <= 2^31 - 1 rows.
-// path 0 = one CTA (one launch); 1 = hist + scan + rank over n_blocks
-// blocks of rows_per_block rows (a multiple of 4,096).
-// Scratch (path 1): block_hist int32[n_blocks * domain]. Outputs: hist
+// hist + scan + rank over n_blocks blocks of rows_per_block rows (a
+// multiple of 4,096). Scratch: block_hist int32[n_blocks * domain]. Outputs: hist
 // int32[domain], perm int32[n] (every entry written), rank int32[n] or
 // null (in-domain rows written). Returns cudaGetLastError() or the refused
 // attribute's error.
 extern "C" int sort_perm_launch(const void* keys, int key_bytes, int64_t n,
-                                int domain, int path, int64_t rows_per_block,
+                                int domain, int64_t rows_per_block,
                                 int n_blocks, int32_t* block_hist,
                                 int32_t* hist, int32_t* rank, int32_t* perm,
                                 void* stream) {
   if (domain <= 0 || domain > kMaxDomain || n < 0 || n > INT_MAX ||
-      (key_bytes != 4 && key_bytes != 8) || (path != 0 && path != 1))
+      (key_bytes != 4 && key_bytes != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (key_bytes == 4)
-    return launch(static_cast<const int32_t*>(keys), n, domain, path,
+    return launch(static_cast<const int32_t*>(keys), n, domain,
                   rows_per_block, n_blocks, block_hist, hist, rank, perm, s);
-  return launch(static_cast<const int64_t*>(keys), n, domain, path,
-                rows_per_block, n_blocks, block_hist, hist, rank, perm, s);
+  return launch(static_cast<const int64_t*>(keys), n, domain, rows_per_block,
+                n_blocks, block_hist, hist, rank, perm, s);
 }

@@ -65,7 +65,7 @@ _SIGNATURES = {
     ("dense_build", "dense_build_launch"):
         [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _INT, _INT, _INT, _P],
     ("sort_perm", "sort_perm_launch"):
-        [_P, _INT, _I64, _INT, _INT, _I64, _INT, _P, _P, _P, _P, _P],
+        [_P, _INT, _I64, _INT, _I64, _INT, _P, _P, _P, _P, _P],
 }
 
 
@@ -184,13 +184,18 @@ def segment_sums_plan(n: int, n_groups: int, n_sm: int) -> SegPlan:
     return SegPlan(tables, SUMS_THREADS, blocks, tables * 8 * g)
 
 
-def segment_sums(vals, gid, n_groups: int, plan=None):
+def segment_sums(vals, gid, n_groups: int):
     """segment_sums_pallas's counterpart (and the platform dispatcher's).
     One device operation per call: the kernel writes every entry of two
-    uninitialised outputs. `plan` (a SegPlan) overrides
-    segment_sums_plan's choice, to time one grid against another."""
+    uninitialised outputs."""
     if not _on_card(vals, "segment_sums"):
         return segment_sums_plain(vals, gid, n_groups)
+    return _segment_sums_launch(vals, gid, n_groups)
+
+
+def _segment_sums_launch(vals, gid, n_groups: int, plan=None):
+    """segment_sums' launch on CUDA tensors. `plan` (a SegPlan) overrides
+    segment_sums_plan's choice, to time one plan against another."""
     n = vals.shape[0]
     _check("segment_sums vals", vals, torch.float32)
     _check("segment_sums gid", gid, torch.int32, n)
@@ -439,51 +444,38 @@ def sort_perm_plain(word, domain: int):
 #: int tables per key and a staged tile in pass 2's shared memory
 SORT_THREADS = 512
 SORT_TILE = 4096
-#: the most rows the one-CTA path takes (one launch: histogram, scan and
-#: scatter in one block); past it three launches over the whole card are
-#: faster (chip_smoke.py's kernel_sweep times both on either side)
-SORT_ONE_CTA_MAX_ROWS = 4096
-_SORT_PATHS = {"one_cta": 0, "grid": 1}
 
 
 def sort_rank_smem(domain: int) -> int:
-    """Dynamic shared memory (bytes) of sort_perm's pass 2 and one-CTA
-    kernels for `domain` keys."""
+    """Dynamic shared memory (bytes) of sort_perm's pass 2 for `domain`
+    keys."""
     return domain * ((SORT_THREADS // 32) * 2 + 12) + SORT_TILE * 6
 
 
 class SortPlan(NamedTuple):
-    path: str  # "one_cta" or "grid"
-    blocks: int  # CTAs of passes 1 and 2 (1 on the one-CTA path)
+    blocks: int  # CTAs of passes 1 and 2
     rows_per_block: int  # contiguous rows each CTA owns: whole tiles
     smem: int  # pass 2's dynamic shared memory per block, bytes
 
 
 @functools.lru_cache(maxsize=256)
-def sort_perm_plan(n: int, domain: int, n_sm: int, path=None) -> SortPlan:
-    """Launch plan of the counting sort of `n` keys in [0, `domain`): one
-    CTA up to SORT_ONE_CTA_MAX_ROWS rows, else a persistent grid of two
-    CTAs per SM (pass 2's shared memory lets two share an SM for every
-    domain up to SORT_MAX_DOMAIN), each owning a contiguous run of whole
-    tiles, never more CTAs than tiles. `path` ("one_cta" or "grid") forces
-    a path, to time one against the other."""
+def sort_perm_plan(n: int, domain: int, n_sm: int) -> SortPlan:
+    """Launch plan of the counting sort of `n` keys in [0, `domain`): a
+    persistent grid of two CTAs per SM (pass 2's shared memory lets two
+    share an SM for every domain up to SORT_MAX_DOMAIN), each owning a
+    contiguous run of whole tiles, never more CTAs than tiles."""
     if not 0 < domain <= SORT_MAX_DOMAIN:
         raise ValueError(f"sort_perm: domain {domain} outside "
                          f"(0, {SORT_MAX_DOMAIN}]")
-    if path is None:
-        path = "one_cta" if n <= SORT_ONE_CTA_MAX_ROWS else "grid"
     smem = sort_rank_smem(domain)
     tiles = max(1, -(-n // SORT_TILE))
-    if path == "one_cta":
-        return SortPlan("one_cta", 1, tiles * SORT_TILE, smem)
     per_sm = 2 if 2 * (smem + _SMEM_RESERVED + 64) <= SMEM_PER_SM else 1
     blocks = min(per_sm * n_sm, tiles)
     rows_per_block = -(-tiles // blocks) * SORT_TILE
-    return SortPlan("grid", -(-max(1, n) // rows_per_block), rows_per_block,
-                    smem)
+    return SortPlan(-(-max(1, n) // rows_per_block), rows_per_block, smem)
 
 
-def _sort_pipeline(keys, domain: int, want_rank: bool, plan=None):
+def _sort_pipeline(keys, domain: int, want_rank: bool):
     """(rank or None, hist, perm) from one call of the counting sort."""
     n = keys.shape[0]
     if keys.dtype not in (torch.int32, torch.int64):
@@ -493,40 +485,37 @@ def _sort_pipeline(keys, domain: int, want_rank: bool, plan=None):
     if n > SORT_MAX_ROWS:
         raise ValueError(f"sort_perm: {n} rows exceed {SORT_MAX_ROWS}")
     n_sm, stream = _launch_args(keys)
-    if plan is None:
-        plan = sort_perm_plan(n, domain, n_sm)
+    plan = sort_perm_plan(n, domain, n_sm)
     dev = keys.device
-    scratch = 0 if plan.path == "one_cta" else plan.blocks * domain
+    scratch = plan.blocks * domain  # block_hist: per-block key counts
     hist = torch.empty(scratch + domain, dtype=torch.int32, device=dev)
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev) if want_rank else None
     rc = _fn("sort_perm", "sort_perm_launch")(
         keys.data_ptr(), keys.element_size(), n, domain,
-        _SORT_PATHS[plan.path], plan.rows_per_block, plan.blocks,
+        plan.rows_per_block, plan.blocks,
         hist.data_ptr(), hist.data_ptr() + 4 * scratch,
         rank.data_ptr() if want_rank else None, perm.data_ptr(), stream,
     )
     _raise_if(rc, "sort_perm")
     LAUNCHES["sort_perm"] += 1
-    return rank, (hist[scratch:] if scratch else hist), perm
+    return rank, hist[scratch:], perm
 
 
-def sort_rank(vals, domain: int, plan=None):
-    """sort_rank_pallas's counterpart. `plan` (a SortPlan) overrides
-    sort_perm_plan's choice, to time one path against another."""
+def sort_rank(vals, domain: int):
+    """sort_rank_pallas's counterpart."""
     if not _on_card(vals, "sort_rank"):
         return sort_rank_plain(vals, domain)
     _check("sort_rank vals", vals, torch.int32)
-    rank, hist, _ = _sort_pipeline(vals, domain, True, plan)
+    rank, hist, _ = _sort_pipeline(vals, domain, True)
     return rank, hist
 
 
-def sort_perm(word, domain: int, plan=None):
+def sort_perm(word, domain: int):
     """sort_perm_pallas's counterpart: the stable ascending argsort of one
     small-domain sort word, identical to kernels.sort_by_words([word]). The
-    kernel reads an int32 or int64 word as it is (no conversion pass) in one
-    launch for small n and three otherwise, with no memset. `plan` as for
-    sort_rank."""
+    kernel reads an int32 or int64 word as it is (no conversion pass) in
+    three launches, with no memset."""
     if not _on_card(word, "sort_perm"):
         return sort_perm_plain(word, domain)
-    return _sort_pipeline(word.contiguous(), domain, False, plan)[2]
+    return _sort_pipeline(word.contiguous(), domain, False)[2]

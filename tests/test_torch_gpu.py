@@ -214,28 +214,22 @@ def test_dense_build_customer_scale_on_card(cuda):
 
 # ---------------------------------------------------------------------------
 # The shapes on which the redesigned sort_perm and segment_sums kernels
-# branch: the one-CTA path and the grid path on both sides of the plan's
-# threshold, whole and ragged 4,096-row tiles, domains 1..2048, one key,
+# branch: one and several CTAs, whole and ragged 4,096-row tiles and CTA
+# row ranges, domains 1..2048, one key,
 # sorted and reverse-sorted words, -1 lanes, int32 and int64 words,
 # unaligned slices; segment_sums' shared tables on both sides of their
 # limits, sorted ids with dead lanes, one group, the global path.
 # Kernel against plain version, exactly.
 # ---------------------------------------------------------------------------
 
-SORT_NS = [0, 1, 3, 4095, 4096, 4097, GK.SORT_ONE_CTA_MAX_ROWS,
-           GK.SORT_ONE_CTA_MAX_ROWS + 1, 65536, (1 << 20) + 3]
+SORT_NS = [0, 1, 3, 4095, 4096, 4097, 2 * GK.SORT_TILE,
+           2 * GK.SORT_TILE + 1, 65536, (1 << 20) + 3]
 
 
-def _same_sort(w, dom, plan=None):
-    got = GK.sort_perm(w, dom, plan=plan)
+def _same_sort(w, dom):
+    got = GK.sort_perm(w, dom)
     assert got.dtype == torch.int32
     assert torch.equal(got, GK.sort_perm_plain(w, dom))
-
-
-def _sort_plans(n, dom):
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    return [GK.sort_perm_plan(n, dom, n_sm, path)
-            for path in ("one_cta", "grid")]
 
 
 @pytest.mark.gpu
@@ -250,12 +244,13 @@ def test_sort_perm_matches_plain_on_card(cuda, n, dom):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 4097, 65536, 300_001])
-@pytest.mark.parametrize("path", [0, 1])
-def test_sort_perm_every_path_on_card(cuda, n, path):
+def test_sort_perm_odd_sizes_on_card(cuda, n):
+    """Sizes whose last CTA owns a ragged range (300,001 rows: 74 whole
+    tiles and a partial one over the plan's grid)."""
     rng = np.random.default_rng(n)
     for dom in (1, 384, 2048):
         w = torch.from_numpy(rng.integers(0, dom, n)).to(cuda)
-        _same_sort(w, dom, _sort_plans(n, dom)[path])
+        _same_sort(w, dom)
 
 
 @pytest.mark.gpu
@@ -290,7 +285,7 @@ def test_sort_perm_unaligned_slices_on_card(cuda, off, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dom", [1, 129, 2048])
-@pytest.mark.parametrize("n", [3, 4097, GK.SORT_ONE_CTA_MAX_ROWS + 1,
+@pytest.mark.parametrize("n", [3, 4097, 2 * GK.SORT_TILE + 1,
                                (1 << 20) + 3])
 def test_sort_rank_padding_lanes_on_card(cuda, n, dom):
     rng = np.random.default_rng(n * 3 + dom)
@@ -299,11 +294,10 @@ def test_sort_rank_padding_lanes_on_card(cuda, n, dom):
     v[5::23] = dom  # past the domain: the same
     vals = torch.from_numpy(v).to(cuda)
     live = torch.from_numpy((v >= 0) & (v < dom)).to(cuda)
-    for plan in _sort_plans(n, dom):
-        r, h = GK.sort_rank(vals, dom, plan=plan)
-        pr, ph = GK.sort_rank_plain(vals, dom)
-        assert torch.equal(h, ph)
-        assert torch.equal(r[live], pr[live])
+    r, h = GK.sort_rank(vals, dom)
+    pr, ph = GK.sort_rank_plain(vals, dom)
+    assert torch.equal(h, ph)
+    assert torch.equal(r[live], pr[live])
 
 
 @pytest.mark.gpu
@@ -312,10 +306,9 @@ def test_sort_perm_tail_is_zero_and_counts_launches(cuda):
     rest of perm zero (the contract the TPU kernel's scatter leaves)."""
     w = torch.tensor([5, 1, 9, 1, 0], dtype=torch.int64, device=cuda)
     GK.reset_launches()
-    for plan in _sort_plans(5, 8):
-        got = GK.sort_perm(w, 8, plan=plan)
-        assert got.tolist() == [4, 1, 3, 0, 0]
-    assert GK.LAUNCHES["sort_perm"] == 2
+    got = GK.sort_perm(w, 8)
+    assert got.tolist() == [4, 1, 3, 0, 0]
+    assert GK.LAUNCHES["sort_perm"] == 1
 
 
 _SUMS_TWO, _SUMS_ONE = GK._sums_table_limits()

@@ -324,7 +324,7 @@ def test_dense_build_plan_q3_shape_takes_owner_path():
 # ---------------------------------------------------------------------------
 # The shapes on which the redesigned sort_perm and segment_sums kernels
 # branch (csrc/sort_perm.cu, csrc/segment_sums.cu): whole and ragged
-# 4,096-row tiles, the one-CTA threshold, domains 1..2048, one key, sorted
+# 4,096-row tiles, domains 1..2048, one key, sorted
 # and reverse-sorted words, -1 lanes, int32 and int64 words; segment_sums'
 # sorted ids with dead lanes and n_groups on both sides of its shared-memory
 # limits. The plain versions the wrappers run on the CPU, held against the
@@ -332,8 +332,7 @@ def test_dense_build_plan_q3_shape_takes_owner_path():
 # (test_torch_gpu.py).
 # ---------------------------------------------------------------------------
 
-SORT_EDGE_NS = sorted({1, 3, GK.SORT_TILE - 1, GK.SORT_TILE,
-                       GK.SORT_TILE + 1, GK.SORT_ONE_CTA_MAX_ROWS + 1})
+SORT_EDGE_NS = [1, 3, GK.SORT_TILE - 1, GK.SORT_TILE, GK.SORT_TILE + 1]
 
 
 def _sort_vs_pallas(w, dom):
@@ -419,21 +418,17 @@ def test_segment_sums_plain_matches_pallas_at_table_limits(g):
     "n", [0, 1, 100, 4095, 4096, 4097, 65536, 14_398_885, (1 << 24) - 1,
           1 << 24])
 def test_sort_perm_plan_fits_hopper(n, n_sm):
-    """Every domain in 1..2048 has a path at every n: one CTA at or below
-    the threshold, else a grid of whole tiles that covers n, at most two
-    CTAs per SM, each with pass 2's shared memory inside one block's."""
+    """Every domain in 1..2048 has a plan at every n: a grid of whole
+    tiles that covers n, at most two CTAs per SM and none without rows,
+    each with pass 2's shared memory inside one block's."""
     for dom in range(1, GK.SORT_MAX_DOMAIN + 1):
         plan = GK.sort_perm_plan(n, dom, n_sm)
         assert plan.smem == GK.sort_rank_smem(dom) <= GK.SMEM_PER_BLOCK
         assert 2 * (plan.smem + 1024 + 64) <= GK.SMEM_PER_SM
         assert plan.rows_per_block % GK.SORT_TILE == 0
         assert plan.blocks >= 1 and plan.blocks * plan.rows_per_block >= n
-        if n <= GK.SORT_ONE_CTA_MAX_ROWS:
-            assert plan.path == "one_cta" and plan.blocks == 1
-        else:
-            assert plan.path == "grid" and plan.blocks <= 2 * n_sm
-            # no CTA without rows
-            assert (plan.blocks - 1) * plan.rows_per_block < n
+        assert plan.blocks <= 2 * n_sm
+        assert plan.blocks == 1 or (plan.blocks - 1) * plan.rows_per_block < n
     GK.sort_perm_plan.cache_clear()
 
 
@@ -445,12 +440,12 @@ def test_sort_perm_plan_rejects_domains_past_the_cap():
 
 def test_sort_perm_plan_order_shape_takes_grid_path():
     """The ORDER BY query hands the sort 2^24 int64 keys over domain 384:
-    the grid path, two CTAs per SM on 132 SMs, 16 tiles each; a grouped
-    result of a few hundred rows takes the one-CTA path."""
+    a grid of two CTAs per SM on 132 SMs, 16 tiles each; a grouped result
+    of a few hundred rows one CTA of one tile."""
     plan = GK.sort_perm_plan(1 << 24, 384, 132)
-    assert plan.path == "grid"
     assert plan.blocks == 256 and plan.rows_per_block == 16 * GK.SORT_TILE
-    assert GK.sort_perm_plan(300, 384, 132).path == "one_cta"
+    small = GK.sort_perm_plan(300, 384, 132)
+    assert small.blocks == 1 and small.rows_per_block == GK.SORT_TILE
 
 
 @pytest.mark.parametrize("n_sm", [1, 132])
