@@ -32,10 +32,9 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            sort_perm at 2^24 rows over domains 128..2048, one key, sorted,
            reverse-sorted, ragged, int32 and int64 words, small sorts of
            100..65,536 rows, sort_rank with -1 lanes; segment_sums at 2^26
-           rows (random and sorted with one shared table per block against
-           four, 65,536 groups on the global path), 2^24 rows of one group,
-           and q3's 4,096 groups with one row, with 2^18 dead rows and
-           q3-shaped on three grids
+           rows (random, sorted, 65,536 groups on the global path), 2^24
+           rows of one group, and q3's 4,096 groups with one row, with 2^18
+           dead rows and q3-shaped on three grids
 
 Any failed phase exits non-zero. The line before the last is the kernel
 table as JSON; the last line is {"ok": true, "device": {...}}.
@@ -633,33 +632,23 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         slot = torch.where(gid >= 0, gid, g).long()
         exact = torch.zeros(g + 1, dtype=torch.float64,
                             device=dev).index_add_(0, slot, vals.double())[:g]
-        chosen = GK.segment_sums_plan(n, g, n_sm)
-        plans = [chosen]
-        if chosen.tables > 1:  # one shared table per block against several
-            plans.append(chosen._replace(tables=1, smem=8 * g))
-        for plan in plans:
-            rec = {"name": "segment_sums", "case": case, "n": n, "groups": g,
-                   "tables": plan.tables, "blocks": plan.blocks,
-                   "plan_picks": plan == chosen}
+        plan = GK.segment_sums_plan(n, g, n_sm)
+        rec = {"name": "segment_sums", "case": case, "n": n, "groups": g,
+               "tables": plan.tables, "blocks": plan.blocks}
 
-            def check(vals=vals, gid=gid, g=g, exact=exact, rec=rec,
-                      plan=plan):
-                ks, kc = GK._segment_sums_launch(vals, gid, g, plan)
-                _, pc = GK.segment_sums_plain(vals, gid, g)
-                rec["rtol"] = sweep_sum_rtol(int(pc.max().item()))
-                rel = ((ks.double() - exact).abs()
-                       / exact.abs().clamp(min=1e-300))[pc > 0]
-                rec["max_rel_vs_f64"] = (float(rel.max().item())
-                                         if rel.numel() else 0.0)
-                rec["counts_exact"] = bool(torch.equal(kc, pc))
-                return (rec["counts_exact"]
-                        and rec["max_rel_vs_f64"] <= rec["rtol"])
-            timed(rec,
-                  lambda plan=plan: GK._segment_sums_launch(vals, gid, g,
-                                                            plan),
-                  (lambda: GK.segment_sums_plain(vals, gid, g))
-                  if plan == chosen else None,
-                  n * 8 + g * 8, check)
+        def check(vals=vals, gid=gid, g=g, exact=exact, rec=rec):
+            ks, kc = GK.segment_sums(vals, gid, g)
+            _, pc = GK.segment_sums_plain(vals, gid, g)
+            rec["rtol"] = sweep_sum_rtol(int(pc.max().item()))
+            rel = ((ks.double() - exact).abs()
+                   / exact.abs().clamp(min=1e-300))[pc > 0]
+            rec["max_rel_vs_f64"] = (float(rel.max().item()) if rel.numel()
+                                     else 0.0)
+            rec["counts_exact"] = bool(torch.equal(kc, pc))
+            return rec["counts_exact"] and rec["max_rel_vs_f64"] <= rec["rtol"]
+        timed(rec, lambda: GK.segment_sums(vals, gid, g),
+              lambda: GK.segment_sums_plain(vals, gid, g),
+              n * 8 + g * 8, check)
         del vals, gid, slot, exact
 
     # q3's shape (2^18 rows, 4,096 groups): ~230K live rows sorted into

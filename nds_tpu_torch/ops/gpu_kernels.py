@@ -151,7 +151,6 @@ def segment_sums_plain(vals, gid, n_groups: int):
 #: 16-byte loads of four rows each in flight per thread and array
 SUMS_THREADS = 512
 SUMS_ROWS_PER_THREAD = 8
-SUMS_MAX_TABLES = 4
 _SUMS_STATIC_SMEM = 16  # the block's smallest and largest id seen
 
 
@@ -166,22 +165,16 @@ def _sums_table_limits():
 def segment_sums_plan(n: int, n_groups: int, n_sm: int) -> SegPlan:
     """Launch plan of the segment_sums kernel: one co-resident grid (the
     kernel grid.sync()s), never more blocks than rows need, at least one;
-    private shared-memory tables (8 bytes per group each) while one fits a
-    block: up to SUMS_MAX_TABLES where two blocks still share an SM and the
-    block's rows outnumber the table entries it would zero, else one;
-    beyond one block's shared memory the global-atomic path (tables 0)."""
+    one private shared-memory table per block (8 bytes per group) while it
+    fits a block, two blocks per SM while two tables fit an SM; beyond one
+    block's shared memory the global-atomic path (tables 0)."""
     g = max(1, n_groups)
     g_two, g_one = _sums_table_limits()
+    tables = 1 if g <= g_one else 0
+    per_sm = 1 if g_two < g <= g_one else 2
     need = -(-n // (SUMS_THREADS * SUMS_ROWS_PER_THREAD))
-    if g <= g_two:
-        blocks = max(1, min(2 * n_sm, need))
-        rows = -(-n // blocks)
-        tables = max(1, min(SUMS_MAX_TABLES, g_two // g, rows // g))
-    elif g <= g_one:
-        blocks, tables = max(1, min(n_sm, need)), 1
-    else:
-        blocks, tables = max(1, min(2 * n_sm, need)), 0
-    return SegPlan(tables, SUMS_THREADS, blocks, tables * 8 * g)
+    return SegPlan(tables, SUMS_THREADS, max(1, min(per_sm * n_sm, need)),
+                   tables * 8 * g)
 
 
 def segment_sums(vals, gid, n_groups: int):
