@@ -10,8 +10,9 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
   device   the card (plus the nvidia-smi name/power-limit line) and whether
            pyarrow imports
   build    nvcc builds every kernel from ops/csrc/, one process per source
-  data     a q3-shaped star (store_sales, item, date_dim) made with numpy from
-           --seed at SF100 row counts, loaded with table_from_numpy
+  data     store_sales (as tickets), store_returns, catalog_sales (as
+           orders), item, date_dim and reason, made with numpy from --seed
+           at SF100 row counts (make_star), loaded with table_from_numpy
   slice    three queries through Session(device="cuda"): q3 (segment sums +
            dense joins), a grouped min/max (segment extreme) and a one-word
            ORDER BY (counting sort). Launch counts are zeroed just before the
@@ -25,6 +26,14 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            the device time and device operations (kernels, memsets) of one
            call from torch.profiler, and the host time to enqueue one call,
            for the wrapper and (where it is launch-bound) the library call
+  joins    the joins and set operators: JOIN_QUERIES (q93, q97 and q78 /
+           q16 / q28 / q87 shapes) through a session with the kernels on
+           and one with them off; the declared-key checks timed apart;
+           launch counts zeroed just before the cold runs and read just
+           after; each query must take its JOIN_BRANCHES (branch_spy) and
+           equal the off session, q93 and q16 their numpy references; one
+           line per query (cold / steady / off ms, fact rows/s, busy share,
+           peak GiB, launches, branches) and a `joins` summary line
   kernel_sweep  the kernels redesigned for Hopper against their plain
            versions at shapes beyond the main path's: segment_extreme's
            global-atomic path, sorted ids and one group; 2^21-row builds
@@ -58,11 +67,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: TPC-DS v3.2.0 Table 3-2 row counts at SF100
 #: (nds_tpu/datagen/native/rowcounts.hpp)
-SF100_ROWS = {"store_sales": 287_997_024, "item": 204_000, "date_dim": 73_049}
+SF100_ROWS = {"store_sales": 287_997_024, "item": 204_000, "date_dim": 73_049,
+              "store_returns": 28_795_080, "catalog_sales": 143_997_065,
+              "reason": 55}
+#: (orders at SF100, lines per order lo, hi): rowcounts.hpp kStore, kCatalog
+SF100_ORDERS = {"store_sales": (24_000_000, 8, 16),
+                "catalog_sales": (16_000_000, 4, 14)}
 DATE_FIRST_SK = 2415022  # julian day of 1900-01-02, date_dim's first row
 SALES_FIRST_SK, SALES_LAST_SK = 2450815, 2452642  # 1998-01-01 .. 2002-12-31
 JULIAN_OF_EPOCH = 2440588
 N_STORE_SF100 = 402
+N_CUSTOMER_SF100 = 2_000_000
 H100_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 
 QUERIES = {
@@ -86,6 +101,110 @@ QUERIES = {
     "order": """
         select ss_quantity, ss_item_sk from store_sales
         where ss_quantity > 95 order by ss_quantity
+    """,
+}
+
+#: the joins phase: TPC-DS templates (nds_tpu/datagen/templates) and shapes
+#: of them over the tables make_star builds. Each must take the branches
+#: JOIN_BRANCHES names for it (events of branch_spy) at SF100.
+JOIN_QUERIES = {
+    # query93.tpl, [REASON] = reason 28
+    "q93": """
+        select ss_customer_sk, sum(act_sales) sumsales
+        from (select ss_item_sk, ss_ticket_number, ss_customer_sk,
+                     case when sr_return_quantity is not null
+                          then (ss_quantity - sr_return_quantity) * ss_sales_price
+                          else (ss_quantity * ss_sales_price) end act_sales
+              from store_sales
+              left outer join store_returns
+                on (sr_item_sk = ss_item_sk and sr_ticket_number = ss_ticket_number),
+              reason
+              where sr_reason_sk = r_reason_sk and r_reason_desc = 'reason 28') t
+        group by ss_customer_sk
+        order by sumsales, ss_customer_sk
+        limit 100
+    """,
+    # query78.tpl's ss CTE: store sales lines that were never returned
+    "q78": """
+        select d_year, ss_store_sk, sum(ss_quantity) ss_qty,
+               sum(ss_ext_sales_price) ss_sp, count(*) cnt
+        from store_sales
+        left join store_returns on sr_ticket_number = ss_ticket_number
+                               and ss_item_sk = sr_item_sk
+        join date_dim on ss_sold_date_sk = d_date_sk
+        where sr_ticket_number is null
+        group by d_year, ss_store_sk
+        order by d_year, ss_store_sk
+    """,
+    # query16.tpl on the store channel: tickets of a 61-day window with
+    # another line of another item, none of it returned
+    "q16": """
+        select count(distinct ss_ticket_number) order_count,
+               sum(ss_ext_sales_price) total_sales
+        from store_sales ss1, date_dim
+        where d_date between cast('2000-02-01' as date)
+                         and (cast('2000-02-01' as date) + interval 60 days)
+          and ss1.ss_sold_date_sk = d_date_sk
+          and exists (select * from store_sales ss2
+                      where ss1.ss_ticket_number = ss2.ss_ticket_number
+                        and ss1.ss_item_sk <> ss2.ss_item_sk)
+          and not exists (select * from store_returns sr1
+                          where ss1.ss_ticket_number = sr1.sr_ticket_number)
+    """,
+    # query97.tpl, [DMS] = 1200 (the year 2000)
+    "q97": """
+        with ssci as (
+         select ss_customer_sk customer_sk, ss_item_sk item_sk
+         from store_sales, date_dim
+         where ss_sold_date_sk = d_date_sk
+           and d_month_seq between 1200 and 1200 + 11
+         group by ss_customer_sk, ss_item_sk),
+         csci as (
+         select cs_bill_customer_sk customer_sk, cs_item_sk item_sk
+         from catalog_sales, date_dim
+         where cs_sold_date_sk = d_date_sk
+           and d_month_seq between 1200 and 1200 + 11
+         group by cs_bill_customer_sk, cs_item_sk)
+        select sum(case when ssci.customer_sk is not null
+                         and csci.customer_sk is null then 1 else 0 end) store_only,
+               sum(case when ssci.customer_sk is null
+                         and csci.customer_sk is not null then 1 else 0 end) catalog_only,
+               sum(case when ssci.customer_sk is not null
+                         and csci.customer_sk is not null then 1 else 0 end)
+               store_and_catalog
+        from ssci
+        full outer join csci on (ssci.customer_sk = csci.customer_sk
+                                 and ssci.item_sk = csci.item_sk)
+        limit 100
+    """,
+    # query28.tpl: three quantity buckets, cross-joined
+    "q28": """
+        select * from
+         (select avg(ss_sales_price) b1_lp, count(ss_sales_price) b1_cnt,
+                 count(distinct ss_sales_price) b1_cntd
+          from store_sales where ss_quantity between 0 and 5) b1,
+         (select avg(ss_sales_price) b2_lp, count(ss_sales_price) b2_cnt,
+                 count(distinct ss_sales_price) b2_cntd
+          from store_sales where ss_quantity between 6 and 10) b2,
+         (select avg(ss_sales_price) b3_lp, count(ss_sales_price) b3_cnt,
+                 count(distinct ss_sales_price) b3_cntd
+          from store_sales where ss_quantity between 11 and 15) b3
+        limit 100
+    """,
+    # query87.tpl on the store and catalog channels: (customer, date)
+    # pairs that bought in store and never from the catalog on that date
+    "q87": """
+        select count(*) from (
+          (select distinct ss_customer_sk, d_date
+           from store_sales, date_dim
+           where store_sales.ss_sold_date_sk = date_dim.d_date_sk
+             and d_month_seq between 1200 and 1200 + 11)
+          except
+          (select distinct cs_bill_customer_sk, d_date
+           from catalog_sales, date_dim
+           where catalog_sales.cs_sold_date_sk = date_dim.d_date_sk
+             and d_month_seq between 1200 and 1200 + 11)
+        ) cool_cust
     """,
 }
 
@@ -115,17 +234,69 @@ def fail(msg):
 # ---------------------------------------------------------------------------
 
 
+def _order_lines(rng, n_rows, n_orders, lo, hi):
+    """Lines per order, uniform in [lo, hi], then moved one line at a time
+    on random orders until they sum to `n_rows` (the count of Table 3-2).
+    Where `n_rows` is out of reach of `n_orders` (a cut --scale), the
+    order count follows the mean of [lo, hi] instead."""
+    if not lo * n_orders <= n_rows <= hi * n_orders:
+        n_orders = max(1, round(2 * n_rows / (lo + hi)))
+    lines = rng.integers(lo, hi + 1, n_orders)
+    diff = int(lines.sum()) - n_rows
+    while diff:
+        sign = 1 if diff > 0 else -1
+        room = np.flatnonzero(lines > lo if sign > 0 else lines < hi)
+        pick = rng.choice(room, min(abs(diff), room.size), replace=False,
+                          shuffle=False)
+        lines[pick] -= sign
+        diff -= sign * pick.size
+    return lines
+
+
+def _orders(rng, n_rows, channel, scale):
+    """(order of each row, line of each row within its order, order count)
+    for a sales channel made as orders of lo..hi lines (rowcounts.hpp):
+    the rows of an order are adjacent, as dsdgen writes them."""
+    orders, lo, hi = SF100_ORDERS[channel]
+    lines = _order_lines(rng, n_rows, max(1, int(orders * scale)), lo, hi)
+    order = np.repeat(np.arange(lines.size, dtype=np.int32), lines)
+    start = np.cumsum(lines) - lines
+    line = (np.arange(n_rows, dtype=np.int64) - start[order]).astype(np.int32)
+    return order, line, lines.size
+
+
+def _distinct_items(rng, order, line, n_orders, n_items, max_lines):
+    """Odd current-SCD item keys, distinct within each order: order o's
+    j-th line takes item (base_o + j * step_o) mod n_half, with
+    step_o < n_half / max_lines, so no two lines of an order meet."""
+    half = (n_items + 1) // 2
+    base = rng.integers(0, half, n_orders)
+    step = rng.integers(1, max(2, half // max_lines), n_orders)
+    idx = (base[order] + line.astype(np.int64) * step[order]) % half
+    return (idx * 2 + 1).astype(np.int32)
+
+
 def make_star(seed: int, scale: float):
-    """numpy columns of the q3 star, shaped as nds_tpu/datagen/native makes
-    them: dims.hpp (date_dim calendar, item brand/manager encodings) and
-    facts.hpp (uniform sales dates over 1998-2002, odd current-SCD item and
-    store keys, ~4% null nullable FKs, quantity 1..100). Measures are
-    float64, as the --floats mode stores decimal(7,2)."""
+    """numpy columns of the tables the slice's queries read, shaped as
+    nds_tpu/datagen/native makes them: dims.hpp (date_dim calendar, item
+    brand/manager encodings, reason descriptions) and facts.hpp / rowcounts.hpp
+    (sales as orders of 8..16 store lines or 4..14 catalog lines, each order
+    on one date, store and customer with distinct items; uniform sale dates
+    over 1998-2002, odd current-SCD item and store keys, ~4% null nullable
+    FKs, quantity 1..100; returns drawn from distinct sales lines, so
+    store_returns' key (sr_item_sk, sr_ticket_number) holds as
+    store_sales' (ss_item_sk, ss_ticket_number) does). Measures are float64,
+    as the --floats mode stores decimal(7,2)."""
     rng = np.random.default_rng(seed)
     n_dates = SF100_ROWS["date_dim"]
-    n_items = max(2, int(SF100_ROWS["item"] * scale))
+    # at least 64 items, so a cut --scale still gives orders distinct items
+    n_items = max(64, int(SF100_ROWS["item"] * scale))
     n_fact = max(1024, int(SF100_ROWS["store_sales"] * scale))
     n_store = max(2, int(N_STORE_SF100 * scale))
+    n_cust = max(2, int(N_CUSTOMER_SF100 * scale))
+
+    def nullable(n):
+        return rng.integers(0, 100, n, dtype=np.int8) < 96
 
     jd = DATE_FIRST_SK + np.arange(n_dates, dtype=np.int64)
     days = (jd - JULIAN_OF_EPOCH).astype("datetime64[D]")
@@ -133,8 +304,10 @@ def make_star(seed: int, scale: float):
     month = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
     date_dim = {
         "d_date_sk": jd.astype(np.int32),
+        "d_date": (jd - JULIAN_OF_EPOCH).astype(np.int32),
         "d_year": year.astype(np.int32),
         "d_moy": month.astype(np.int32),
+        "d_month_seq": ((year - 1900) * 12 + month - 1).astype(np.int32),
     }
     cat = rng.integers(0, 10, n_items)
     cls = rng.integers(0, 8, n_items)
@@ -145,30 +318,81 @@ def make_star(seed: int, scale: float):
         .astype(np.int32),
         "i_manager_id": rng.integers(1, 101, n_items, dtype=np.int32),
     }
+
+    # store_sales: tickets of 8..16 lines sharing date, store and customer
+    ticket, line, n_tk = _orders(rng, n_fact, "store_sales", scale)
     qty = rng.integers(1, 101, n_fact, dtype=np.int32)
     cents = rng.integers(50, 20_000, n_fact, dtype=np.int32)
     store_sales = {
         "ss_sold_date_sk": rng.integers(SALES_FIRST_SK, SALES_LAST_SK + 1,
-                                        n_fact, dtype=np.int32),
-        "ss_sold_date_sk__valid": rng.integers(0, 100, n_fact,
-                                               dtype=np.int8) < 96,
-        "ss_item_sk": (rng.integers(0, (n_items + 1) // 2, n_fact,
-                                    dtype=np.int32) * 2 + 1),
-        "ss_store_sk": (rng.integers(1, (n_store + 1) // 2 + 1, n_fact,
-                                     dtype=np.int32) * 2 - 1),
-        "ss_store_sk__valid": rng.integers(0, 100, n_fact, dtype=np.int8) < 96,
+                                        n_tk, dtype=np.int32)[ticket],
+        "ss_sold_date_sk__valid": nullable(n_tk)[ticket],
+        "ss_item_sk": _distinct_items(rng, ticket, line, n_tk, n_items, 16),
+        "ss_store_sk": (rng.integers(1, (n_store + 1) // 2 + 1, n_tk,
+                                     dtype=np.int32) * 2 - 1)[ticket],
+        "ss_store_sk__valid": nullable(n_tk)[ticket],
+        "ss_customer_sk": rng.integers(1, n_cust + 1, n_tk,
+                                       dtype=np.int32)[ticket],
+        "ss_customer_sk__valid": nullable(n_tk)[ticket],
+        "ss_ticket_number": ticket + 1,
         "ss_quantity": qty,
+        "ss_sales_price": cents / 100.0,
         "ss_ext_sales_price": cents.astype(np.float64) * qty / 100.0,
     }
-    return {"date_dim": date_dim, "item": item, "store_sales": store_sales}
+    del line
+
+    # store_returns: distinct sales lines, so its key holds
+    n_ret = max(64, int(SF100_ROWS["store_returns"] * scale))
+    ridx = np.sort(rng.choice(n_fact, n_ret, replace=False, shuffle=False))
+    store_returns = {
+        "sr_item_sk": store_sales["ss_item_sk"][ridx],
+        "sr_ticket_number": store_sales["ss_ticket_number"][ridx],
+        "sr_customer_sk": store_sales["ss_customer_sk"][ridx],
+        "sr_customer_sk__valid": store_sales["ss_customer_sk__valid"][ridx],
+        "sr_reason_sk": rng.integers(1, SF100_ROWS["reason"] + 1, n_ret,
+                                     dtype=np.int32),
+        "sr_reason_sk__valid": nullable(n_ret),
+        "sr_return_quantity": (rng.integers(0, 1 << 30, n_ret)
+                               % qty[ridx] + 1).astype(np.int32),
+    }
+    del ridx
+    reason = {
+        "r_reason_sk": np.arange(1, SF100_ROWS["reason"] + 1, dtype=np.int32),
+        "r_reason_desc": np.arange(SF100_ROWS["reason"], dtype=np.int32),
+    }
+
+    # catalog_sales: orders of 4..14 lines on one date and bill customer
+    n_cat = max(1024, int(SF100_ROWS["catalog_sales"] * scale))
+    order, line, n_ord = _orders(rng, n_cat, "catalog_sales", scale)
+    catalog_sales = {
+        "cs_sold_date_sk": rng.integers(SALES_FIRST_SK, SALES_LAST_SK + 1,
+                                        n_ord, dtype=np.int32)[order],
+        "cs_sold_date_sk__valid": nullable(n_ord)[order],
+        "cs_item_sk": _distinct_items(rng, order, line, n_ord, n_items, 14),
+        "cs_bill_customer_sk": rng.integers(1, n_cust + 1, n_ord,
+                                            dtype=np.int32)[order],
+        "cs_bill_customer_sk__valid": nullable(n_ord)[order],
+    }
+    return {"date_dim": date_dim, "item": item, "store_sales": store_sales,
+            "store_returns": store_returns, "reason": reason,
+            "catalog_sales": catalog_sales}
 
 
-def to_tables(star, device):
+#: logical types of the columns that are not int32, and the dictionaries of
+#: the string columns (their data are codes into the dictionary)
+COLUMN_TYPES = {"ss_sales_price": "float64", "ss_ext_sales_price": "float64",
+                "d_date": "date", "r_reason_desc": "string"}
+DICTIONARIES = {"r_reason_desc": [f"reason {i}" for i in
+                                  range(1, SF100_ROWS["reason"] + 1)]}
+
+
+def to_tables(star, device, names=None):
     from nds_tpu_torch.engine.columnar import table_from_numpy
 
-    types = {"ss_ext_sales_price": "float64"}
     out = {}
     for name, cols in star.items():
+        if names is not None and name not in names:
+            continue
         spec = {}
         nrows = None
         for cname, data in cols.items():
@@ -176,7 +400,8 @@ def to_tables(star, device):
                 continue
             nrows = data.shape[0]
             spec[cname] = (data, cols.get(cname + "__valid"),
-                           types.get(cname, "int32"), None)
+                           COLUMN_TYPES.get(cname, "int32"),
+                           DICTIONARIES.get(cname))
         out[name] = table_from_numpy(spec, nrows, device=device)
     return out
 
@@ -199,6 +424,156 @@ def q3_reference(star):
         (int(c // 100_000_000), int(c % 100_000_000)): (float(s), int(n))
         for c, s, n in zip(uniq, sums, counts)
     }
+
+
+def q93_reference(star, reason_sk=28):
+    """q93 over the numpy tables: the sales lines whose packed (item,
+    ticket) word np.searchsorted finds among the returns of reason
+    `reason_sk`, summed by customer with np.bincount. Returns
+    {customer or None: (sum, rows)}."""
+    ss, sr = star["store_sales"], star["store_returns"]
+    r = np.flatnonzero(sr["sr_reason_sk__valid"]
+                       & (sr["sr_reason_sk"] == reason_sk))
+    rw = (sr["sr_item_sk"][r].astype(np.int64) << 32) | sr["sr_ticket_number"][r]
+    order = np.argsort(rw, kind="stable")
+    rws = rw[order]
+    sw = (ss["ss_item_sk"].astype(np.int64) << 32) | ss["ss_ticket_number"]
+    pos = np.searchsorted(rws, sw).clip(0, max(rws.size - 1, 0))
+    rows = np.flatnonzero(rws[pos] == sw) if rws.size else np.zeros(0, int)
+    del sw
+    ret_q = sr["sr_return_quantity"][r][order[pos[rows]]]
+    act = (ss["ss_quantity"][rows] - ret_q) * ss["ss_sales_price"][rows]
+    cust = np.where(ss["ss_customer_sk__valid"][rows],
+                    ss["ss_customer_sk"][rows].astype(np.int64), -1) + 1
+    sums = np.bincount(cust, weights=act)
+    counts = np.bincount(cust)
+    return {(None if k == 0 else int(k - 1)): (float(sums[k]), int(counts[k]))
+            for k in np.flatnonzero(counts)}
+
+
+def q16_reference(star, first_day="2000-02-01", days=60):
+    """The q16 shape over the numpy tables: tickets sold in the window
+    (d_date between first_day and first_day + days) with at least two lines
+    (items are distinct within a ticket) and no returned line. Returns
+    (order_count, total_sales, rows)."""
+    ss, sr = star["store_sales"], star["store_returns"]
+    d0 = int(np.datetime64(first_day, "D").astype(np.int64)) + JULIAN_OF_EPOCH
+    sk = ss["ss_sold_date_sk"]
+    in_win = ss["ss_sold_date_sk__valid"] & (sk >= d0) & (sk <= d0 + days)
+    tk = ss["ss_ticket_number"]
+    lines = np.bincount(tk)
+    returned = np.zeros(lines.size, dtype=bool)
+    returned[sr["sr_ticket_number"]] = True
+    keep = in_win & (lines[tk] >= 2) & ~returned[tk]
+    return (int(np.unique(tk[keep]).size),
+            float(ss["ss_ext_sales_price"][keep].sum()), int(keep.sum()))
+
+
+# ---------------------------------------------------------------------------
+# branches
+# ---------------------------------------------------------------------------
+
+
+def branch_spy(executor_cls, events):
+    """Wrap an executor class's join, set-operator and aggregation methods
+    so that each call appends the branch it took to `events`, e.g.
+    "inner packed join, 2 keys", "semi hash join, 1 key, residual",
+    "cross join", "except", "distinct", "count(distinct)",
+    "sort group-by, 2 keys". Returns a function that restores the class.
+    The method names are the JAX executor's too, so the tests put the same
+    spy on both engines."""
+    originals = {}
+    joins = []  # one frame per running _join: the branch its paths took
+    aggs = []  # one frame per running _aggregate_once
+
+    def wrap(name, make):
+        originals[name] = getattr(executor_cls, name)
+        setattr(executor_cls, name, make(originals[name]))
+
+    def join(orig):
+        def run(self, left, right, kind, left_keys, *a, **kw):
+            joins.append([])
+            try:
+                out = orig(self, left, right, kind, left_keys, *a, **kw)
+            finally:
+                took = joins.pop()
+            branch = took[0] if took else "hash"
+            if joins:  # a right join runs as the swapped left join
+                joins[-1].append(branch)
+            if branch == "cross":
+                events.append("cross join")
+                return out
+            n = len(left_keys)
+            residual = a[1] if len(a) > 1 else kw.get("residual")
+            events.append(
+                f"{kind} {branch} join, {n} key{'s' if n != 1 else ''}"
+                + (", residual" if residual is not None else ""))
+            return out
+        return run
+
+    def path(branch):
+        def make(orig):
+            def run(self, *a, **kw):
+                out = orig(self, *a, **kw)
+                if out is not None and joins:
+                    joins[-1].append(branch)
+                return out
+            return run
+        return make
+
+    def cross(orig):
+        def run(self, *a, **kw):
+            if joins:
+                joins[-1].append("cross")
+            return orig(self, *a, **kw)
+        return run
+
+    def node(label):
+        def make(orig):
+            def run(self, n, *a, **kw):
+                events.append(label(n))
+                return orig(self, n, *a, **kw)
+            return run
+        return make
+
+    def aggregate(orig):
+        def run(self, key_items, agg_items, subset, *a, **kw):
+            aggs.append([])
+            try:
+                out = orig(self, key_items, agg_items, subset, *a, **kw)
+            finally:
+                took = aggs.pop()
+            n = len(key_items) if subset is None else len(subset)
+            if n == 0:
+                events.append("global aggregate")
+            else:
+                events.append(f"{took[0] if took else 'sort'} group-by, "
+                              f"{n} key{'s' if n != 1 else ''}")
+            return out
+        return run
+
+    def direct(orig):
+        def run(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            if out is not None and aggs:
+                aggs[-1].append("direct")
+            return out
+        return run
+
+    wrap("_join", join)
+    wrap("_try_dense_join", path("dense"))
+    wrap("_try_packed_join", path("packed"))
+    wrap("_cross_join", cross)
+    wrap("_exec_distinct", node(lambda n: "distinct"))
+    wrap("_exec_setop", node(lambda n: n.op))
+    wrap("_eval_distinct_agg", node(lambda agg: f"{agg.fn}(distinct)"))
+    wrap("_aggregate_once", aggregate)
+    wrap("_try_direct_agg", direct)
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(executor_cls, name, fn)
+    return restore
 
 
 # ---------------------------------------------------------------------------
@@ -681,6 +1056,208 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
     return rows
 
 
+#: what each joins-phase query must do at SF100 (branch_spy events; an
+#: event listed twice must happen twice) and the fact tables it reads
+JOIN_BRANCHES = {
+    "q93": ["inner packed join, 2 keys", "inner dense join, 1 key",
+            "direct group-by, 1 key"],
+    "q78": ["left packed join, 2 keys"],
+    "q16": ["semi hash join, 1 key, residual", "anti packed join, 1 key",
+            "count(distinct)"],
+    "q97": ["sort group-by, 2 keys", "sort group-by, 2 keys",
+            "full hash join, 2 keys"],
+    "q28": ["cross join", "count(distinct)"],
+    "q87": ["distinct", "except"],
+}
+JOIN_FACTS = {"q93": ("store_sales", "store_returns"),
+              "q78": ("store_sales", "store_returns"),
+              "q16": ("store_sales", "store_returns"),
+              "q97": ("store_sales", "catalog_sales"),
+              "q28": ("store_sales",),
+              "q87": ("store_sales", "catalog_sales")}
+#: the kernels the joins phase must launch: the dimension joins' dense
+#: builds and the float sums (no join query takes a min/max, and no ORDER
+#: BY of theirs sorts one word of at most SORT_MAX_DOMAIN at SF100)
+JOIN_KERNELS = ("segment_sums", "dense_build")
+
+
+def missing_branches(events, wanted):
+    left = list(events)
+    missing = []
+    for w in wanted:
+        if w in left:
+            left.remove(w)
+        else:
+            missing.append(w)
+    return missing
+
+
+def same_topk(got, ref, rtol_of, tag):
+    """Two `ORDER BY sum, key LIMIT k` results as [(key, sum)] lists: the
+    sums agree position by position within rtol_of(key); a key in both
+    has sums within its rtol; a key in one only is a tie at the cut (its
+    sum within rtol of the last). Float order among near-equal sums may
+    differ between f32 and f64 accumulation."""
+    if len(got) != len(ref):
+        fail(f"{tag}: {len(got)} rows vs {len(ref)}")
+    worst = 0.0
+    for (gk, gs), (rk, rs) in zip(got, ref):
+        rel = abs(gs - rs) / max(abs(rs), 1e-300)
+        worst = max(worst, rel)
+        if rel > max(rtol_of(gk), rtol_of(rk)):
+            fail(f"{tag}: sum {gs} vs {rs} at the same place")
+    g, r = dict(got), dict(ref)
+    last = ref[-1][1] if ref else 0.0
+    for k in set(g) | set(r):
+        if k in g and k in r:
+            if abs(g[k] - r[k]) > rtol_of(k) * max(abs(r[k]), 1e-300):
+                fail(f"{tag}: key {k}: {g[k]} vs {r[k]}")
+        elif abs(g.get(k, r.get(k)) - last) > rtol_of(k) * max(abs(last), 1e-300):
+            fail(f"{tag}: key {k} in one result only, not at the cut")
+    return worst
+
+
+def q93_rows(res):
+    rows = res.to_pylist()
+    keys = [(r["sumsales"], -float("inf") if r["ss_customer_sk"] is None
+             else r["ss_customer_sk"]) for r in rows]
+    if keys != sorted(keys):
+        fail("q93 rows are not in ORDER BY order")
+    return [(r["ss_customer_sk"], r["sumsales"]) for r in rows]
+
+
+def joins_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows):
+    """The joins and set operators at SF100 row counts: JOIN_QUERIES through
+    a session with the kernels on and one with them off. Each query must
+    take its JOIN_BRANCHES and give the same result both ways; q93 and q16
+    must equal their numpy references. Launch counts are zeroed just
+    before the cold runs and read just after."""
+    t_phase = time.perf_counter()
+    s_on = Session(conf=on)
+    s_off = Session(conf=off, device="cuda")
+    for s in (s_on, s_off):
+        for name, t in tables.items():
+            s.register_table(name, t)
+
+    def run(session, q):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = session.sql(JOIN_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    # the declared-key checks (_pk_holds: one sort of the packed key words
+    # per table and session) are cold cost, timed apart from the queries
+    pk_ms = {}
+    for name, pk in (("store_sales", ["ss_item_sk", "ss_ticket_number"]),
+                     ("store_returns", ["sr_item_sk", "sr_ticket_number"])):
+        for s in (s_on, s_off):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.catalog.load(name, pk)
+            torch.cuda.synchronize()
+            pk_ms.setdefault(name, (time.perf_counter() - t) * 1e3)
+            if not s.catalog.entries[name].pk_verified:
+                fail(f"the primary key of {name} does not hold in the data")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    GK.reset_launches()
+    prev = dict(GK.LAUNCHES)
+    cold, events, per_query, peaks = {}, {}, {}, {}
+    for q in JOIN_QUERIES:
+        ev = events[q] = []
+        restore = branch_spy(TX.Executor, ev)
+        try:
+            cold[q] = run(s_on, q)
+        finally:
+            restore()
+        per_query[q] = {k: GK.LAUNCHES[k] - prev[k] for k in GK.LAUNCHES}
+        prev = dict(GK.LAUNCHES)
+    launches = dict(GK.LAUNCHES)
+    peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
+    for name in JOIN_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the joins path")
+    for q, wanted in JOIN_BRANCHES.items():
+        missing = missing_branches(events[q], wanted)
+        if missing:
+            fail(f"{q} did not take {missing}: it took {events[q]}")
+
+    ref93 = q93_reference(star)
+    ref16 = q16_reference(star)
+    out = {}
+    for q in JOIN_QUERIES:
+        res, cold_ms = cold[q]
+        torch.cuda.reset_peak_memory_stats(dev)
+        steady = [run(s_on, q)[1] for _ in range(5)]
+        peaks[q] = torch.cuda.max_memory_allocated(dev) / 2**30
+        got_off, off_cold_ms = run(s_off, q)
+        off_ms = run(s_off, q)[1]
+        prof = profile_query(torch, lambda q=q: run(s_on, q), q)
+        rec = {"phase": "join_query", "query": q, "rows": res.num_rows,
+               "cold_ms": cold_ms, "steady_ms": float(np.median(steady)),
+               "steady_runs_ms": steady, "off_ms": off_ms,
+               "off_cold_ms": off_cold_ms, "branches": events[q],
+               "launches": per_query[q], "steady_peak_gib": peaks[q],
+               "device_busy_share": prof["device_busy_share"],
+               "device_ms": prof["device_ms"],
+               "device_launches": prof["device_launches"],
+               "top": prof["top"][:5]}
+        fact = sum(rows[t] for t in JOIN_FACTS[q])
+        rec["fact_rows"] = fact
+        rec["fact_rows_per_s"] = fact / (rec["steady_ms"] / 1e3)
+        if res.num_rows == 0:
+            fail(f"{q} returned no rows")
+        if q == "q93":
+            def rtol_of(k):
+                return f32_sum_rtol(ref93[k][1]) if k in ref93 else 1e-5
+            ref_top = sorted(
+                ((k, v[0]) for k, v in ref93.items()),
+                key=lambda kv: (kv[1], -float("inf") if kv[0] is None
+                                else kv[0]))[:100]
+            rec["max_rel_vs_off"] = same_topk(
+                q93_rows(res), q93_rows(got_off), rtol_of, "q93 on vs off")
+            rec["max_rel_vs_numpy"] = same_topk(
+                q93_rows(res), ref_top, rtol_of, "q93 vs numpy")
+            rec["max_rel_off_vs_numpy"] = same_topk(
+                q93_rows(got_off), ref_top, lambda k: 1e-9,
+                "q93 off vs numpy")
+        else:
+            # float sums through segment_sums (f32) against the off
+            # session's f64 sums: the q3 bound for the largest group; other
+            # floats (avg in f64 on both sides) to 1e-9
+            rtol = 1e-9
+            if q == "q78":
+                rtol = f32_sum_rtol(max(got_off.column("cnt").to_pylist()))
+            elif q == "q16":
+                rtol = f32_sum_rtol(ref16[2])
+            rec["rtol"] = rtol
+            rec["max_rel_vs_off"] = same_result(res, got_off, rtol,
+                                                f"{q} on vs off")
+        if q == "q16":
+            want_n, want_sum, want_rows = ref16
+            for tag, r, tol in (("on", res, f32_sum_rtol(want_rows)),
+                                ("off", got_off, 1e-9)):
+                row = r.to_pylist()[0]
+                if row["order_count"] != want_n:
+                    fail(f"q16 {tag}: order_count {row['order_count']} != "
+                         f"{want_n}")
+                rel = abs(row["total_sales"] - want_sum) / max(want_sum, 1e-300)
+                if rel > tol:
+                    fail(f"q16 {tag}: total_sales {row['total_sales']} vs "
+                         f"{want_sum} (rel {rel})")
+                rec[f"rel_vs_numpy_{tag}"] = rel
+            rec["numpy"] = {"order_count": want_n, "total_sales": want_sum,
+                            "rows": want_rows}
+        out[q] = rec
+        emit(rec)
+    emit({"phase": "joins", "launches": launches, "pk_check_ms": pk_ms,
+          "peak_gib": peak_all,
+          "resident_gib": torch.cuda.memory_allocated(dev) / 2**30,
+          "seconds": time.perf_counter() - t_phase})
+    return out, launches
+
+
 def profile_query(torch, run_once, q, top=10):
     """Where one steady run's time goes: torch.profiler's device time by
     kernel, the device's busy share of the wall time, and the launches."""
@@ -720,6 +1297,9 @@ def main(argv=None):
                     help="fraction of SF100 row counts (1.0 = SF100)")
     args = ap.parse_args(argv)
 
+    # SF100 leaves ~50 GB for the joins' transients: map the caching
+    # allocator's blocks as segments that grow, against fragmentation
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -868,8 +1448,20 @@ def main(argv=None):
     # -- kernels ---------------------------------------------------------
     kernels = kernel_rows(torch, GK, captured, launches)
 
+    del captured
+    torch.cuda.empty_cache()
+
+    # -- joins -------------------------------------------------------------
+    from nds_tpu_torch.engine import exec as TX
+
+    del s_on, s_off
+    _, join_launches = joins_phase(torch, GK, TX, Session, star, tables, dev,
+                                   on, off, rows)
+    for rec in kernels:
+        rec["joins_launches"] = join_launches[rec["name"]]
+
     # -- kernel_sweep ------------------------------------------------------
-    del tables, s_on, s_off, captured
+    del tables, star
     torch.cuda.empty_cache()
     kernel_sweep(torch, GK, dev, args.seed, min(1.0, args.scale))
 

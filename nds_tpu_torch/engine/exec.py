@@ -9,11 +9,15 @@ the tensor's device, never by a platform probe: on a CUDA tensor they
 launch the hand-written kernels of ops/gpu_kernels.py, on a CPU tensor the
 kernels' plain versions run.
 
-Ported: scan, filter, project, limit, sort, MultiJoin/Join (dense star-join
-and the inner hash-candidate join), aggregate (direct and sort-based,
-without grouping sets or distinct aggregates), scalar subqueries. Every
-other branch raises NotImplementedError naming the ROADMAP.md item that
-ports it; none returns a different answer.
+Ported: scan, filter, project, limit, sort, MultiJoin/Join (the dense
+star-join, the packed-word join and the hash-candidate join for inner,
+left, right, full, semi, anti and mark joins, with residuals, and the
+cross join), DISTINCT, the set operations (UNION [ALL], INTERSECT, EXCEPT),
+aggregate (direct and sort-based, distinct aggregates included), scalar
+subqueries. Every other branch (windows, grouping sets, grouping(),
+blocked union aggregation, spill, the mesh's exchange join) raises
+NotImplementedError naming the ROADMAP.md item that ports it, or is a path
+the JAX executor declines on one device; none returns a different answer.
 """
 
 from __future__ import annotations
@@ -36,11 +40,10 @@ from .columnar import (
     torch_dtype,
     unify_dictionaries,
 )
-from .expr import Evaluator, _cast_column
+from .expr import Evaluator, _cast_column, _common_dtype, _share_dictionary
 
 #: where each unported branch is ported (ROADMAP.md, "Queue 1")
-TODO_JOINS = "ROADMAP.md queue 1 item 7 (packed-word and outer/semi/anti/mark/cross joins)"
-TODO_OPERATORS = "ROADMAP.md queue 1 item 8 (windows, set operations, distinct, rollups, distinct aggregates)"
+TODO_OPERATORS = "ROADMAP.md queue 1 item 8 (windows, ROLLUP / grouping sets, grouping(), blocked union aggregation)"
 
 
 class ExecError(Exception):
@@ -119,6 +122,37 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _pad_to(x, n):
+    """`x` zero-padded at the end to length `n` (the JAX code's jnp.pad)."""
+    return torch.cat([x, x.new_zeros(n - x.shape[0])])
+
+
+class _ExecEvaluator(Evaluator):
+    """The executor's Evaluator: scalar subqueries run through it. A class
+    of the module, not one made per call: a class made per call would hold
+    the executor in a reference cycle, and with it every table of the
+    statement on the device until the cyclic collector ran."""
+
+    def __init__(self, table: Table, device, ex):
+        super().__init__(table, device)
+        self.ex = ex
+
+    def _eval_scalarsubquery(self, e):
+        val, dtype, dictionary = self.ex._scalar_value(e)
+        cap = self.table.cap
+        dev = self.device
+        if val is None:
+            return Column(
+                torch.zeros(cap, dtype=torch_dtype(dtype), device=dev),
+                dtype, torch.zeros(cap, dtype=torch.bool, device=dev),
+                dictionary,
+            )
+        return Column(
+            torch.full((cap,), val, dtype=torch_dtype(dtype), device=dev),
+            dtype, None, dictionary,
+        )
+
+
 class Executor:
     def __init__(self, catalog, device):
         """catalog: object with .load(table_name, columns) -> Table and a
@@ -128,6 +162,9 @@ class Executor:
         self.device = torch.device(device)
         self._cte_cache = {}  # id(plan) -> Table
         self._scalar_cache = {}  # id(plan) -> python value
+        # the running aggregation's live mask and count (distinct aggs)
+        self._current_agg_live = None
+        self._current_agg_nlive = None
 
     # ------------------------------------------------------------------
     def execute(self, node: P.PlanNode) -> Table:
@@ -282,6 +319,55 @@ class Executor:
             keys.append((d, c.valid, True, True))
         return self._sort_words(keys, active_cols, live)
 
+    def _exec_distinct(self, node: P.Distinct) -> Table:
+        child = self.execute(node.child)
+        if child.nrows_known == 0:
+            return child
+        return self._distinct_table(child)
+
+    # ------------------------------------------------------------------
+    def _exec_setop(self, node: P.SetOp) -> Table:
+        left = self.execute(node.left)
+        right = self.execute(node.right)
+        if node.op == "union_all":
+            return self._concat(left, right)
+        if node.op == "union":
+            return self._distinct_table(self._concat(left, right))
+        # intersect / except: set semantics over whole rows
+        dl = self._distinct_table(left)
+        lkeys, lvalids, rkeys, rvalids = [], [], [], []
+        for ln, rn in zip(dl.columns, right.columns):
+            for lk, rk in zip(
+                *self._join_key_pair(dl.columns[ln], right.columns[rn])
+            ):
+                lkeys.append(lk.data)
+                lvalids.append(lk.valid)
+                rkeys.append(rk.data)
+                rvalids.append(rk.valid)
+        # NULLs compare equal in set ops: fold validity into the key and add
+        # one null-flag key per column on BOTH sides (the sides can differ
+        # in nullability; the flag lists must stay aligned)
+        keys_l = [d if v is None else torch.where(v, d, 0)
+                  for d, v in zip(lkeys, lvalids)]
+        keys_r = [d if v is None else torch.where(v, d, 0)
+                  for d, v in zip(rkeys, rvalids)]
+        llive = dl.row_mask(self.device)
+        rlive = right.row_mask(self.device)
+        for lv, rv in zip(lvalids, rvalids):
+            keys_l.append(~lv if lv is not None else torch.zeros_like(llive))
+            keys_r.append(~rv if rv is not None else torch.zeros_like(rlive))
+        nones = [None] * len(keys_l)
+        li, ri, pl, _ = K.join_candidates(keys_l, nones, llive,
+                                          keys_r, nones, rlive)
+        ok = K.verify_pairs(li, ri, pl, keys_l, nones, llive,
+                            keys_r, nones, rlive)
+        present = K.matched_mask(li, ok, dl.cap)
+        if node.op == "intersect":
+            mask = present & llive
+        else:
+            mask = ~present & llive
+        return self._masked(dl, mask)
+
     # ------------------------------------------------------------------
     def _exec_join(self, node: P.Join) -> Table:
         left = self.execute(node.left)
@@ -380,10 +466,11 @@ class Executor:
     def _join(self, left, right, kind, left_keys, right_keys, residual,
               mark_name=None):
         if kind == "cross":
-            raise _not_ported("cross join", TODO_JOINS)
+            return self._cross_join(left, right)
         left = self._pack_sparse(left)
         right = self._pack_sparse(right)
         if kind == "right":
+            # swap before any matching so the residual is preserved
             return self._join(right, left, "left", right_keys, left_keys,
                               residual)
         lev = self._evaluator(left)
@@ -407,20 +494,91 @@ class Executor:
         )
         if fast is not None:
             return fast
-        if self._packed_join_applies(left, right, kind, aligned, right_keys,
-                                     residual):
-            raise _not_ported("packed-word join", TODO_JOINS)
-        if kind != "inner":
-            raise _not_ported(f"{kind} hash-candidate join", TODO_JOINS)
+        # (the JAX executor's exchange join comes here: a mesh path, which
+        # declines off-mesh; ROADMAP.md queue 1 item 13)
+        fast = self._try_packed_join(
+            left, right, kind, aligned, right_keys, llive, rlive, residual,
+            mark_name,
+        )
+        if fast is not None:
+            return fast
         li, ri, pl, total = K.join_candidates(lk, lv, llive, rk, rv, rlive)
         ok = K.verify_pairs(li, ri, pl, lk, lv, llive, rk, rv, rlive)
+
+        if kind in ("semi", "anti", "mark"):
+            if residual is not None:
+                ok = self._apply_residual(ok, li, ri, left, right, residual)
+            present = K.matched_mask(li, ok, left.cap)
+            if kind == "mark":
+                out_cols = dict(left.columns)
+                out_cols[mark_name] = Column(present, BOOL)
+                return Table(out_cols, left.nrows_lazy, live=left.live)
+            mask = (present if kind == "semi" else ~present) & llive
+            return self._masked(left, mask)
+
         count = K.mask_count(ok)
         out_cap = bucket_cap(max(count, 1))
         sel = K.compact_indices(ok, out_cap)
-        pair = self._pair_table(left, right, li[sel], ri[sel], count)
+        pli = li[sel]
+        pri = ri[sel]
         if residual is not None:
-            return self._masked(pair, self._predicate_mask(pair, residual))
-        return pair
+            # build the pair table first, filter, recompact
+            pair = self._pair_table(left, right, pli, pri, count, rnull=None)
+            pmask = self._predicate_mask(pair, residual)
+            if kind == "inner":
+                return self._masked(pair, pmask)
+            # outer joins: surviving pairs only count as matches. A
+            # max-scatter: sel's padding duplicates index 0
+            ok = ok & K.matched_mask(sel, pmask, ok.shape[0])
+            count = K.mask_count(ok)
+            out_cap = bucket_cap(max(count, 1))
+            sel = K.compact_indices(ok, out_cap)
+            pli = li[sel]
+            pri = ri[sel]
+
+        if kind == "inner":
+            return self._pair_table(left, right, pli, pri, count, rnull=None)
+
+        dev = li.device
+        if kind == "left":
+            present = K.matched_mask(li, ok, left.cap)
+            unmatched = ~present & llive
+            n_un = K.mask_count(unmatched)
+            total_rows = count + n_un
+            cap2 = bucket_cap(max(total_rows, 1))
+            un_idx = K.compact_indices(unmatched, bucket_cap(max(n_un, 1)))
+            all_li = _pad_to(torch.cat([pli[:count], un_idx[:n_un]]), cap2)
+            all_ri = _pad_to(
+                torch.cat([pri[:count], pri.new_zeros(n_un)]), cap2
+            )
+            # right side null for the appended rows
+            rnull = torch.arange(cap2, device=dev) >= count
+            return self._pair_table(left, right, all_li, all_ri, total_rows,
+                                    rnull)
+
+        if kind == "full":
+            lpresent = K.matched_mask(li, ok, left.cap)
+            rpresent = K.matched_mask(ri, ok, right.cap)
+            lun = ~lpresent & llive
+            run = ~rpresent & rlive
+            n_lu = K.mask_count(lun)
+            n_ru = K.mask_count(run)
+            total_rows = count + n_lu + n_ru
+            cap2 = bucket_cap(max(total_rows, 1))
+            lu_idx = K.compact_indices(lun, bucket_cap(max(n_lu, 1)))[:n_lu]
+            ru_idx = K.compact_indices(run, bucket_cap(max(n_ru, 1)))[:n_ru]
+            all_li = _pad_to(
+                torch.cat([pli[:count], lu_idx, lu_idx.new_zeros(n_ru)]), cap2
+            )
+            all_ri = _pad_to(
+                torch.cat([pri[:count], ru_idx.new_zeros(n_lu), ru_idx]), cap2
+            )
+            pos = torch.arange(cap2, device=dev)
+            rnull = (pos >= count) & (pos < count + n_lu)
+            lnull = pos >= count + n_lu
+            return self._pair_table(left, right, all_li, all_ri, total_rows,
+                                    rnull, lnull)
+        raise ExecError(f"join kind {kind}")
 
     # -- dense-domain star-join fast path --------------------------------
     _DENSE_MAX_DOMAIN = 1 << 22
@@ -509,42 +667,78 @@ class Executor:
             unique_key=left.unique_key,
         )
 
-    def _packed_join_applies(self, left, right, kind, aligned, right_keys,
-                             residual) -> bool:
-        """The JAX executor's packed-word join gate (_try_packed_join): True
-        exactly where the JAX engine would take that path, which the port
-        has not ported yet."""
-        if not aligned:
-            return False
-        if kind not in ("inner", "left", "semi", "anti", "mark"):
-            return False
-        if kind in ("semi", "anti", "mark", "left") and residual is not None:
-            return False
-        if kind in ("inner", "left"):
-            uk = right.unique_key
-            if uk is None or not uk <= _plain_col_names(right_keys, right):
-                return False
-        shift = 0
+    # -- packed-word sort-lookup join ------------------------------------
+    # Exact int64 packing of the (possibly composite) join key from host-
+    # known bounds (ColStats on the columns, dictionary sizes for strings):
+    # collision-free by construction, so membership needs no verification
+    # and no candidate expansion. semi/anti/mark become a sort + lookup
+    # whatever the right side's multiplicity; inner/left take the dense
+    # path's left-aligned output when the right side is known-unique on the
+    # join key from plan metadata (Table.unique_key). No device sync.
+
+    def _pack_key_words(self, aligned):
+        """Exact int64 word per side for aligned join-key Column pairs, or
+        None when bounds are unknown or exceed 62 bits."""
+        bounds = []
         for ca, cb in aligned:
             if ca.dtype.is_string and cb.dtype.is_string:
                 if ca.dictionary is None or cb.dictionary is None:
-                    return False
+                    return None
                 if ca.dictionary is not cb.dictionary:
-                    return False
-                vmin, vmax = 0, max(len(ca.dictionary) - 1, 0)
+                    return None  # _join_key_pair unifies; anything else bails
+                bounds.append((0, max(len(ca.dictionary) - 1, 0)))
             elif ca.dtype.kind in ("int32", "int64", "date") and cb.dtype.kind in (
                 "int32", "int64", "date",
             ):
                 sa, sb = ca.subset_stats(), cb.subset_stats()
                 if sa is None or sb is None:
-                    return False
-                vmin, vmax = min(sa.vmin, sb.vmin), max(sa.vmax, sb.vmax)
+                    return None
+                bounds.append((min(sa.vmin, sb.vmin), max(sa.vmax, sb.vmax)))
             else:
-                return False
-            shift += max(1, (vmax - vmin + 1).bit_length())
-            if shift > 62:
-                return False
-        return True
+                return None
+        return K.pack_key_words(
+            [
+                [(ca.data, ca.valid) for ca, _ in aligned],
+                [(cb.data, cb.valid) for _, cb in aligned],
+            ],
+            bounds,
+        )
+
+    def _try_packed_join(
+        self, left, right, kind, aligned, right_keys, llive, rlive,
+        residual, mark_name,
+    ):
+        if not aligned:
+            return None
+        if kind not in ("inner", "left", "semi", "anti", "mark"):
+            return None
+        if kind in ("semi", "anti", "mark", "left") and residual is not None:
+            return None
+        if kind in ("inner", "left"):
+            # one output row per left row: the right side must be known
+            # unique on the join key, from metadata, never probed
+            uk = right.unique_key
+            if uk is None or not uk <= _plain_col_names(right_keys, right):
+                return None
+        words = self._pack_key_words(aligned)
+        if words is None:
+            return None
+        lwords, rwords = words
+        lnn = K._all_valid([c.valid for c, _ in aligned], llive)
+        rnn = K._all_valid([c.valid for _, c in aligned], rlive)
+        found, ri = K.member_lookup(lwords, lnn, rwords, rnn)
+        return self._augment_join_output(
+            left, right, kind, found, ri, llive, residual, mark_name
+        )
+
+    def _apply_residual(self, ok, li, ri, left, right, residual):
+        count = K.mask_count(ok)
+        cap = bucket_cap(max(count, 1))
+        sel = K.compact_indices(ok, cap)
+        pair = self._pair_table(left, right, li[sel], ri[sel], count, None)
+        pmask = self._predicate_mask(pair, residual)
+        # max-scatter: sel's padding duplicates index 0 (see _join)
+        return ok & K.matched_mask(sel, pmask, ok.shape[0])
 
     def _predicate_mask(self, table: Table, predicate) -> torch.Tensor:
         """SQL WHERE semantics: TRUE rows only, restricted to live rows."""
@@ -597,22 +791,39 @@ class Executor:
 
         return [as_i64(a)], [as_i64(b)]
 
-    def _pair_table(self, left, right, li, ri, nrows):
+    def _pair_table(self, left, right, li, ri, nrows, rnull, lnull=None):
+        # a join-output gather can repeat rows: bounds survive, uniqueness
+        # dies. `rnull` / `lnull` null the right / left side of the rows an
+        # outer join appends.
         cols = {}
-        for side, idx in ((left, li), (right, ri)):
+        for side, idx, null in ((left, li, lnull), (right, ri, rnull)):
             for name, c in side.columns.items():
-                cols[name] = Column(
-                    c.data[idx], c.dtype,
-                    None if c.valid is None else c.valid[idx],
-                    c.dictionary, c.gather_stats(),
-                )
+                valid = None if c.valid is None else c.valid[idx]
+                if null is not None:
+                    v = valid if valid is not None else torch.ones(
+                        idx.shape[0], dtype=torch.bool, device=idx.device)
+                    valid = v & ~null
+                cols[name] = Column(c.data[idx], c.dtype, valid,
+                                    c.dictionary, c.gather_stats())
         return Table(cols, nrows)
+
+    def _cross_join(self, left, right):
+        # position arithmetic below assumes packed rows
+        left = left.compacted()
+        right = right.compacted()
+        ln, rn = left.nrows, right.nrows
+        total = ln * rn
+        cap = bucket_cap(max(total, 1))
+        p = torch.arange(cap, device=self.device)
+        li = (p // max(rn, 1)).clamp(0, max(left.cap - 1, 0))
+        ri = p % max(rn, 1)
+        return self._pair_table(left, right, li, ri, total, None)
 
     # ------------------------------------------------------------------
     def _exec_aggregate(self, node: P.Aggregate) -> Table:
         if node.grouping_sets is not None:
             raise _not_ported("ROLLUP / grouping sets", TODO_OPERATORS)
-        if node.blocked_union:
+        if node.blocked_union and self._blocked_union_applies(node):
             raise _not_ported("blocked union aggregation", TODO_OPERATORS)
         t = self.execute(node.child)
         return self._aggregate_once(
@@ -620,8 +831,47 @@ class Executor:
             t.nrows_known,
         )
 
+    def _blocked_union_applies(self, node: P.Aggregate) -> bool:
+        """The JAX executor's gate for blocked union aggregation
+        (_blocked_union_ctx): True exactly where it would aggregate the
+        union in row windows, which the port has not ported yet. Below one
+        window the JAX path is the plain concat + aggregation, which the
+        port runs. The window comes from `engine.union_agg_window_rows` /
+        NDS_UNION_AGG_WINDOW_ROWS, else from the device budget as the JAX
+        session derives it (the plan budgeter's static window is not
+        ported: ROADMAP.md queue 1 item 10)."""
+        shape = P.union_agg_shape(node)
+        if shape is None or not P.aggs_decomposable(node.aggs):
+            return False
+        session = getattr(self.catalog, "session", None)
+        if session is None:
+            return False
+        branches = self._execute_relations_batched(shape[3])
+        total_rows = sum(t.nrows for t in branches)
+        row_bytes = max(
+            sum(c.data.element_size() + 1
+                for c in branches[0].columns.values()),
+            1,
+        )
+        return total_rows > session.union_agg_window_rows(row_bytes)
+
     def _aggregate_once(self, key_items, agg_items, subset, child, live,
                         nlive):
+        # stash the grouping state for the distinct-aggregate helper, saving
+        # the previous values: a scalar subquery inside an aggregate
+        # argument re-enters _aggregate_once and must not clobber them
+        prev = (self._current_agg_live, self._current_agg_nlive)
+        self._current_agg_live = live
+        self._current_agg_nlive = nlive
+        try:
+            return self._aggregate_once_inner(
+                key_items, agg_items, subset, child, live, nlive
+            )
+        finally:
+            self._current_agg_live, self._current_agg_nlive = prev
+
+    def _aggregate_once_inner(self, key_items, agg_items, subset, child,
+                              live, nlive):
         ev = self._evaluator(child)
         key_cols = []
         for i, (e, name) in enumerate(key_items):
@@ -638,6 +888,7 @@ class Executor:
             if direct is not None:
                 return direct
 
+        words = None
         if active:
             words = self._group_words(active, live)
             order, gid, ngroups = K.group_by_words(words, live, nlive)
@@ -658,7 +909,7 @@ class Executor:
         live_sorted = live if order is None else live[order]
         return self._agg_output(
             child, key_items, key_cols, agg_items, subset,
-            order, gid, ngroups, ev, gcap, live_sorted,
+            order, gid, ngroups, ev, gcap, live_sorted, words,
         )
 
     # -- direct (sort-free) aggregation ----------------------------------
@@ -750,6 +1001,7 @@ class Executor:
     def _agg_output(
         self, child, key_items, key_cols, agg_items, subset,
         order, gid, ngroups, ev, gcap=None, live_sorted=None,
+        key_words=None,
     ):
         dev = self.device
         if ngroups == 0:
@@ -791,17 +1043,18 @@ class Executor:
         for agg, name in agg_items:
             cols[name] = self._eval_agg(
                 agg, ev, order, gid, gcap, live_sorted, ngroups, child,
+                key_words,
             )
         return Table(cols, ngroups,
                      unique_key=_active_key_names(key_items, key_cols))
 
     def _eval_agg(self, agg: E.Agg, ev, order, gid, gcap, live_sorted,
-                  ngroups, child) -> Column:
+                  ngroups, child, key_words=None) -> Column:
         fn = agg.fn
         if fn == "grouping":
             raise _not_ported("grouping()", TODO_OPERATORS)
         if agg.distinct:
-            raise _not_ported("distinct aggregates", TODO_OPERATORS)
+            return self._eval_distinct_agg(agg, ev, child, key_words)
         if fn == "count" and agg.arg is None:
             counts = K.segment_reduce(
                 live_sorted.to(torch.int64), gid, live_sorted, gcap, "count"
@@ -863,6 +1116,71 @@ class Executor:
             out = torch.sqrt(var) if fn == "stddev_samp" else var
             return Column(out, FLOAT64, n > 1)
         raise ExecError(f"aggregate {fn}")
+
+    def _eval_distinct_agg(self, agg, ev, child, key_words=None):
+        """count / sum / avg (distinct x): two-level grouping.
+
+        Null values of x stay live through both passes (so every outer group
+        survives and positions align with the main aggregation pass, which
+        enumerates groups in the same sorted-key order) but carry zero
+        weight in the final reduction (distinct aggs ignore nulls)."""
+        c = ev.eval(agg.arg)
+        live = self._current_agg_live
+        d = c.data
+        if d.dtype == torch.bool:
+            d = d.to(torch.int32)
+        # the main pass's outer-key words: monotone codes keep the group
+        # enumeration order identical across passes, so positions align
+        gwords = list(key_words) if key_words else []
+        if gwords:
+            vwords = self._sort_words(
+                [(d, c.valid, True, True)], [c], live, include_live=False
+            )
+            words2 = gwords + vwords
+        else:
+            words2 = self._sort_words([(d, c.valid, True, True)], [c], live)
+        order2, gid2, ng2 = K.group_by_words(
+            words2, live, self._current_agg_nlive
+        )
+        g2cap = bucket_cap(max(ng2, 1))
+        first2 = K.segment_starts(gid2, g2cap)
+        rows2 = order2[first2.clamp(0, child.cap - 1)]
+        live2 = torch.arange(g2cap, device=live.device) < ng2
+        cvalid2 = None if c.valid is None else c.valid[rows2]
+        # re-group the distinct rows by the outer keys only. A fresh live2
+        # word leads: the gathered words' embedded live bit reflects the
+        # ORIGINAL rows' liveness, not the distinct slots'
+        if gwords:
+            okeys = [torch.where(live2, 0, 1).to(torch.int64)]
+            okeys += [w[rows2] for w in gwords]
+            order3, gid3, ng3 = K.group_by_words(okeys, live2)
+        else:
+            # global distinct: reductions are order-independent
+            order3 = torch.arange(g2cap, device=live.device)
+            gid3 = torch.zeros(g2cap, dtype=torch.int64, device=live.device)
+            ng3 = 1 if ng2 > 0 else 0
+        if ng3 == 0:
+            ng3 = 1
+        g3cap = bucket_cap(ng3)
+        w3 = live2[order3]
+        if cvalid2 is not None:
+            w3 = w3 & cvalid2[order3]
+        vals = c.data[rows2][order3]
+        if agg.fn == "count":
+            out = K.segment_reduce(vals, gid3, w3, g3cap, "count")
+            return Column(out, INT64)
+        if agg.fn == "sum":
+            out, n = K.segment_reduce_with_count(vals, gid3, w3, g3cap, "sum")
+            if c.dtype.kind == "int32":
+                return Column(out.to(torch.int64), INT64, n > 0)
+            return Column(out, c.dtype, n > 0)
+        if agg.fn == "avg":
+            s, n = K.segment_reduce_with_count(vals, gid3, w3, g3cap, "sum")
+            v = s.to(torch.float64) / n.clamp(min=1)
+            if c.dtype.is_decimal:
+                v = v / 10**c.dtype.scale
+            return Column(v, FLOAT64, n > 0)
+        raise ExecError(f"distinct agg {agg.fn}")
 
     # -- the engine.pallas_* kernel routes --------------------------------
 
@@ -996,26 +1314,7 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _evaluator(self, table: Table) -> Evaluator:
-        ex = self
-
-        class _Ev(Evaluator):
-            def _eval_scalarsubquery(self, e):
-                val, dtype, dictionary = ex._scalar_value(e)
-                cap = self.table.cap
-                dev = self.device
-                if val is None:
-                    return Column(
-                        torch.zeros(cap, dtype=torch_dtype(dtype), device=dev),
-                        dtype, torch.zeros(cap, dtype=torch.bool, device=dev),
-                        dictionary,
-                    )
-                return Column(
-                    torch.full((cap,), val, dtype=torch_dtype(dtype),
-                               device=dev),
-                    dtype, None, dictionary,
-                )
-
-        return _Ev(table, self.device)
+        return _ExecEvaluator(table, self.device, self)
 
     def _scalar_value(self, e: E.ScalarSubquery):
         key = id(e.plan)
@@ -1053,3 +1352,46 @@ class Executor:
             )
         return Table(cols, nrows)
 
+    def _distinct_table(self, t: Table) -> Table:
+        t = self._pack_sparse(t)
+        live = t.row_mask(self.device)
+        words = self._group_words(list(t.columns.values()), live)
+        order, gid, ng = K.group_by_words(words, live, t.nrows)
+        gcap = bucket_cap(max(ng, 1))
+        first = K.segment_starts(gid, gcap)
+        rows = order[first.clamp(0, t.cap - 1)]
+        out = self._take(t, rows, ng)
+        out.unique_key = frozenset(out.columns)
+        return out
+
+    def _concat(self, a: Table, b: Table) -> Table:
+        """Masked concatenation: columns append at full capacity (padded to
+        a power-of-two bucket) under a combined live mask, with no
+        repacking gathers and no count syncs."""
+        cap = bucket_cap(max(a.cap + b.cap, 1))
+        live = _pad_to(
+            torch.cat([a.row_mask(self.device), b.row_mask(self.device)]), cap
+        )
+        n_lazy = a.nrows_lazy + b.nrows_lazy  # device counts stay lazy
+        cols = {}
+        for an, bn in zip(a.columns, b.columns):
+            ca, cb = a.columns[an], b.columns[bn]
+            if ca.dtype.is_string or cb.dtype.is_string:
+                (da, db), dictionary = _share_dictionary([ca, cb])
+                dtype = ca.dtype
+            else:
+                dtype = _common_dtype([ca.dtype, cb.dtype])
+                da = _cast_column(ca, dtype, ca.data.shape[0])
+                db = _cast_column(cb, dtype, cb.data.shape[0])
+                dictionary = None
+            data = _pad_to(torch.cat([da.data, db.data]), cap)
+            if da.valid is None and db.valid is None:
+                valid = None
+            else:
+                va = da.valid if da.valid is not None else torch.ones(
+                    a.cap, dtype=torch.bool, device=data.device)
+                vb = db.valid if db.valid is not None else torch.ones(
+                    b.cap, dtype=torch.bool, device=data.device)
+                valid = _pad_to(torch.cat([va, vb]), cap)
+            cols[an] = Column(data, dtype, valid, dictionary)
+        return Table(cols, n_lazy, live=live)

@@ -170,6 +170,21 @@ class Session:
         self.pallas_promotions = {}
         self.cache_lock = threading.RLock()
 
+    def union_agg_window_rows(self, row_bytes: int) -> int:
+        """Rows per window of blocked union aggregation, as the JAX session
+        derives them: `engine.union_agg_window_rows`, then the
+        NDS_UNION_AGG_WINDOW_ROWS knob, else 1/16 of the catalog's device
+        budget (NDS_CATALOG_BUDGET_BYTES, 6 GiB) in `row_bytes`-wide rows,
+        rounded down to a power of two and clamped to [2^16, 2^24]."""
+        v = self.conf.get("engine.union_agg_window_rows") or os.environ.get(
+            "NDS_UNION_AGG_WINDOW_ROWS"
+        )
+        if v:
+            return max(int(v), 1)
+        budget = int(os.environ.get("NDS_CATALOG_BUDGET_BYTES", 6 << 30))
+        rows = max(budget // 16 // max(row_bytes, 1), 1)
+        return int(min(max(1 << (rows.bit_length() - 1), 1 << 16), 1 << 24))
+
     # ---- registration ----------------------------------------------------
     def register_arrow(self, name, arrow, schema=None):
         self.catalog.entries[name.lower()] = _Entry(schema=schema, arrow=arrow)
@@ -199,6 +214,7 @@ class Session:
         if isinstance(stmt, A.SelectStmt):
             binder = Binder(self.catalog)
             plan = prune_columns(binder.bind(stmt), self.catalog)
+            P.mark_blocked_union_aggs(plan)
             return Result(self, plan)
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported to nds_tpu_torch yet: "

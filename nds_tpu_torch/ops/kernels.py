@@ -8,8 +8,12 @@ order and output contract, with two deliberate differences of idiom:
 
   * jnp scatters with mode="drop" drop out-of-range writes and jnp gathers
     clamp; torch raises (and on CUDA fires a device assert). Each scatter
-    below therefore routes its out-of-range lanes to one spare slot past
-    the end of the output and slices it away, and each gather is clamped.
+    below therefore routes its out-of-range lanes to spare slots past the
+    end of the output and slices them away, and each gather is clamped.
+    The reducing scatters spread the lanes they drop (and the segment
+    reductions their dead lanes, which add nothing) over SPARE_SLOTS
+    slots: on the card, hundreds of millions of padding lanes whose
+    atomics all hit one address serialise (seconds at 2^29 lanes).
   * Permutations and row indices are int64 (torch's index type); counts
     that cross to the host use `.item()` / `.tolist()` at exactly the
     places where the JAX code calls `int(...)` / `device_get`.
@@ -25,8 +29,17 @@ _I64_MAX = torch.iinfo(torch.int64).max
 _I64_MIN = torch.iinfo(torch.int64).min
 
 
+#: spare slots past the end of a reducing scatter for the lanes it drops
+SPARE_SLOTS = 1024
+
+
 def _iota(n: int, device, dtype=I64) -> torch.Tensor:
     return torch.arange(n, dtype=dtype, device=device)
+
+
+def _spare(n: int, base: int, device) -> torch.Tensor:
+    """Lane i's spare slot: base + i mod SPARE_SLOTS."""
+    return base + (_iota(n, device) & (SPARE_SLOTS - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -316,42 +329,47 @@ def _extreme(dtype, is_max):
     return info.max if is_max else info.min
 
 
-def _seg_index(gid, num_segments):
-    """gid with out-of-range segments routed to the spare slot (jax's
-    segment ops drop them)."""
+def _seg_index(gid, num_segments, keep=None):
+    """gid with out-of-range segments (jax's segment ops drop them) and,
+    where `keep` is given, the lanes it rules out routed to the spare
+    slots."""
     ok = (gid >= 0) & (gid < num_segments)
-    return torch.where(ok, gid, num_segments).to(I64)
+    if keep is not None:
+        ok = ok & keep
+    spare = _spare(gid.shape[0], num_segments, gid.device)
+    return torch.where(ok, gid.to(I64), spare)
 
 
 def segment_reduce(vals, gid, weight, num_segments, op):
     """Segment reduction with a live/validity weight mask.
-    op: sum | min | max | count | sumsq."""
-    idx = _seg_index(gid, num_segments)
+    op: sum | min | max | count | sumsq. Lanes of weight False add nothing
+    (the identity), so they go to the spare slots."""
+    idx = _seg_index(gid, num_segments, weight)
     dev = gid.device
+    size = num_segments + SPARE_SLOTS
     if op == "count":
-        out = torch.zeros(num_segments + 1, dtype=I64, device=dev)
+        out = torch.zeros(size, dtype=I64, device=dev)
         return out.index_add_(0, idx, weight.to(I64))[:num_segments]
     if op == "sum":
         v = torch.where(weight, vals, torch.zeros((), dtype=vals.dtype,
                                                   device=dev))
-        out = torch.zeros(num_segments + 1, dtype=vals.dtype, device=dev)
+        out = torch.zeros(size, dtype=vals.dtype, device=dev)
         return out.index_add_(0, idx, v)[:num_segments]
     if op == "sumsq":
         v = torch.where(weight, vals.to(torch.float64) ** 2, 0.0)
-        out = torch.zeros(num_segments + 1, dtype=torch.float64, device=dev)
+        out = torch.zeros(size, dtype=torch.float64, device=dev)
         return out.index_add_(0, idx, v)[:num_segments]
     if op in ("min", "max"):
         is_max = op == "max"
         ident = _extreme(vals.dtype, not is_max)  # max starts at the lowest
         v = torch.where(weight, vals, torch.full((), ident, dtype=vals.dtype,
                                                  device=dev))
-        out = torch.full((num_segments + 1,), ident, dtype=vals.dtype,
-                         device=dev)
+        out = torch.full((size,), ident, dtype=vals.dtype, device=dev)
         out.scatter_reduce_(0, idx, v, "amax" if is_max else "amin")
         if vals.is_floating_point():
             # jax.ops.segment_max/min propagate NaN; torch's scatter
             # reductions need not — mark NaN groups explicitly
-            nan = torch.zeros(num_segments + 1, dtype=I64, device=dev)
+            nan = torch.zeros(size, dtype=I64, device=dev)
             nan.index_add_(0, idx, (torch.isnan(v)).to(I64))
             out = torch.where(nan > 0, float("nan"), out)
         return out[:num_segments]
@@ -437,8 +455,9 @@ def _join_expand(lo, counts, rorder, out_cap):
     offs = torch.cumsum(counts, 0) - counts  # exclusive
     total = counts.sum()
     rows = _iota(lo.shape[0], dev)
-    starts = torch.where(counts > 0, offs, out_cap)
-    owner = torch.full((out_cap + 1,), -1, dtype=I64, device=dev)
+    starts = torch.where(counts > 0, offs,
+                         _spare(lo.shape[0], out_cap, dev))
+    owner = torch.full((out_cap + SPARE_SLOTS,), -1, dtype=I64, device=dev)
     owner.scatter_reduce_(0, starts, rows, "amax")
     owner = owner[:out_cap]
     li = torch.cummax(owner, 0).values.clamp(0, lo.shape[0] - 1)
@@ -488,6 +507,46 @@ def verify_pairs(li, ri, pair_live, lkeys, lvalids, llive, rkeys, rvalids,
             eq = eq & rv[ri]
         ok = ok & eq
     return ok
+
+
+def matched_mask(li, ok, cap):
+    """Per-left-row flag: does the row have at least one verified match?
+    A max-scatter: `li` may repeat a row (padding duplicates index 0), so a
+    plain set could write a padded False over a True. Out-of-range lanes
+    go to the spare slot (the jnp drop)."""
+    idx = torch.where((li >= 0) & (li < cap), li, cap).to(I64)
+    hits = torch.zeros(cap + 1, dtype=I32, device=li.device)
+    hits.index_add_(0, idx, ok.to(I32))
+    return hits[:cap] > 0
+
+
+# ---------------------------------------------------------------------------
+# Packed-word membership (exact-key join)
+# ---------------------------------------------------------------------------
+
+
+def member_lookup(lwords, lnn, rwords, rnn):
+    """Exact-word membership probe: for each left row, is its packed key
+    word present among the live right words, and at which right row (the
+    first duplicate in sorted order)? The words must be collision-free
+    (exact packing, not hashing), so presence needs no verification."""
+    rw = torch.where(rnn, rwords, _I64_MAX)
+    order = kv_sort_perm(rw)
+    return _member_probe(rw[order], order, lwords, lnn)
+
+
+def _member_probe(rw_sorted, order, lwords, lnn):
+    n = rw_sorted.shape[0]
+    if n == 0:
+        # JAX clips into an empty array and gathers (clamped); torch refuses
+        # the gather, and no probe can match an empty side
+        return torch.zeros_like(lnn), torch.zeros(
+            lwords.shape[0], dtype=I64, device=lwords.device)
+    probe = torch.where(lnn, lwords, -1)
+    lo = torch.searchsorted(rw_sorted, probe, side="left").clamp(0, n - 1)
+    # packed words are non-negative, so the -1 dead-left probe never hits
+    found = lnn & (rw_sorted[lo] == probe)
+    return found, order[lo]
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +609,7 @@ def segment_starts(gid, num_segments):
     segment is empty, as jax.ops.segment_min's identity)."""
     n = gid.shape[0]
     idx = _seg_index(gid, num_segments)
-    out = torch.full((num_segments + 1,), _I64_MAX, dtype=I64,
+    out = torch.full((num_segments + SPARE_SLOTS,), _I64_MAX, dtype=I64,
                      device=gid.device)
     out.scatter_reduce_(0, idx, _iota(n, gid.device), "amin")
     return out[:num_segments]

@@ -360,3 +360,71 @@ def test_segment_sums_unaligned_slices_on_card(cuda, off_v, off_g):
     ks, kc = GK.segment_sums(v, i, 50)
     ps, pc = GK.segment_sums_plain(v, i, 50)
     assert torch.equal(kc, pc) and torch.equal(ks, ps)
+
+
+# ---------------------------------------------------------------------------
+# The joins and set operators on the card: every join branch, DISTINCT, the
+# set operations and the distinct aggregates (tests/torch_join_cases.py),
+# and chip_smoke's joins-phase queries cut to size, through
+# Session(device="cuda") against the same port session on the CPU, with
+# the kernels off and on. Tolerance as in torch_join_cases: floats within
+# 1e-5 relative (f32 kernel sums in another order), the rest exactly.
+# ---------------------------------------------------------------------------
+
+
+def _join_cases():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_join_cases
+
+    return torch_join_cases
+
+
+def _port_sessions(device, tables, mode):
+    from nds_tpu_torch.engine.session import Session
+
+    s = Session(conf={f"engine.pallas_{k}": mode
+                      for k in ("agg", "join", "sort")}, device=device)
+    for name, t in tables.items():
+        s.register_arrow(name, t)
+    return s
+
+
+def _same_on_card_and_cpu(cuda, tables, sql, mode, ordered=False):
+    from nds_tpu_torch.engine import exec as TX
+
+    C = _join_cases()
+    out, events = [], []
+    for dev in (cuda, "cpu"):
+        ev = []
+        restore = C.CS.branch_spy(TX.Executor, ev)
+        try:
+            out.append(_port_sessions(dev, tables, mode).sql(sql).collect())
+        finally:
+            restore()
+        events.append(ev)
+    assert events[0] == events[1]
+    C.assert_same(out[0], out[1], (sql, mode), ordered=ordered)
+    return events[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["off", "on"])
+@pytest.mark.parametrize("case", sorted(_join_cases().CASES))
+def test_join_branch_on_card_matches_cpu(cuda, case, mode):
+    C = _join_cases()
+    sql, wanted = C.CASES[case]
+    events = _same_on_card_and_cpu(cuda, C.tables(), sql, mode)
+    assert not C.CS.missing_branches(events, wanted), (wanted, events)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", sorted(_join_cases().CS.JOIN_QUERIES))
+def test_chip_join_query_on_card_matches_cpu(cuda, q):
+    C = _join_cases()
+    star = C.CS.make_star(0, 1e-4)
+    tables = {n: C.arrow_table(c) for n, c in star.items()}
+    _same_on_card_and_cpu(cuda, tables, C.CS.JOIN_QUERIES[q], "on",
+                          ordered=q == "q78")

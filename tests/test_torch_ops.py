@@ -229,3 +229,66 @@ def test_join_candidates_and_verify_pairs():
     packed_j = JK.pack_key_words([[(jlk, jlv)], [(jrk, None)]], [(0, 299)])
     for t, j in zip(packed_t, packed_j):
         _eq(t, j)
+
+
+@pytest.mark.parametrize("case", ["duplicated_right", "dead_probes",
+                                  "all_dead_right", "one_right_word"])
+def test_member_lookup(case):
+    """Packed-word membership: found flags exactly, and the matched right
+    row exactly (the first duplicate in sorted order: both sorts are
+    stable). Duplicated right words, dead left probes, a right side whose
+    rows are all dead (the executor's empty side) and a single word."""
+    rng = np.random.default_rng(11)
+    n_l, n_r = 3000, 800
+    rw = rng.integers(0, 400, n_r)  # ~2 rows per word: duplicates
+    rnn = rng.random(n_r) > 0.1
+    lw = rng.integers(0, 600, n_l)
+    lnn = rng.random(n_l) > (0.5 if case == "dead_probes" else 0.05)
+    if case == "all_dead_right":
+        rnn[:] = False
+    if case == "one_right_word":
+        rw, rnn = rw[:1], np.ones(1, dtype=bool)
+    (jl, tl), (jln, tln), (jr, tr), (jrn, trn) = (
+        _both(lw), _both(lnn), _both(rw), _both(rnn))
+    tf, tri = TK.member_lookup(tl, tln, tr, trn)
+    jf, jri = JK.member_lookup(jl, jln, jr, jrn)
+    _eq(tf, jf)
+    _eq(tri, jri)
+    if case != "all_dead_right":
+        assert bool(tf.any())
+    assert not bool(tf[~tln].any())
+
+
+def test_member_lookup_empty_right_side():
+    """A right side of no rows at all: nothing matches. (The JAX function
+    refuses the gather from an empty array; the executor never hands it
+    one, every table having at least one bucket of 1,024 rows.)"""
+    lw = torch.arange(10, dtype=torch.int64)
+    found, ri = TK.member_lookup(lw, torch.ones(10, dtype=torch.bool),
+                                 lw[:0], torch.ones(0, dtype=torch.bool))
+    assert not bool(found.any()) and ri.shape == (10,)
+
+
+@pytest.mark.parametrize("case", ["random", "padded_index0", "all_false",
+                                  "out_of_range"])
+def test_matched_mask(case):
+    """The max-scatter: a row is matched when ANY of its candidates is ok,
+    whatever the order of duplicates, including the compaction padding that
+    repeats index 0 with ok False after a True."""
+    rng = np.random.default_rng(12)
+    cap = 1024
+    li = rng.integers(0, cap, 5000).astype(np.int32)
+    ok = rng.random(5000) > 0.7
+    if case == "padded_index0":
+        li[100:] = 0  # padding duplicates of index 0 ...
+        ok[100:] = False
+        li[50], ok[50] = 0, True  # ... after a real match of row 0
+    elif case == "all_false":
+        ok[:] = False
+    elif case == "out_of_range":
+        li[::7] = cap + 3  # dropped, as the jnp scatter drops them
+    (jli, tli), (jok, tok) = _both(li), _both(ok)
+    t = TK.matched_mask(tli, tok, cap)
+    _eq(t, JK.matched_mask(jli, jok, cap))
+    if case == "padded_index0":
+        assert bool(t[0])

@@ -9,6 +9,8 @@ EXACTLY; floats within nds_tpu.validate.compare's 1e-5 relative epsilon
 (f32 kernel accumulation on both sides, in different orders).
 Plus the port's guards: no jax / nds_tpu import anywhere in the port, no
 silent CPU fallback, and NotImplementedError for every unported branch.
+The joins and set operators have their own parity file,
+tests/test_torch_joins.py.
 """
 
 import ast
@@ -218,17 +220,27 @@ UNPORTED = {
                                          order by ss_quantity) rk
         from store_sales
     """,
-    "setop": """
-        select ss_item_sk from store_sales where ss_quantity > 50
-        except
-        select ss_item_sk from store_sales where ss_quantity <= 50
-    """,
     "rollup": """
         select ss_store_sk, count(*) c from store_sales
         group by rollup(ss_store_sk)
     """,
-    "distinct_agg": "select count(distinct ss_item_sk) c from store_sales",
+    "grouping": """
+        select ss_store_sk, grouping(ss_store_sk) g, count(*) c
+        from store_sales group by ss_store_sk
+    """,
+    # an aggregate over a UNION ALL past one window: the JAX engine
+    # aggregates it window by window (blocked union aggregation)
+    "blocked_union": """
+        select k, sum(q) s from (
+            select ss_store_sk k, ss_quantity q from store_sales
+            union all
+            select ss_store_sk k, ss_quantity q from store_sales) u
+        group by k
+    """,
 }
+
+#: session conf a case needs to reach its branch
+UNPORTED_CONF = {"blocked_union": {"engine.union_agg_window_rows": 1024}}
 
 
 def _conf(mode):
@@ -317,8 +329,13 @@ def test_q3_routes_through_every_kernel_wrapper(sessions, monkeypatch):
 
 
 @pytest.mark.parametrize("qname", sorted(UNPORTED))
-def test_unported_branches_raise(sessions, qname):
+def test_unported_branches_raise(tables, sessions, qname):
     t = sessions["on"][1]
+    if qname in UNPORTED_CONF:
+        t = TorchSession(conf={**_conf("on"), **UNPORTED_CONF[qname]},
+                         device="cpu")
+        for name, at in tables.items():
+            t.register_arrow(name, at)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t.sql(UNPORTED[qname]).collect()
 
