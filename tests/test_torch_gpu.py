@@ -421,6 +421,13 @@ def test_join_branch_on_card_matches_cpu(cuda, case, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_join_cases().EDGE_CASES))
+def test_join_edge_case_on_card_matches_cpu(cuda, case):
+    C = _join_cases()
+    _same_on_card_and_cpu(cuda, C.tables(), C.EDGE_CASES[case], "on")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("q", sorted(_join_cases().CS.JOIN_QUERIES))
 def test_chip_join_query_on_card_matches_cpu(cuda, q):
     C = _join_cases()

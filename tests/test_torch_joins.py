@@ -34,7 +34,7 @@ from nds_tpu_torch.engine.session import Session as TorchSession
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_join_cases import (  # noqa: E402
-    CASES, CS, EPS, arrow_table, assert_same, structural, tables,
+    CASES, CS, EDGE_CASES, EPS, arrow_table, assert_same, structural, tables,
 )
 
 torch.set_num_threads(1)
@@ -84,6 +84,17 @@ def test_join_branch_matches_jax(sessions, case, mode):
     a, b, ev_j, ev_t = _run_both(j, t, sql)
     assert structural(ev_t) == structural(ev_j), (ev_j, ev_t)
     assert not CS.missing_branches(ev_t, wanted), (wanted, ev_t)
+    assert_same(a, b, (case, mode))
+
+
+@pytest.mark.parametrize("mode", ["off", "on"])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_edge_case_matches_jax(sessions, case, mode):
+    """Empty sides of joins, set operations, DISTINCT and distinct
+    aggregates, and set operations over literals and casts."""
+    j, t = sessions[mode]
+    a, b, ev_j, ev_t = _run_both(j, t, EDGE_CASES[case])
+    assert structural(ev_t) == structural(ev_j), (ev_j, ev_t)
     assert_same(a, b, (case, mode))
 
 

@@ -214,6 +214,46 @@ CASES = {
         ["count(distinct)", "avg(distinct)"]),
 }
 
+#: empty inputs and mixed types: name -> SQL (no rows is a right answer)
+EDGE_CASES = {
+    "empty_distinct_aggs": """
+        select count(distinct f_item) c, sum(distinct f_qty) s,
+               avg(distinct f_val) a from fact where f_qty > 1000""",
+    "empty_grouped_distinct_agg": """
+        select f_grp, count(distinct f_item) c from fact
+        where f_qty > 1000 group by f_grp""",
+    "empty_union": """
+        select f_grp from fact where f_qty > 1000
+        union select d_grp from dim where d_qty > 1000""",
+    "intersect_empty_right": """
+        select f_grp from fact
+        intersect select d_grp from dim where d_qty > 1000""",
+    "except_empty_right": """
+        select f_grp, f_str from fact
+        except select d_grp, d_str from dim where d_qty > 1000""",
+    "left_join_empty_left": """
+        select f_id, d_qty from fact f left join dim d on f.f_key = d.d_key
+        where f.f_qty > 1000""",
+    "left_join_empty_right": """
+        select f_id, d_qty from fact f
+        left join (select * from dim where d_qty > 1000) d
+          on f.f_key = d.d_key""",
+    "full_join_empty_right": """
+        select f_id, d_key from fact f
+        full join (select * from dim where d_qty > 1000) d
+          on f.f_key = d.d_key""",
+    "semi_empty_right": """
+        select count(*) c from fact f where exists (
+            select * from dim d where d.d_key = f.f_key and d.d_qty > 1000)""",
+    "distinct_empty": "select distinct f_grp from fact where f_qty > 1000",
+    "union_all_string_literal": """
+        select f_str s from fact where f_qty > 95
+        union all select 'zz' s from dim where d_qty > 95""",
+    "intersect_decimals": """
+        select cast(f_qty as decimal(7,2)) q from fact
+        intersect select cast(d_qty as decimal(7,2)) from dim""",
+}
+
 SET_EVENTS = ("distinct", "union", "union_all", "intersect", "except")
 
 
