@@ -386,13 +386,11 @@ DICTIONARIES = {"r_reason_desc": [f"reason {i}" for i in
                                   range(1, SF100_ROWS["reason"] + 1)]}
 
 
-def to_tables(star, device, names=None):
+def to_tables(star, device):
     from nds_tpu_torch.engine.columnar import table_from_numpy
 
     out = {}
     for name, cols in star.items():
-        if names is not None and name not in names:
-            continue
         spec = {}
         nrows = None
         for cname, data in cols.items():
