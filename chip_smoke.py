@@ -11,8 +11,10 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            pyarrow imports
   build    nvcc builds every kernel from ops/csrc/, one process per source
   data     store_sales (as tickets), store_returns, catalog_sales (as
-           orders), item, date_dim and reason, made with numpy from --seed
-           at SF100 row counts (make_star), loaded with table_from_numpy
+           orders), item, date_dim, reason and store, made with numpy from
+           --seed at SF100 row counts (make_star), loaded with
+           table_from_numpy (the WINDOW_COLUMNS wait for the windows phase;
+           the line reckons their device bytes)
   slice    three queries through Session(device="cuda"): q3 (segment sums +
            dense joins), a grouped min/max (segment extreme) and a one-word
            ORDER BY (counting sort). Launch counts are zeroed just before the
@@ -34,6 +36,16 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            equal the off session, q93 and q16 their numpy references; one
            line per query (cold / steady / off ms, fact rows/s, busy share,
            peak GiB, launches, branches) and a `joins` summary line
+  windows  windows, ROLLUP / grouping sets, grouping() and blocked union
+           aggregation: WINDOW_QUERIES (q98, q36, q67 and q51 / q5 shapes)
+           over the tables with the WINDOW_COLUMNS (and the store table)
+           uploaded for this phase, through a session with the kernels on
+           and one with them off; launch counts zeroed just before the cold
+           runs and read just after; each query must take its
+           WINDOW_BRANCHES (the q5 shape its union in windows of the
+           default size), launch segment_sums and dense_build and equal the
+           off session, q98, q36 and the q5 shape their numpy references;
+           one line per query and a `windows` summary line
   kernel_sweep  the kernels redesigned for Hopper against their plain
            versions at shapes beyond the main path's: segment_extreme's
            global-atomic path, sorted ids and one group; 2^21-row builds
@@ -54,6 +66,7 @@ Usage: python3 chip_smoke.py [--seed N] [--scale F]   (F < 1 cuts row counts)
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -79,6 +92,44 @@ JULIAN_OF_EPOCH = 2440588
 N_STORE_SF100 = 402
 N_CUSTOMER_SF100 = 2_000_000
 H100_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+
+#: vocabularies of nds_tpu/datagen/native/vocab.hpp (kCategories, kClasses
+#: flattened 8 per category, kPromoNames, kStates)
+CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry", "Men",
+              "Music", "Shoes", "Sports", "Women"]
+CLASSES = [
+    "arts", "business", "computers", "cooking", "history", "mystery",
+    "romance", "science",
+    "infants", "newborn", "school-uniforms", "toddlers", "accessories",
+    "shirts", "pants", "swimwear",
+    "audio", "cameras", "dvd/vcr players", "karoke", "memory", "monitors",
+    "portable", "televisions",
+    "bathroom", "bedding", "blinds/shades", "curtains/drapes", "decor",
+    "flatware", "furniture", "kids",
+    "birdal", "costume", "diamonds", "estate", "gold", "loose stones",
+    "pendants", "rings",
+    "accessories", "pants", "shirts", "sports-apparel", "underwear",
+    "dress shirts", "suits", "casual",
+    "classical", "country", "pop", "rock", "jazz", "blues", "folk", "world",
+    "athletic", "dress", "kids", "mens", "womens", "work", "sandals", "boots",
+    "archery", "baseball", "basketball", "camping", "fishing", "fitness",
+    "golf", "hockey",
+    "dresses", "fragrances", "intimates", "maternity", "swimwear",
+    "accessories", "shirts", "pants"]
+PROMO_NAMES = ["ese", "anti", "ought", "able", "pri", "bar", "cally", "ation",
+               "eing", "n st"]
+STATES = ["AL", "AK", "AZ", "AR", "CA", "CO", "CT", "DE", "FL", "GA", "HI",
+          "ID", "IL", "IN", "IA", "KS", "KY", "LA", "ME", "MD", "MA", "MI",
+          "MN", "MS", "MO", "MT", "NE", "NV", "NH", "NJ", "NM", "NY", "NC",
+          "ND", "OH", "OK", "OR", "PA", "RI", "SC", "SD", "TN", "TX", "UT",
+          "VT", "VA", "WA", "WV", "WI", "WY"]
+#: words of the item descriptions (dims.hpp draws them from a word list)
+DESC_WORDS = ["able", "about", "across", "again", "always", "areas", "back",
+              "basic", "better", "black", "blue", "bright", "called", "cases",
+              "certain", "clear", "close", "common", "daily", "deep", "early",
+              "easy", "equal", "even", "fair", "final", "fine", "free",
+              "full", "good", "great", "happy", "high", "large", "light",
+              "local", "major", "modern", "new", "open"]
 
 QUERIES = {
     # tests/test_dist_sql.py star_agg_q3, verbatim
@@ -208,6 +259,160 @@ JOIN_QUERIES = {
     """,
 }
 
+#: the windows phase: TPC-DS templates and shapes of them over the tables
+#: make_star builds, with the qualification parameters of the TPC-DS
+#: specification. Each must take the branches WINDOW_BRANCHES names for it.
+Q36_STATES = ("TN", "SD", "AL", "SC", "OH", "LA", "MO", "GA")
+WINDOW_QUERIES = {
+    # query98.tpl, [CAT_A..C] = Sports, Books, Home; [SDATE] = 1999-02-22
+    "q98": """
+        select i_item_id, i_item_desc, i_category, i_class, i_current_price,
+               sum(ss_ext_sales_price) as itemrevenue,
+               sum(ss_ext_sales_price) * 100 / sum(sum(ss_ext_sales_price))
+                 over (partition by i_class) as revenueratio
+        from store_sales, item, date_dim
+        where ss_item_sk = i_item_sk
+          and i_category in ('Sports', 'Books', 'Home')
+          and ss_sold_date_sk = d_date_sk
+          and d_date between cast('1999-02-22' as date)
+                         and (cast('1999-02-22' as date) + interval 30 days)
+        group by i_item_id, i_item_desc, i_category, i_class, i_current_price
+        order by i_category, i_class, i_item_id, i_item_desc, revenueratio
+        limit 100
+    """,
+    # query36.tpl, [YEAR] = 2001, [STATE1..8] = Q36_STATES
+    "q36": f"""
+        select sum(ss_net_profit) / sum(ss_ext_sales_price) as gross_margin,
+               i_category, i_class,
+               grouping(i_category) + grouping(i_class) as lochierarchy,
+               rank() over (
+                 partition by grouping(i_category) + grouping(i_class),
+                              case when grouping(i_class) = 0
+                                   then i_category end
+                 order by sum(ss_net_profit) / sum(ss_ext_sales_price) asc)
+               as rank_within_parent
+        from store_sales, date_dim d1, item, store
+        where d1.d_year = 2001
+          and d1.d_date_sk = ss_sold_date_sk
+          and i_item_sk = ss_item_sk
+          and s_store_sk = ss_store_sk
+          and s_state in {Q36_STATES}
+        group by rollup (i_category, i_class)
+        order by lochierarchy desc,
+                 case when lochierarchy = 0 then i_category end,
+                 rank_within_parent
+        limit 100
+    """,
+    # query67.tpl, [DMS] = 1200
+    "q67": """
+        select *
+        from (select i_category, i_class, i_brand, i_product_name, d_year,
+                     d_qoy, d_moy, s_store_id, sumsales,
+                     rank() over (partition by i_category
+                                  order by sumsales desc) rk
+              from (select i_category, i_class, i_brand, i_product_name,
+                           d_year, d_qoy, d_moy, s_store_id,
+                           sum(coalesce(ss_sales_price * ss_quantity, 0))
+                             sumsales
+                    from store_sales, date_dim, store, item
+                    where ss_sold_date_sk = d_date_sk
+                      and ss_item_sk = i_item_sk
+                      and ss_store_sk = s_store_sk
+                      and d_month_seq between 1200 and 1200 + 11
+                    group by rollup (i_category, i_class, i_brand,
+                                     i_product_name, d_year, d_qoy, d_moy,
+                                     s_store_id)) dw1) dw2
+        where rk <= 100
+        order by i_category, i_class, i_brand, i_product_name, d_year,
+                 d_qoy, d_moy, s_store_id, sumsales, rk
+        limit 100
+    """,
+    # query51.tpl, [DMS] = 1200, with catalog_sales in place of web_sales
+    "q51": """
+        with web_v1 as (
+         select cs_item_sk item_sk, d_date,
+                sum(sum(cs_sales_price))
+                  over (partition by cs_item_sk order by d_date
+                        rows between unbounded preceding and current row)
+                  cume_sales
+         from catalog_sales, date_dim
+         where cs_sold_date_sk = d_date_sk
+           and d_month_seq between 1200 and 1200 + 11
+           and cs_item_sk is not null
+         group by cs_item_sk, d_date),
+         store_v1 as (
+         select ss_item_sk item_sk, d_date,
+                sum(sum(ss_sales_price))
+                  over (partition by ss_item_sk order by d_date
+                        rows between unbounded preceding and current row)
+                  cume_sales
+         from store_sales, date_dim
+         where ss_sold_date_sk = d_date_sk
+           and d_month_seq between 1200 and 1200 + 11
+           and ss_item_sk is not null
+         group by ss_item_sk, d_date)
+        select *
+        from (select item_sk, d_date, web_sales, store_sales,
+                     max(web_sales)
+                       over (partition by item_sk order by d_date
+                             rows between unbounded preceding and current row)
+                       web_cumulative,
+                     max(store_sales)
+                       over (partition by item_sk order by d_date
+                             rows between unbounded preceding and current row)
+                       store_cumulative
+              from (select case when web.item_sk is not null
+                                then web.item_sk else store.item_sk end item_sk,
+                           case when web.d_date is not null
+                                then web.d_date else store.d_date end d_date,
+                           web.cume_sales web_sales,
+                           store.cume_sales store_sales
+                    from web_v1 web
+                    full outer join store_v1 store
+                      on (web.item_sk = store.item_sk
+                          and web.d_date = store.d_date)) x) y
+        where web_cumulative > store_cumulative
+        order by item_sk, d_date
+        limit 100
+    """,
+    # query5.tpl's store channel as written, [SDATE] = 2000-08-23, then
+    # the outer rollup over it (no catalog or web channel)
+    "q5": """
+        with ssr as
+         (select s_store_id,
+                 sum(sales_price) as sales,
+                 sum(profit) as profit,
+                 sum(return_amt) as returns_amt,
+                 sum(net_loss) as profit_loss
+          from (select ss_store_sk as store_sk, ss_sold_date_sk as date_sk,
+                       ss_ext_sales_price as sales_price,
+                       ss_net_profit as profit,
+                       cast(0 as decimal(7,2)) as return_amt,
+                       cast(0 as decimal(7,2)) as net_loss
+                from store_sales
+                union all
+                select sr_store_sk as store_sk,
+                       sr_returned_date_sk as date_sk,
+                       cast(0 as decimal(7,2)) as sales_price,
+                       cast(0 as decimal(7,2)) as profit,
+                       sr_return_amt as return_amt, sr_net_loss as net_loss
+                from store_returns) salesreturns, date_dim, store
+          where date_sk = d_date_sk
+            and d_date between cast('2000-08-23' as date)
+                           and (cast('2000-08-23' as date) + interval 14 days)
+            and store_sk = s_store_sk
+          group by s_store_id)
+        select channel, id, sum(sales) as sales,
+               sum(returns_amt) as returns_amt, sum(profit) as profit
+        from (select 'store channel' as channel, 'store' || s_store_id as id,
+                     sales, returns_amt, profit - profit_loss as profit
+              from ssr) x
+        group by rollup (channel, id)
+        order by channel, id
+        limit 100
+    """,
+}
+
 KERNEL_META = {
     "segment_sums": ("nds_tpu_torch/ops/csrc/segment_sums.cu",
                      "nds_tpu/ops/pallas_kernels.py:36"),
@@ -276,18 +481,75 @@ def _distinct_items(rng, order, line, n_orders, n_items, max_lines):
     return (idx * 2 + 1).astype(np.int32)
 
 
+def business_id(idx: int) -> str:
+    """dsdgen's 16-letter business key of index `idx` (ndsgen.hpp)."""
+    return "".join(chr(65 + ((idx >> (4 * (15 - i))) & 15)) for i in range(16))
+
+
+def _coded(values):
+    """(int32 code of each value, the distinct values as the dictionary)."""
+    uniq, inv = np.unique(np.asarray(values, dtype=object),
+                          return_inverse=True)
+    return inv.astype(np.int32), list(uniq)
+
+
+@functools.lru_cache(maxsize=None)
+def string_column(name):
+    """(code of each raw index, dictionary) of a generated string column:
+    i_class by category * 8 + class (class names repeat across categories;
+    the dictionary holds each once), i_brand by category * 80 + class * 10
+    + brand - 1, i_product_name by its four name parts as a base-10
+    number, i_item_id and i_item_desc by item row (SF100's item count),
+    s_store_id by store row (SCD pairs share an id)."""
+    if name == "i_class":
+        return _coded(CLASSES)
+    if name == "i_brand":
+        return _coded([f"{PROMO_NAMES[c]}{PROMO_NAMES[k]} #{b}"
+                       for c in range(10) for k in range(8)
+                       for b in range(1, 11)])
+    if name == "i_product_name":
+        return _coded(["".join(PROMO_NAMES[int(d)] for d in f"{n:04d}")
+                       for n in range(10_000)])
+    if name == "i_item_id":
+        return _coded([business_id(r + 1) for r in range(SF100_ROWS["item"])])
+    if name == "i_item_desc":
+        w = len(DESC_WORDS)
+        return _coded([" ".join(DESC_WORDS[(r * 2654435761 >> (5 * j)) % w]
+                                for j in range(5))
+                       for r in range(SF100_ROWS["item"])])
+    if name == "s_store_id":
+        return _coded([business_id(r // 2 + 1)
+                       for r in range(N_STORE_SF100)])
+    raise KeyError(name)
+
+
+def dictionary(name):
+    """The dictionary of a string column (its data are codes into it), or
+    None for a column that is not a string."""
+    if name in DICTIONARIES:
+        return DICTIONARIES[name]
+    try:
+        return string_column(name)[1]
+    except KeyError:
+        return None
+
+
 def make_star(seed: int, scale: float):
     """numpy columns of the tables the slice's queries read, shaped as
     nds_tpu/datagen/native makes them: dims.hpp (date_dim calendar, item
-    brand/manager encodings, reason descriptions) and facts.hpp / rowcounts.hpp
+    brand/manager encodings and the string attributes, store ids and
+    states, reason descriptions) and facts.hpp / rowcounts.hpp
     (sales as orders of 8..16 store lines or 4..14 catalog lines, each order
     on one date, store and customer with distinct items; uniform sale dates
     over 1998-2002, odd current-SCD item and store keys, ~4% null nullable
     FKs, quantity 1..100; returns drawn from distinct sales lines, so
     store_returns' key (sr_item_sk, sr_ticket_number) holds as
     store_sales' (ss_item_sk, ss_ticket_number) does). Measures are float64,
-    as the --floats mode stores decimal(7,2)."""
+    as the --floats mode stores decimal(7,2). The columns only the windows
+    phase reads (WINDOW_COLUMNS and the store table) draw from a generator
+    of their own, so the other tables are the same with or without them."""
     rng = np.random.default_rng(seed)
+    rng2 = np.random.default_rng([seed, 6])
     n_dates = SF100_ROWS["date_dim"]
     # at least 64 items, so a cut --scale still gives orders distinct items
     n_items = max(64, int(SF100_ROWS["item"] * scale))
@@ -308,6 +570,7 @@ def make_star(seed: int, scale: float):
         "d_year": year.astype(np.int32),
         "d_moy": month.astype(np.int32),
         "d_month_seq": ((year - 1900) * 12 + month - 1).astype(np.int32),
+        "d_qoy": ((month - 1) // 3 + 1).astype(np.int32),
     }
     cat = rng.integers(0, 10, n_items)
     cls = rng.integers(0, 8, n_items)
@@ -317,6 +580,25 @@ def make_star(seed: int, scale: float):
         "i_brand_id": ((cat + 1) * 1_000_000 + (cls + 1) * 1000 + brand)
         .astype(np.int32),
         "i_manager_id": rng.integers(1, 101, n_items, dtype=np.int32),
+    }
+    brand_no = brand - 1
+    rows = np.arange(n_items)
+    item.update({
+        "i_category": cat.astype(np.int32),
+        "i_class": string_column("i_class")[0][cat * 8 + cls],
+        "i_brand": string_column("i_brand")[0][cat * 80 + cls * 10 + brand_no],
+        "i_product_name": string_column("i_product_name")[0][
+            rng2.integers(0, 10_000, n_items)],
+        "i_item_id": string_column("i_item_id")[0][rows],
+        "i_item_desc": string_column("i_item_desc")[0][rows],
+        "i_current_price": rng2.integers(9, 10_000, n_items) / 100.0,
+    })
+    n_store_rows = max(2, int(N_STORE_SF100 * scale))
+    store = {
+        "s_store_sk": np.arange(1, n_store_rows + 1, dtype=np.int32),
+        "s_store_id": string_column("s_store_id")[0][:n_store_rows],
+        "s_state": rng2.integers(0, len(STATES), n_store_rows,
+                                 dtype=np.int32),
     }
 
     # store_sales: tickets of 8..16 lines sharing date, store and customer
@@ -339,6 +621,10 @@ def make_star(seed: int, scale: float):
         "ss_sales_price": cents / 100.0,
         "ss_ext_sales_price": cents.astype(np.float64) * qty / 100.0,
     }
+    # facts.hpp: net profit = net paid - extended wholesale cost
+    store_sales["ss_net_profit"] = (
+        cents - rng2.integers(100, 10_001, n_fact, dtype=np.int32)
+    ).astype(np.float64) * qty / 100.0
     del line
 
     # store_returns: distinct sales lines, so its key holds
@@ -355,7 +641,23 @@ def make_star(seed: int, scale: float):
         "sr_return_quantity": (rng.integers(0, 1 << 30, n_ret)
                                % qty[ridx] + 1).astype(np.int32),
     }
-    del ridx
+    # facts.hpp: returned 1..90 days after the sale, at the store of the
+    # sale; the amount is the sales price times the returned quantity, the
+    # net loss tax + fee + shipping
+    ret_cents = cents[ridx].astype(np.int64) * store_returns["sr_return_quantity"]
+    store_returns.update({
+        "sr_store_sk": store_sales["ss_store_sk"][ridx],
+        "sr_store_sk__valid": store_sales["ss_store_sk__valid"][ridx],
+        "sr_returned_date_sk": (store_sales["ss_sold_date_sk"][ridx] + 1
+                                + rng2.integers(0, 90, n_ret, dtype=np.int32)),
+        "sr_returned_date_sk__valid":
+            store_sales["ss_sold_date_sk__valid"][ridx],
+        "sr_return_amt": ret_cents / 100.0,
+        "sr_net_loss": (ret_cents * rng2.integers(0, 10, n_ret) // 100
+                        + 50 + rng2.integers(0, 9950, n_ret)
+                        + rng2.integers(0, 5000, n_ret)) / 100.0,
+    })
+    del ridx, ret_cents
     reason = {
         "r_reason_sk": np.arange(1, SF100_ROWS["reason"] + 1, dtype=np.int32),
         "r_reason_desc": np.arange(SF100_ROWS["reason"], dtype=np.int32),
@@ -372,36 +674,87 @@ def make_star(seed: int, scale: float):
         "cs_bill_customer_sk": rng.integers(1, n_cust + 1, n_ord,
                                             dtype=np.int32)[order],
         "cs_bill_customer_sk__valid": nullable(n_ord)[order],
+        "cs_sales_price": rng2.integers(50, 20_000, n_cat) / 100.0,
     }
     return {"date_dim": date_dim, "item": item, "store_sales": store_sales,
             "store_returns": store_returns, "reason": reason,
-            "catalog_sales": catalog_sales}
+            "catalog_sales": catalog_sales, "store": store}
 
 
 #: logical types of the columns that are not int32, and the dictionaries of
-#: the string columns (their data are codes into the dictionary)
+#: the string columns (their data are codes into the dictionary; the
+#: generated ones come from string_column)
 COLUMN_TYPES = {"ss_sales_price": "float64", "ss_ext_sales_price": "float64",
-                "d_date": "date", "r_reason_desc": "string"}
+                "ss_net_profit": "float64", "sr_return_amt": "float64",
+                "sr_net_loss": "float64", "cs_sales_price": "float64",
+                "i_current_price": "float64", "d_date": "date",
+                "r_reason_desc": "string", "i_category": "string",
+                "i_class": "string", "i_brand": "string",
+                "i_product_name": "string", "i_item_id": "string",
+                "i_item_desc": "string", "s_store_id": "string",
+                "s_state": "string"}
 DICTIONARIES = {"r_reason_desc": [f"reason {i}" for i in
-                                  range(1, SF100_ROWS["reason"] + 1)]}
+                                  range(1, SF100_ROWS["reason"] + 1)],
+                "i_category": CATEGORIES, "s_state": STATES}
+#: the columns (and the store table) only the windows phase reads: the
+#: device holds them for that phase alone
+WINDOW_COLUMNS = {
+    "store_sales": ("ss_net_profit",),
+    "store_returns": ("sr_store_sk", "sr_returned_date_sk", "sr_return_amt",
+                      "sr_net_loss"),
+    "catalog_sales": ("cs_sales_price",),
+    "date_dim": ("d_qoy",),
+    "item": ("i_category", "i_class", "i_brand", "i_product_name",
+             "i_item_id", "i_item_desc", "i_current_price"),
+    "store": ("s_store_sk", "s_store_id", "s_state"),
+}
 
 
-def to_tables(star, device):
-    from nds_tpu_torch.engine.columnar import table_from_numpy
+def to_tables(star, device, windows=False, base=None):
+    """Device tables of the star: without the WINDOW_COLUMNS, or (windows
+    True) with them, reusing the device columns of `base` (the tables
+    without them) so that only the window columns are uploaded."""
+    from nds_tpu_torch.engine.columnar import Table, table_from_numpy
 
     out = {}
     for name, cols in star.items():
+        extra = WINDOW_COLUMNS.get(name, ())
         spec = {}
         nrows = None
         for cname, data in cols.items():
             if cname.endswith("__valid"):
                 continue
             nrows = data.shape[0]
+            if (cname in extra) != windows:
+                continue
             spec[cname] = (data, cols.get(cname + "__valid"),
                            COLUMN_TYPES.get(cname, "int32"),
-                           DICTIONARIES.get(cname))
-        out[name] = table_from_numpy(spec, nrows, device=device)
+                           dictionary(cname))
+        if not spec:
+            continue
+        t = table_from_numpy(spec, nrows, device=device)
+        if windows and name in (base or {}):
+            t = Table({**base[name].columns, **t.columns}, nrows)
+        out[name] = t
+    if windows:
+        for name, t in (base or {}).items():
+            out.setdefault(name, t)
     return out
+
+
+def window_columns_bytes(star):
+    """Device bytes of the WINDOW_COLUMNS at their padded capacity: data
+    and, where a column has NULLs, its validity bytes."""
+    from nds_tpu_torch.engine.columnar import bucket_cap
+
+    total = 0
+    for name, cols in WINDOW_COLUMNS.items():
+        cap = bucket_cap(next(iter(star[name].values())).shape[0])
+        for c in cols:
+            total += cap * (8 if COLUMN_TYPES.get(c) == "float64" else 4)
+            if c + "__valid" in star[name]:
+                total += cap
+    return total
 
 
 def q3_reference(star):
@@ -472,14 +825,36 @@ def q16_reference(star, first_day="2000-02-01", days=60):
 # ---------------------------------------------------------------------------
 
 
+def window_kind(wf):
+    """`fn frame` of a window function, as the executors classify its
+    frame: `whole` (the partition), `range` (the default with ORDER BY:
+    unbounded preceding to the current row's last peer), `running` (ROWS
+    unbounded preceding to the current row) or `rows` (a bounded ROWS
+    frame); ranking functions have no frame."""
+    if wf.fn in ("rank", "dense_rank", "row_number"):
+        return wf.fn
+    f = wf.frame
+    if (not wf.order_by and f is None) or f == (("unbounded", "preceding"),
+                                                ("unbounded", "following")):
+        kind = "whole"
+    elif f is None:
+        kind = "range"
+    elif f == (("unbounded", "preceding"), ("current", None)):
+        kind = "running"
+    else:
+        kind = "rows"
+    return f"{wf.fn} {kind}"
+
+
 def branch_spy(executor_cls, events):
-    """Wrap an executor class's join, set-operator and aggregation methods
-    so that each call appends the branch it took to `events`, e.g.
+    """Wrap an executor class's join, set-operator, aggregation and window
+    methods so that each call appends the branch it took to `events`, e.g.
     "inner packed join, 2 keys", "semi hash join, 1 key, residual",
     "cross join", "except", "distinct", "count(distinct)",
-    "sort group-by, 2 keys". Returns a function that restores the class.
-    The method names are the JAX executor's too, so the tests put the same
-    spy on both engines."""
+    "sort group-by, 2 keys", "window rank, sum whole", "grouping sets, 3
+    sets", "grouping()", "blocked union, 1 key". Returns a function that
+    restores the class. The method names are the JAX executor's too, so
+    the tests put the same spy on both engines."""
     originals = {}
     joins = []  # one frame per running _join: the branch its paths took
     aggs = []  # one frame per running _aggregate_once
@@ -529,7 +904,9 @@ def branch_spy(executor_cls, events):
     def node(label):
         def make(orig):
             def run(self, n, *a, **kw):
-                events.append(label(n))
+                ev = label(n)
+                if ev is not None:
+                    events.append(ev)
                 return orig(self, n, *a, **kw)
             return run
         return make
@@ -558,6 +935,20 @@ def branch_spy(executor_cls, events):
             return out
         return run
 
+    def grouping(orig):
+        def run(self, agg, *a, **kw):
+            if agg.fn == "grouping":
+                events.append("grouping()")
+            return orig(self, agg, *a, **kw)
+        return run
+
+    def blocked(orig):
+        def run(self, node, ctx, subset, *a, **kw):
+            n = len(node.keys) if subset is None else len(subset)
+            events.append(f"blocked union, {n} key{'s' if n != 1 else ''}")
+            return orig(self, node, ctx, subset, *a, **kw)
+        return run
+
     wrap("_join", join)
     wrap("_try_dense_join", path("dense"))
     wrap("_try_packed_join", path("packed"))
@@ -567,6 +958,13 @@ def branch_spy(executor_cls, events):
     wrap("_eval_distinct_agg", node(lambda agg: f"{agg.fn}(distinct)"))
     wrap("_aggregate_once", aggregate)
     wrap("_try_direct_agg", direct)
+    wrap("_exec_window", node(lambda n: "window " + ", ".join(
+        window_kind(wf) for wf, _ in n.fns)))
+    wrap("_exec_aggregate", node(
+        lambda n: None if n.grouping_sets is None
+        else f"grouping sets, {len(n.grouping_sets)} sets"))
+    wrap("_eval_agg", grouping)
+    wrap("_blocked_union_once", blocked)
 
     def restore():
         for name, fn in originals.items():
@@ -1256,9 +1654,420 @@ def joins_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows):
     return out, launches
 
 
-def profile_query(torch, run_once, q, top=10):
+#: what each windows-phase query must do at SF100 (branch_spy events; an
+#: event listed twice must happen twice) and the fact tables it reads
+WINDOW_BRANCHES = {
+    "q98": ["window sum whole", "inner dense join, 1 key",
+            "inner dense join, 1 key"],
+    "q36": ["grouping sets, 3 sets", "grouping()", "window rank",
+            "inner dense join, 1 key"],
+    "q67": ["grouping sets, 9 sets", "window rank",
+            "inner dense join, 1 key"],
+    "q51": ["window sum running", "window sum running",
+            "full hash join, 2 keys", "window max running, max running"],
+    "q5": ["blocked union, 1 key", "grouping sets, 3 sets",
+           "inner dense join, 1 key"],
+}
+WINDOW_FACTS = {"q98": ("store_sales",), "q36": ("store_sales",),
+                "q67": ("store_sales",),
+                "q51": ("store_sales", "catalog_sales"),
+                "q5": ("store_sales", "store_returns")}
+#: the kernels every windows-phase query must launch: the group-by float
+#: sums under its windows and rollups, and its dimension joins' builds
+WINDOW_KERNELS = ("segment_sums", "dense_build")
+#: steady runs per windows-phase query (the joins phase takes five)
+WINDOW_STEADY_RUNS = 5
+
+
+def _julian(day: str) -> int:
+    return int(np.datetime64(day, "D").astype(np.int64)) + JULIAN_OF_EPOCH
+
+
+def f32_cancel_rtol(rows: int, abs_sum: float, total: float) -> float:
+    """f32_sum_rtol for a sum whose terms have both signs: the error bound
+    is relative to the sum of the terms' magnitudes, so it scales by
+    abs_sum / |total| against the sum itself."""
+    return f32_sum_rtol(rows) * abs_sum / max(abs(total), 1e-300)
+
+
+def q98_reference(star, cats=("Sports", "Books", "Home"),
+                  first_day="1999-02-22", days=30):
+    """query98 over the numpy tables: {item row: (revenue, rows, ratio)}
+    for the items of `cats` sold in the window."""
+    ss, it = star["store_sales"], star["item"]
+    d0 = _julian(first_day)
+    sk = ss["ss_sold_date_sk"]
+    ii = ss["ss_item_sk"] - 1
+    cat_ok = np.isin(it["i_category"], [CATEGORIES.index(c) for c in cats])
+    keep = np.flatnonzero(ss["ss_sold_date_sk__valid"] & (sk >= d0)
+                          & (sk <= d0 + days) & cat_ok[ii])
+    items = ii[keep]
+    n = it["i_item_sk"].shape[0]
+    rev = np.bincount(items, weights=ss["ss_ext_sales_price"][keep],
+                      minlength=n)
+    cnt = np.bincount(items, minlength=n)
+    sold = np.flatnonzero(cnt)
+    cls = it["i_class"]
+    class_tot = np.bincount(cls[sold], weights=rev[sold],
+                            minlength=len(dictionary("i_class")))
+    return {int(r): (float(rev[r]), int(cnt[r]),
+                     float(rev[r] * 100 / class_tot[cls[r]])) for r in sold}
+
+
+def q36_reference(star, year=2001, states=Q36_STATES):
+    """query36 over the numpy tables: {(lochierarchy, category, class):
+    (gross margin, rows, sum of |net profit|, net profit, sales)} with
+    the rolled-up keys None."""
+    ss, it, st, dd = (star["store_sales"], star["item"], star["store"],
+                      star["date_dim"])
+    di = ss["ss_sold_date_sk"] - DATE_FIRST_SK
+    year_ok = dd["d_year"] == year
+    state_ok = np.isin(st["s_state"], [STATES.index(s) for s in states])
+    si = ss["ss_store_sk"] - 1
+    keep = np.flatnonzero(ss["ss_sold_date_sk__valid"]
+                          & ss["ss_store_sk__valid"] & year_ok[di]
+                          & state_ok[si])
+    del di, si
+    ii = ss["ss_item_sk"][keep] - 1
+    n_cls = len(dictionary("i_class"))
+    code = it["i_category"][ii].astype(np.int64) * n_cls + it["i_class"][ii]
+    p = ss["ss_net_profit"][keep]
+    s = ss["ss_ext_sales_price"][keep]
+    m = 10 * n_cls
+    sums = [np.bincount(code, weights=w, minlength=m)
+            for w in (p, np.abs(p), s)]
+    cnt = np.bincount(code, minlength=m)
+    out = {}
+
+    def put(key, sel):
+        P, A, S = (float(x[sel].sum()) for x in sums)
+        n = int(cnt[sel].sum())
+        if n:
+            out[key] = (P / S, n, A, P, S)
+    cats, classes = CATEGORIES, dictionary("i_class")
+    for c in np.flatnonzero(cnt):
+        put((0, cats[c // n_cls], classes[c % n_cls]), np.array([c]))
+    for k in range(10):
+        put((1, cats[k], None), np.arange(k * n_cls, (k + 1) * n_cls))
+    put((2, None, None), np.arange(m))
+    return out
+
+
+def q5_reference(star, first_day="2000-08-23", days=14):
+    """The query5 store channel over the numpy tables: {store id: (sales,
+    returns, profit, rows, sum of |profit terms|)}, profit being net profit
+    less net loss."""
+    ss, sr, st = star["store_sales"], star["store_returns"], star["store"]
+    d0 = _julian(first_day)
+    ids = np.array(dictionary("s_store_id"), dtype=object)[st["s_store_id"]]
+    n_st = st["s_store_sk"].shape[0]
+
+    def side(t, date, store, cols):
+        sk = t[date]
+        keep = np.flatnonzero(t[date + "__valid"] & t[store + "__valid"]
+                              & (sk >= d0) & (sk <= d0 + days))
+        s = t[store][keep] - 1
+        return [np.bincount(s, minlength=n_st)] + [
+            np.bincount(s, weights=w, minlength=n_st)
+            for w in (x(t, keep) for x in cols)]
+    n1, sales, prof, aprof = side(
+        ss, "ss_sold_date_sk", "ss_store_sk",
+        [lambda t, k: t["ss_ext_sales_price"][k],
+         lambda t, k: t["ss_net_profit"][k],
+         lambda t, k: np.abs(t["ss_net_profit"][k])])
+    n2, rets, loss = side(
+        sr, "sr_returned_date_sk", "sr_store_sk",
+        [lambda t, k: t["sr_return_amt"][k],
+         lambda t, k: t["sr_net_loss"][k]])
+    out = {}
+    for r in np.flatnonzero(n1 + n2):
+        v = out.get(ids[r], (0.0, 0.0, 0.0, 0, 0.0))
+        out[ids[r]] = (v[0] + sales[r], v[1] + rets[r],
+                       v[2] + prof[r] - loss[r], v[3] + int(n1[r] + n2[r]),
+                       v[4] + aprof[r] + loss[r])
+    return out
+
+
+def same_ranked(got, ref, keys, val, rank, part, rtol_of, tag):
+    """Two results holding a rank over float sums, equal up to the f32
+    reassociation of those sums: the same number of rows; rows matched by
+    `keys` with values within rtol_of(row); a rank that differs only where
+    a row of the same partition (part(row)) lies within twice the
+    tolerance, so that the two could trade places; and a row in one result
+    only paired with one in the other within twice the tolerance (the two
+    traded places at a rank cut)."""
+    if got.num_rows != ref.num_rows:
+        fail(f"{tag}: {got.num_rows} rows vs {ref.num_rows}")
+    g = {tuple(r[k] for k in keys): r for r in got.to_pylist()}
+    f = {tuple(r[k] for k in keys): r for r in ref.to_pylist()}
+    rows = list(g.values()) + list(f.values())
+
+    def close(a, b, tol):
+        return abs(a - b) <= tol * max(abs(a), abs(b), 1e-300)
+    worst = 0.0
+    for k in set(g) & set(f):
+        a, b = g[k][val], f[k][val]
+        if a is None or b is None:
+            if a is not b:
+                fail(f"{tag}: {k}: {a} vs {b}")
+            continue
+        tol = rtol_of(f[k])
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-300))
+        if not close(a, b, tol):
+            fail(f"{tag}: {k}: {a} vs {b} (rtol {tol})")
+        if g[k][rank] != f[k][rank]:
+            near = [r for r in rows if part(r) == part(f[k])
+                    and tuple(r[c] for c in keys) != k
+                    and r[val] is not None and close(r[val], b, 2 * tol)]
+            if abs(g[k][rank] - f[k][rank]) > len(near):
+                fail(f"{tag}: {k}: rank {g[k][rank]} vs {f[k][rank]}")
+    only_g = sorted((g[k] for k in set(g) - set(f)), key=lambda r: r[val])
+    only_f = sorted((f[k] for k in set(f) - set(g)), key=lambda r: r[val])
+    for a, b in zip(only_g, only_f):
+        if not close(a[val], b[val], 2 * rtol_of(b)):
+            fail(f"{tag}: {a} in one result only, {b} in the other")
+    return worst
+
+
+def windows_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows,
+                  scale):
+    """Windows, ROLLUP / grouping sets, grouping() and blocked union
+    aggregation at SF100 row counts: WINDOW_QUERIES through a session with
+    the kernels on and one with them off, over the tables with the
+    WINDOW_COLUMNS added. Each query must take its WINDOW_BRANCHES, launch
+    the WINDOW_KERNELS and give the same result both ways; q98, q36 and
+    the q5 shape must equal their numpy references. Launch counts are
+    zeroed just before the cold runs and read just after. At a cut
+    --scale the q5 shape's union fits one default window, so the window is
+    set to an eighth of its rows there (the `union_window` of its line)."""
+    t_phase = time.perf_counter()
+    wtables = to_tables(star, dev, windows=True, base=tables)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev) / 2**30
+    extra = {}
+    if scale < 1.0:
+        union_rows = rows["store_sales"] + rows["store_returns"]
+        extra["engine.union_agg_window_rows"] = max(union_rows // 8, 1024)
+    s_on = Session(conf={**on, **extra})
+    s_off = Session(conf={**off, **extra}, device="cuda")
+    for s in (s_on, s_off):
+        for name, t in wtables.items():
+            s.register_table(name, t)
+
+    def run(session, q):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = session.sql(WINDOW_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    GK.reset_launches()
+    prev = dict(GK.LAUNCHES)
+    cold, events, per_query, blocked = {}, {}, {}, {}
+    for q in WINDOW_QUERIES:
+        ev = events[q] = []
+        s_on.last_blocked_union = None
+        restore = branch_spy(TX.Executor, ev)
+        try:
+            cold[q] = run(s_on, q)
+        finally:
+            restore()
+        blocked[q] = s_on.last_blocked_union
+        per_query[q] = {k: GK.LAUNCHES[k] - prev[k] for k in GK.LAUNCHES}
+        prev = dict(GK.LAUNCHES)
+    launches = dict(GK.LAUNCHES)
+    peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
+    for q, wanted in WINDOW_BRANCHES.items():
+        missing = missing_branches(events[q], wanted)
+        if missing:
+            fail(f"{q} did not take {missing}: it took {events[q]}")
+        for name in WINDOW_KERNELS:
+            if per_query[q][name] == 0:
+                fail(f"{q} did not launch kernel {name}")
+
+    t_ref = time.perf_counter()
+    ref98, ref36, ref5 = (q98_reference(star), q36_reference(star),
+                          q5_reference(star))
+    ref_s = time.perf_counter() - t_ref
+    item_of = {dictionary("i_item_id")[c]: r
+               for r, c in enumerate(star["item"]["i_item_id"])}
+    out = {}
+    for q in WINDOW_QUERIES:
+        res, cold_ms = cold[q]
+        torch.cuda.reset_peak_memory_stats(dev)
+        steady = [run(s_on, q)[1] for _ in range(WINDOW_STEADY_RUNS)]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        got_off, off_cold_ms = run(s_off, q)
+        off_ms = run(s_off, q)[1]
+        # torch's scatter kernel: segment_starts' amin scatter (queue 2
+        # item E1), compaction's scatter and the reducing scatters
+        prof = profile_query(torch, lambda q=q: run(s_on, q), q,
+                             match="_scatter_gather_elementwise_kernel")
+        rec = {"phase": "window_query", "query": q, "rows": res.num_rows,
+               "cold_ms": cold_ms, "steady_ms": float(np.median(steady)),
+               "steady_runs_ms": steady, "off_ms": off_ms,
+               "off_cold_ms": off_cold_ms, "branches": events[q],
+               "launches": per_query[q], "steady_peak_gib": peak,
+               "device_busy_share": prof["device_busy_share"],
+               "device_ms": prof["device_ms"],
+               "device_launches": prof["device_launches"],
+               "scatter_ms": prof["match_ms"],
+               "top": prof["top"][:5]}
+        fact = sum(rows[t] for t in WINDOW_FACTS[q])
+        rec["fact_rows"] = fact
+        rec["fact_rows_per_s"] = fact / (rec["steady_ms"] / 1e3)
+        if res.num_rows == 0:
+            fail(f"{q} returned no rows")
+        if q == "q98":
+            rec.update(check_q98(res, got_off, ref98, item_of))
+        elif q == "q36":
+            rec.update(check_q36(res, got_off, ref36))
+        elif q == "q67":
+            # the sums reach the f32 kernel once per rollup level: a row's
+            # error is bounded by the fan-ins along its path (a finest
+            # group's rows, 201 stores, 3 months, 4 quarters, 1 year, the
+            # products of a brand, 10 brands, 8 classes, 10 categories:
+            # under 512 at SF100) plus one f64 -> f32 rounding per level
+            rtol = f32_sum_rtol(1024)
+            rec["rtol"] = rtol
+            rec["max_rel_vs_off"] = same_ranked(
+                res, got_off, ["i_category", "i_class", "i_brand",
+                               "i_product_name", "d_year", "d_qoy", "d_moy",
+                               "s_store_id"],
+                "sumsales", "rk", lambda r: r["i_category"],
+                lambda r: rtol, "q67 on vs off")
+        elif q == "q51":
+            # running sums of (item, date) group sums, each of a few rows
+            # summed in f32; a running max of those
+            rtol = f32_sum_rtol(64)
+            rec["rtol"] = rtol
+            rec["max_rel_vs_off"] = same_result(res, got_off, rtol,
+                                                "q51 on vs off")
+        else:
+            rec["union_window"] = (extra.get("engine.union_agg_window_rows")
+                                   or "default")
+            rec["blocked_union"] = blocked[q]
+            if not blocked[q] or blocked[q]["windows"] < 2:
+                fail(f"q5 did not aggregate its union in windows: "
+                     f"{blocked[q]}")
+            rec.update(check_q5(res, got_off, ref5, blocked[q]["windows"]))
+        out[q] = rec
+        emit(rec)
+    del s_on, s_off, wtables
+    emit({"phase": "windows", "launches": launches, "peak_gib": peak_all,
+          "resident_gib": resident, "numpy_reference_s": ref_s,
+          "steady_runs": WINDOW_STEADY_RUNS,
+          "seconds": time.perf_counter() - t_phase})
+    return out, launches
+
+
+def check_q98(res, got_off, ref, item_of):
+    """q98 on and off against numpy: every row's revenue and ratio, the
+    row count, the ORDER BY."""
+    rows = res.to_pylist()
+    keys = [(r["i_category"], r["i_class"], r["i_item_id"], r["i_item_desc"],
+             r["revenueratio"]) for r in rows]
+    if keys != sorted(keys):
+        fail("q98 rows are not in ORDER BY order")
+    if res.num_rows != min(100, len(ref)):
+        fail(f"q98: {res.num_rows} rows, numpy has {len(ref)} items")
+    rtol = 2 * f32_sum_rtol(max(v[1] for v in ref.values()))
+    out = {"rtol": rtol}
+    for tag, r_, tol in (("on", res, rtol), ("off", got_off, 1e-9)):
+        worst = 0.0
+        for r in r_.to_pylist():
+            rev, _, ratio = ref[item_of[r["i_item_id"]]]
+            for a, b in ((r["itemrevenue"], rev), (r["revenueratio"], ratio)):
+                rel = abs(a - b) / max(abs(b), 1e-300)
+                worst = max(worst, rel)
+                if rel > tol:
+                    fail(f"q98 {tag} vs numpy: {a} vs {b} (rel {rel})")
+        out[f"max_rel_vs_numpy_{tag}"] = worst
+    out["max_rel_vs_off"] = same_result(res, got_off, rtol, "q98 on vs off")
+    return out
+
+
+def check_q36(res, got_off, ref):
+    """q36 off against numpy (margins to 1e-9, ranks exactly) and on
+    against off (same_ranked; a margin's bound is its two f32 sums',
+    net profit's scaled by its cancellation)."""
+    def key(r):
+        return (r["lochierarchy"], r["i_category"], r["i_class"])
+
+    def rtol_of(r):
+        _, n, a, p, s = ref[key(r)]
+        return f32_cancel_rtol(n, a, p) + f32_sum_rtol(n)
+
+    def part(r):
+        return (r["lochierarchy"],
+                r["i_category"] if r["lochierarchy"] == 0 else None)
+    rows = got_off.to_pylist()
+    if got_off.num_rows != min(100, len(ref)):
+        fail(f"q36: {got_off.num_rows} rows, numpy has {len(ref)} groups")
+    worst = 0.0
+    for r in rows:
+        m = ref[key(r)][0]
+        rel = abs(r["gross_margin"] - m) / max(abs(m), 1e-300)
+        worst = max(worst, rel)
+        if rel > 1e-9:
+            fail(f"q36 off vs numpy: {key(r)}: {r['gross_margin']} vs {m}")
+        want = 1 + sum(1 for k, v in ref.items()
+                       if part({"lochierarchy": k[0], "i_category": k[1]})
+                       == part(r) and v[0] < m)
+        if r["rank_within_parent"] != want:
+            fail(f"q36 off vs numpy: {key(r)}: rank "
+                 f"{r['rank_within_parent']} vs {want}")
+    return {"max_rel_off_vs_numpy": worst,
+            "max_rel_vs_off": same_ranked(
+                res, got_off, ["lochierarchy", "i_category", "i_class"],
+                "gross_margin", "rank_within_parent", part, rtol_of,
+                "q36 on vs off")}
+
+
+def check_q5(res, got_off, ref, windows):
+    """The q5 shape on and off against numpy: each store's sales, returns
+    and profit, the channel and grand totals. The on session's sums run in
+    f32 once per window and once per merge of a window's partials."""
+    stores = sorted(ref)
+    tot = [sum(ref[s][i] for s in stores) for i in range(5)]
+    want = {(None, None): tot, ("store channel", None): tot}
+    for s in stores:
+        want[("store channel", "store" + s)] = ref[s]
+    out = {}
+    for tag, r_ in (("on", res), ("off", got_off)):
+        rows = r_.to_pylist()
+        keys = [(r["channel"] is not None, r["channel"],
+                 r["id"] is not None, r["id"]) for r in rows]
+        if keys != sorted(keys):
+            fail(f"q5 {tag}: rows are not in ORDER BY order")
+        if len(rows) != min(100, len(want)):
+            fail(f"q5 {tag}: {len(rows)} rows, numpy has {len(want)}")
+        worst = 0.0
+        for r in rows:
+            sales, rets, prof, n, aprof = want[(r["channel"], r["id"])]
+            n_terms = n + 4 * windows
+            cancel = max(1.0, aprof / max(abs(prof), 1e-300))
+            for col, v, on_tol, off_tol in (
+                    ("sales", sales, f32_sum_rtol(n_terms), 1e-9),
+                    ("returns_amt", rets, f32_sum_rtol(n_terms), 1e-9),
+                    ("profit", prof, f32_sum_rtol(n_terms) * cancel,
+                     1e-9 * cancel)):
+                tol = on_tol if tag == "on" else off_tol
+                rel = abs(r[col] - v) / max(abs(v), 1e-300)
+                worst = max(worst, rel)
+                if rel > tol:
+                    fail(f"q5 {tag} vs numpy: {r['id']} {col}: {r[col]} vs "
+                         f"{v} (rel {rel}, rtol {tol})")
+        out[f"max_rel_vs_numpy_{tag}"] = worst
+    return out
+
+
+def profile_query(torch, run_once, q, top=10, match=None):
     """Where one steady run's time goes: torch.profiler's device time by
-    kernel, the device's busy share of the wall time, and the launches."""
+    kernel, the device's busy share of the wall time, and the launches;
+    `match_ms` sums the device time of the kernels whose name holds
+    `match`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1275,11 +2084,14 @@ def profile_query(torch, run_once, q, top=10):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    match_ms = (None if match is None or not rows else
+                sum(ms for ms, _, k in rows if match in k))
     return {
         "phase": "profile", "query": q, "wall_ms": wall_ms,
         "device_ms": device_ms if rows else None,
         "device_busy_share": device_ms / wall_ms if rows else None,
         "device_launches": sum(r[1] for r in rows) if rows else None,
+        "match_ms": match_ms,
         "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                 for ms, c, k in rows[:top]],
     }
@@ -1350,13 +2162,16 @@ def main(argv=None):
     t0 = time.perf_counter()
     tables = to_tables(star, dev)
     torch.cuda.synchronize()
-    rows = {k: v.nrows for k, v in tables.items()}
+    rows = {k: next(iter(v.values())).shape[0] for k, v in star.items()}
     reduced = [] if args.scale >= 1.0 else [
         f"row counts x{args.scale} of SF100 (--scale)"]
+    resident = torch.cuda.memory_allocated(dev) / 2**30
+    window_gib = window_columns_bytes(star) / 2**30
     emit({"phase": "data", "scale": "TPC-DS SF100", "rows": rows,
           "reduced": reduced, "seed": args.seed, "numpy_s": gen_s,
-          "load_s": time.perf_counter() - t0,
-          "resident_gib": torch.cuda.memory_allocated(dev) / 2**30})
+          "load_s": time.perf_counter() - t0, "resident_gib": resident,
+          "window_columns_gib": window_gib,
+          "resident_with_window_columns_gib": resident + window_gib})
 
     # -- slice -----------------------------------------------------------
     on = {f"engine.pallas_{k}": "on" for k in ("agg", "join", "sort")}
@@ -1457,6 +2272,13 @@ def main(argv=None):
                                    on, off, rows)
     for rec in kernels:
         rec["joins_launches"] = join_launches[rec["name"]]
+
+    # -- windows -----------------------------------------------------------
+    torch.cuda.empty_cache()
+    _, window_launches = windows_phase(torch, GK, TX, Session, star, tables,
+                                       dev, on, off, rows, args.scale)
+    for rec in kernels:
+        rec["windows_launches"] = window_launches[rec["name"]]
 
     # -- kernel_sweep ------------------------------------------------------
     del tables, star

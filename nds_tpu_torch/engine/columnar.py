@@ -170,6 +170,47 @@ class Table:
         self._packed = Table(cols, count, unique_key=self.unique_key)
         return self._packed
 
+    def select(self, names) -> "Table":
+        uk = self.unique_key
+        if uk is not None and not uk <= set(names):
+            uk = None
+        return Table(
+            {n: self.columns[n] for n in names}, self._nrows, self.live,
+            unique_key=uk,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Bounded row windows (blocked union aggregation)
+# ---------------------------------------------------------------------------
+
+
+def window_slice(table: Table, start: int, cap: int) -> Table:
+    """Rows [start, start+cap) of a compacted table as a Table of capacity
+    `cap`: a view of each buffer, never a gather or a copy (the JAX
+    package's per-column dynamic slices).
+
+    `cap` must be a power-of-two bucket <= table.cap and `start` a multiple
+    of `cap`, so the slice never runs past the end (both caps are
+    power-of-two buckets, hence table.cap is a multiple of cap)."""
+    if table.live is not None:
+        raise ValueError("window_slice requires a compacted table")
+    if cap >= table.cap:
+        return table
+    if start % cap:
+        raise ValueError(f"window start {start} not aligned to cap {cap}")
+    nrows = min(max(table.nrows - start, 0), cap)
+    cols = {}
+    for name, c in table.columns.items():
+        cols[name] = Column(
+            c.data[start:start + cap],
+            c.dtype,
+            None if c.valid is None else c.valid[start:start + cap],
+            c.dictionary,
+            c.subset_stats(),
+        )
+    return Table(cols, nrows, unique_key=table.unique_key)
+
 
 # ---------------------------------------------------------------------------
 # Host -> device from numpy (the port's state hand-over)

@@ -13,11 +13,12 @@ Ported: scan, filter, project, limit, sort, MultiJoin/Join (the dense
 star-join, the packed-word join and the hash-candidate join for inner,
 left, right, full, semi, anti and mark joins, with residuals, and the
 cross join), DISTINCT, the set operations (UNION [ALL], INTERSECT, EXCEPT),
-aggregate (direct and sort-based, distinct aggregates included), scalar
-subqueries. Every other branch (windows, grouping sets, grouping(),
-blocked union aggregation, spill, the mesh's exchange join) raises
-NotImplementedError naming the ROADMAP.md item that ports it, or is a path
-the JAX executor declines on one device; none returns a different answer.
+aggregate (direct and sort-based, distinct aggregates included), ROLLUP /
+grouping sets with grouping(), blocked union aggregation, windows and
+scalar subqueries. What is left raises NotImplementedError naming the
+ROADMAP.md item that ports it (fused pipelines, spill), or is a path the
+JAX executor declines on one device (the mesh's exchange join); none
+returns a different answer.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from time import perf_counter as _perf
 
 import torch
 
-from ..dtypes import BOOL, DType, FLOAT64, INT64
+from ..dtypes import BOOL, DType, FLOAT64, INT32, INT64
 from ..ops import gpu_kernels as GK
 from ..ops import kernels as K
 from . import expr as E
@@ -39,11 +40,9 @@ from .columnar import (
     sort_dictionary,
     torch_dtype,
     unify_dictionaries,
+    window_slice,
 )
 from .expr import Evaluator, _cast_column, _common_dtype, _share_dictionary
-
-#: where each unported branch is ported (ROADMAP.md, "Queue 1")
-TODO_OPERATORS = "ROADMAP.md queue 1 item 8 (windows, ROLLUP / grouping sets, grouping(), blocked union aggregation)"
 
 
 class ExecError(Exception):
@@ -52,6 +51,66 @@ class ExecError(Exception):
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to nds_tpu_torch yet: {item}")
+
+
+def _cascade_agg_items(agg_items):
+    """Re-aggregation exprs for the rollup cascade, or None when any
+    aggregate does not decompose over partial results. sum/min/max compose
+    with themselves; any count becomes a sum of the level below's counts."""
+    out = []
+    for a, name in agg_items:
+        if a.distinct or a.fn not in ("sum", "min", "max", "count"):
+            return None
+        fn = "sum" if a.fn == "count" else a.fn
+        out.append((E.Agg(fn, E.Col(name)), name))
+    return out
+
+
+def _rollup_base_aggs(agg_items):
+    """(base agg list, avg items) for grouping-sets execution: every plain
+    avg splits into hidden sum (__cs_<name>) and count (__cc_<name>)
+    columns so that the cascade can compose it; _derive_rollup_avgs derives
+    the visible avg per part with the direct avg path's semantics (float64,
+    decimal descale, NULL on empty). (None, []) when an aggregate rules the
+    rewrite out."""
+    if not P.aggs_decomposable(agg_items):
+        return None, []
+    avg_items = [(a, n) for a, n in agg_items if a.fn == "avg"]
+    if not avg_items:
+        return list(agg_items), []
+    base = []
+    for a, name in agg_items:
+        if a.fn == "avg":
+            base.append((E.Agg("sum", a.arg), f"__cs_{name}"))
+            base.append((E.Agg("count", a.arg), f"__cc_{name}"))
+        else:
+            base.append((a, name))
+    return base, avg_items
+
+
+def _derive_rollup_avgs(part: Table, avg_items):
+    if not avg_items:
+        return part
+    cols = dict(part.columns)
+    for _, name in avg_items:
+        cs = cols[f"__cs_{name}"]
+        n = cols[f"__cc_{name}"].data
+        val = cs.data.to(torch.float64) / n.clamp(min=1)
+        if cs.dtype.is_decimal:
+            val = val / 10**cs.dtype.scale
+        cols[name] = Column(val, FLOAT64, n > 0)
+    return Table(cols, part.nrows_lazy, live=part.live)
+
+
+def _segment_cumsum(x, gid):
+    """Cumulative sum within segments (gid sorted ascending): the global
+    prefix sum less its value just before each row's segment head. The
+    head-1 read is clamped and masked where the head is row 0."""
+    total = K.fast_cumsum(x)
+    idx = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    seg_start = K.fast_cummax(torch.where(K.segment_heads(gid), idx, 0))
+    before = total[(seg_start - 1).clamp(min=0).long()]
+    return total - torch.where(seg_start > 0, before, 0)
 
 
 def _resolve_bounds(datas, valids, stats_list, wanted, live):
@@ -127,6 +186,14 @@ def _pad_to(x, n):
     return torch.cat([x, x.new_zeros(n - x.shape[0])])
 
 
+def _stack(x, y, nx, ny, n):
+    """x[:nx] then y[:ny], zero-padded to length `n`, in one allocation."""
+    out = x.new_zeros(n)
+    out[:nx] = x[:nx]
+    out[nx:nx + ny] = y[:ny]
+    return out
+
+
 class _ExecEvaluator(Evaluator):
     """The executor's Evaluator: scalar subqueries run through it. A class
     of the module, not one made per call: a class made per call would hold
@@ -162,9 +229,13 @@ class Executor:
         self.device = torch.device(device)
         self._cte_cache = {}  # id(plan) -> Table
         self._scalar_cache = {}  # id(plan) -> python value
-        # the running aggregation's live mask and count (distinct aggs)
+        # the running aggregation's keys (grouping()), live mask and count
+        # (distinct aggregates)
+        self._current_agg_keys = None
         self._current_agg_live = None
         self._current_agg_nlive = None
+        # stats of the most recent blocked union aggregation (tests/tools)
+        self.last_blocked_union = None
 
     # ------------------------------------------------------------------
     def execute(self, node: P.PlanNode) -> Table:
@@ -172,8 +243,9 @@ class Executor:
         if key in self._cte_cache:
             return self._cte_cache[key]
         m = getattr(self, f"_exec_{type(node).__name__.lower()}", None)
-        if m is None:
-            raise _not_ported(f"plan node {type(node).__name__}", TODO_OPERATORS)
+        if m is None:  # P.Pipeline: the port's session never builds one
+            raise _not_ported(f"plan node {type(node).__name__}",
+                              "ROADMAP.md queue 1 item 11 (fused pipelines)")
         out = m(node)
         self._cte_cache[key] = out
         return out
@@ -381,7 +453,13 @@ class Executor:
         tables = self._execute_relations_batched(node.relations)
         return self._multijoin_over_tables(tables, node.edges)
 
-    def _multijoin_over_tables(self, tables, edges) -> Table:
+    def _multijoin_over_tables(self, tables, edges, trace=None) -> Table:
+        """Greedy N-way inner join over already-executed relation tables
+        (shared by _exec_multijoin and blocked union aggregation, which
+        joins each union window against the other relations). `trace`: an
+        optional dict; the first call records its join order in it and
+        later calls replay that order, skipping the greedy cost scan, whose
+        row-count reads are device->host syncs."""
         n = len(tables)
         if n == 1:
             return tables[0]
@@ -394,7 +472,8 @@ class Executor:
             return i
 
         current = {i: tables[i] for i in range(n)}
-        return self._multijoin_greedy(current, edges, merged, group, n)
+        return self._multijoin_greedy(current, edges, merged, group, n,
+                                      trace)
 
     def _execute_relations_batched(self, relations):
         """Execute a MultiJoin's relations and bring every still-lazy live
@@ -409,30 +488,47 @@ class Executor:
                 t._nrows = int(v)
         return tables
 
-    def _multijoin_greedy(self, current, edges, merged, group, n):
+    def _multijoin_greedy(self, current, edges, merged, group, n,
+                          trace=None):
         # greedy: repeatedly take the connecting edge whose joined inputs
-        # are smallest (sum of live rows) and execute that join
+        # are smallest (sum of live rows) and execute that join. When
+        # `trace` carries recorded steps, replay them instead (replay never
+        # reads .nrows: the blocked union path joins every window with no
+        # count syncs)
+        replay = trace is not None and "steps" in trace
+        steps = trace["steps"] if replay else []
+        step_i = 0
         while True:
             groups = {group(i) for i in range(n)}
             if len(groups) == 1:
                 break
-            best = None
-            for k, (i, j, le, re_) in enumerate(edges):
-                gi, gj = group(i), group(j)
-                if gi == gj:
-                    continue
-                cost = current[gi].nrows + current[gj].nrows
-                if best is None or cost < best[0]:
-                    best = (cost, k, gi, gj)
-            if best is None:
-                gi, gj = sorted(groups, key=lambda g: current[g].nrows)[:2]
+            if replay:
+                kind, gi, gj = steps[step_i]
+                step_i += 1
+            else:
+                best = None
+                for k, (i, j, le, re_) in enumerate(edges):
+                    gi, gj = group(i), group(j)
+                    if gi == gj:
+                        continue
+                    cost = current[gi].nrows + current[gj].nrows
+                    if best is None or cost < best[0]:
+                        best = (cost, k, gi, gj)
+                if best is None:
+                    kind, gi, gj = "cross", *sorted(
+                        groups, key=lambda g: current[g].nrows
+                    )[:2]
+                else:
+                    kind, gi, gj = "edge", best[2], best[3]
+                steps.append((kind, gi, gj))
+            if kind == "cross":
+                # disconnected components: cross join the smallest two
                 joined = self._join(
                     current[gi], current[gj], "cross", [], [], None
                 )
                 merged[gj] = gi
                 current[gi] = joined
                 continue
-            gi, gj = best[2], best[3]
             lkeys, rkeys = [], []
             rest = []
             for (i, j, le, re_) in edges:
@@ -451,6 +547,8 @@ class Executor:
             )
             merged[gj] = gi
             current[gi] = joined
+        if trace is not None and not replay:
+            trace["steps"] = steps
         return current[group(0)]
 
     # ------------------------------------------------------------------
@@ -821,46 +919,284 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _exec_aggregate(self, node: P.Aggregate) -> Table:
-        if node.grouping_sets is not None:
-            raise _not_ported("ROLLUP / grouping sets", TODO_OPERATORS)
-        if node.blocked_union and self._blocked_union_applies(node):
-            raise _not_ported("blocked union aggregation", TODO_OPERATORS)
-        t = self.execute(node.child)
-        return self._aggregate_once(
-            node.keys, node.aggs, None, t, t.row_mask(self.device),
-            t.nrows_known,
-        )
+        blocked = self._blocked_union_ctx(node) if node.blocked_union else None
+        if node.grouping_sets is None:
+            if blocked is not None:
+                return self._finish_blocked_union(node, blocked)
+            t = self.execute(node.child)
+            return self._aggregate_once(
+                node.keys, node.aggs, None, t, t.row_mask(self.device),
+                t.nrows_known,
+            )
+        return self._grouping_sets(node, blocked)
 
-    def _blocked_union_applies(self, node: P.Aggregate) -> bool:
-        """The JAX executor's gate for blocked union aggregation
-        (_blocked_union_ctx): True exactly where it would aggregate the
-        union in row windows, which the port has not ported yet. Below one
-        window the JAX path is the plain concat + aggregation, which the
-        port runs. The window comes from `engine.union_agg_window_rows` /
+    def _grouping_sets(self, node: P.Aggregate, blocked) -> Table:
+        """ROLLUP / GROUPING SETS: one aggregation per set, concatenated as
+        it goes (the parts are never all held at once). When every
+        aggregate decomposes (sum/min/max/count, avg as hidden sum+count)
+        and the sets chain by inclusion, as ROLLUP prefixes do, each coarser
+        set re-aggregates the previous set's output (the cascade): one pass
+        over the input instead of one per set. Otherwise each set is
+        aggregated from scratch. Over a blocked union the from-scratch sets
+        run window by window."""
+        if blocked is not None:
+            child = live = nlive = None
+        else:
+            child = self.execute(node.child)
+            live, nlive = child.row_mask(self.device), child.nrows_known
+        base_aggs, avg_items = _rollup_base_aggs(node.aggs)
+        casc_aggs = _cascade_agg_items(base_aggs) if base_aggs else None
+        out = prev = prev_set = None
+        for s in sorted(node.grouping_sets, key=len, reverse=True):
+            if (
+                prev is not None
+                and casc_aggs is not None
+                and set(s) <= set(prev_set)
+            ):
+                key_items2 = [(E.Col(name), name) for _, name in node.keys]
+                part = self._aggregate_once(
+                    key_items2, casc_aggs, s, prev,
+                    prev.row_mask(self.device), prev.nrows_known,
+                )
+            elif blocked is not None:
+                part = self._blocked_union_once(node, blocked, s)
+            else:
+                part = self._aggregate_once(
+                    node.keys, base_aggs or node.aggs, s, child, live, nlive
+                )
+            part = _derive_rollup_avgs(part, avg_items)
+            prev, prev_set = part, s
+            out = part if out is None else self._concat_rows(out, part)
+        if avg_items:
+            out = Table(
+                {n: c for n, c in out.columns.items()
+                 if not n.startswith("__cs_") and not n.startswith("__cc_")},
+                out.nrows_lazy, live=out.live,
+            )
+        if blocked is not None:
+            self._annotate_blocked(node, blocked)
+        return out.compacted()
+
+    # -- blocked union aggregation ---------------------------------------
+    # A union_all feeding an aggregate (directly, through Project/Filter
+    # wrappers, or as one relation of an inner MultiJoin) never
+    # materializes the whole concat: each branch is cut into row windows,
+    # every window is joined against the other relations and partially
+    # aggregated with the rollup cascade's decomposable aggregates, and the
+    # partials merge as they come. Peak device memory is O(window + groups)
+    # instead of O(union rows).
+
+    def _blocked_union_ctx(self, node: P.Aggregate):
+        """Prepare windowed execution of a blocked-union aggregate: execute
+        and align the union branches, execute the join's other relations
+        once, size the window. None when the shape, the aggregates or the
+        size rule the blocked path out (the caller takes the plain path).
+        The window comes from `engine.union_agg_window_rows` /
         NDS_UNION_AGG_WINDOW_ROWS, else from the device budget as the JAX
-        session derives it (the plan budgeter's static window is not
-        ported: ROADMAP.md queue 1 item 10)."""
+        session derives it; the plan budgeter's static window is not
+        ported (ROADMAP.md queue 1 item 10)."""
         shape = P.union_agg_shape(node)
-        if shape is None or not P.aggs_decomposable(node.aggs):
-            return False
+        if shape is None:
+            return None
         session = getattr(self.catalog, "session", None)
         if session is None:
-            return False
-        branches = self._execute_relations_batched(shape[3])
+            return None
+        base_aggs, avg_items = _rollup_base_aggs(node.aggs)
+        if base_aggs is None:
+            return None  # non-decomposable aggregate (distinct, stddev...)
+        casc_aggs = _cascade_agg_items(base_aggs)
+        if casc_aggs is None:
+            return None
+        outer, join, inner, branch_plans = shape
+        branches = self._execute_relations_batched(branch_plans)
         total_rows = sum(t.nrows for t in branches)
         row_bytes = max(
-            sum(c.data.element_size() + 1
+            sum(c.data.element_size() + 1  # data + validity byte
                 for c in branches[0].columns.values()),
             1,
         )
-        return total_rows > session.union_agg_window_rows(row_bytes)
+        wrows = session.union_agg_window_rows(row_bytes)
+        if total_rows <= wrows:
+            # one window: the plain path is the same. The branch tables
+            # just executed are cached by id, so the SetOp reuses them
+            return None
+        join_ctx = None
+        if join is not None:
+            mj, uidx = join
+            # the other relations execute once and join every window
+            others = iter(self._execute_relations_batched(
+                [r for i, r in enumerate(mj.relations) if i != uidx]
+            ))
+            tables = [None if i == uidx else next(others)
+                      for i in range(len(mj.relations))]
+            join_ctx = (mj.edges, uidx, tables)
+        branches = [t.compacted() for t in branches]
+        stats = {
+            "windows": 0,
+            "window_rows": wrows,
+            "window_cap": bucket_cap(wrows),
+            "total_rows": total_rows,
+            "max_table_cap": 0,
+        }
+        # marked as entered before any window runs, so that a failure
+        # mid-window is attributable to a blocked plan
+        self.last_blocked_union = session.last_blocked_union = dict(stats)
+        return {
+            **stats,
+            "outer_wrappers": outer,
+            "join": join_ctx,
+            "join_trace": {},  # the first window records, the rest replay
+            "inner_wrappers": inner,
+            "branches": branches,
+            "aligners": self._union_branch_aligners(branches),
+            "base_aggs": base_aggs,
+            "avg_items": avg_items,
+            "casc_aggs": casc_aggs,
+        }
+
+    def _apply_wrappers(self, t: Table, wrappers) -> Table:
+        """Apply a top-down Filter/Project wrapper list, innermost first
+        (unfused: the JAX executor's _apply_wrappers_fused is ROADMAP.md
+        queue 1 item 11)."""
+        for w in reversed(wrappers):
+            if isinstance(w, P.Filter):
+                t = self._masked(t, self._predicate_mask(t, w.predicate))
+            else:
+                t = self._project_table(t, w.items)
+        return t
+
+    def _blocked_union_once(self, node: P.Aggregate, ctx, subset):
+        """One aggregation level (grouping-set `subset`, or None for the
+        plain shape) over the union input, window by window with the
+        partials merged as they come. Returns the table an unblocked
+        _aggregate_once would (hidden avg sum/count columns included)."""
+        key_merge = [(E.Col(name), name) for _, name in node.keys]
+        merged = None
+        empty_partial = None
+        wcap = ctx["window_cap"]
+        for b, aligner in zip(ctx["branches"], ctx["aligners"]):
+            for start in range(0, b.nrows, wcap):
+                w = window_slice(b, start, wcap)
+                ctx["windows"] += 1
+                ctx["max_table_cap"] = max(ctx["max_table_cap"], w.cap)
+                # branch-to-union alignment (rename, cast, dictionary
+                # remap) per window: only window-sized copies exist
+                wcols = list(w.columns.values())
+                t = Table(
+                    {name: fn(wcols[ci])
+                     for ci, (name, fn) in enumerate(aligner)},
+                    w.nrows_lazy, live=w.live,
+                )
+                t = self._apply_wrappers(t, ctx["inner_wrappers"])
+                if ctx["join"] is not None:
+                    edges, uidx, others = ctx["join"]
+                    t = self._multijoin_over_tables(
+                        [t if i == uidx else o for i, o in enumerate(others)],
+                        edges, trace=ctx["join_trace"],
+                    )
+                    ctx["max_table_cap"] = max(ctx["max_table_cap"], t.cap)
+                t = self._apply_wrappers(t, ctx["outer_wrappers"])
+                part = self._aggregate_once(
+                    node.keys, ctx["base_aggs"], subset, t,
+                    t.row_mask(self.device), t.nrows_known,
+                )
+                if part.nrows_known == 0:
+                    # keep one empty partial: its columns carry the stub
+                    # dtypes the unblocked empty aggregate has
+                    empty_partial = part
+                    continue
+                if merged is None:
+                    merged = part
+                    continue
+                cat = self._concat(merged, part)
+                ctx["max_table_cap"] = max(ctx["max_table_cap"], cat.cap)
+                merged = self._aggregate_once(
+                    key_merge, ctx["casc_aggs"], None, cat,
+                    cat.row_mask(self.device), cat.nrows_known,
+                )
+        return empty_partial if merged is None else merged
+
+    def _finish_blocked_union(self, node: P.Aggregate, ctx) -> Table:
+        """The plain (no grouping sets) blocked aggregate: one windowed
+        level, visible avgs derived, the declared column order restored
+        and the hidden avg columns dropped."""
+        out = _derive_rollup_avgs(
+            self._blocked_union_once(node, ctx, None), ctx["avg_items"]
+        )
+        out = out.select([n for _, n in node.keys]
+                         + [n for _, n in node.aggs if n in out.columns])
+        self._annotate_blocked(node, ctx)
+        return out
+
+    def _annotate_blocked(self, node: P.Aggregate, ctx):
+        # plan-introspection aids: the window count and the largest table
+        # capacity a window touched, which the window bucket bounds
+        node.blocked_windows = ctx["windows"]
+        node.blocked_stats = self.last_blocked_union = {
+            k: ctx[k] for k in ("windows", "window_rows", "window_cap",
+                                "total_rows", "max_table_cap")
+        }
+        self.catalog.session.last_blocked_union = self.last_blocked_union
+
+    def _union_branch_aligners(self, tables):
+        """Per-branch window aligners: unify column names (the leftmost
+        branch's, as in the SetOp output), dtypes (common promotion) and
+        string dictionaries across union branches, as _concat does pair by
+        pair. The cast or remap runs on each window; only dictionary-sized
+        remap tables are built here. One [(out_name, fn(Column) -> Column)]
+        list per branch, aligned with the branch's columns."""
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        names = list(tables[0].columns)
+        per_table = [list(t.columns.values()) for t in tables]
+        aligners = [[] for _ in tables]
+        for ci, name in enumerate(names):
+            cols = [cols_t[ci] for cols_t in per_table]
+            if any(c.dtype.is_string for c in cols):
+                dicts = [
+                    (c.dictionary if c.dictionary is not None
+                     else pa.array([], pa.string())).cast(pa.string())
+                    for c in cols
+                ]
+                unified = pc.unique(pa.concat_arrays(dicts))
+                for bi, d in enumerate(dicts):
+                    if len(d) == 0:
+                        def fn(col, _u=unified):
+                            return Column(col.data, col.dtype, col.valid, _u)
+                    else:
+                        remap = torch.from_numpy(
+                            pc.index_in(d, unified)
+                            .to_numpy(zero_copy_only=False)
+                            .astype(np.int32)
+                        ).to(self.device)
+
+                        def fn(col, _r=remap, _u=unified, _n=len(d)):
+                            return Column(
+                                _r[col.data.clamp(0, _n - 1).long()],
+                                col.dtype, col.valid, _u,
+                            )
+                    aligners[bi].append((name, fn))
+            else:
+                dt = _common_dtype([c.dtype for c in cols])
+
+                def fn(col, _dt=dt):
+                    return _cast_column(col, _dt, col.data.shape[0])
+
+                for bi in range(len(tables)):
+                    aligners[bi].append((name, fn))
+        return aligners
 
     def _aggregate_once(self, key_items, agg_items, subset, child, live,
                         nlive):
-        # stash the grouping state for the distinct-aggregate helper, saving
-        # the previous values: a scalar subquery inside an aggregate
-        # argument re-enters _aggregate_once and must not clobber them
-        prev = (self._current_agg_live, self._current_agg_nlive)
+        # stash the grouping state for grouping() and the distinct-aggregate
+        # helper, saving the previous values: a scalar subquery inside an
+        # aggregate argument re-enters _aggregate_once and must not clobber
+        # them
+        prev = (self._current_agg_keys, self._current_agg_live,
+                self._current_agg_nlive)
+        self._current_agg_keys = key_items
         self._current_agg_live = live
         self._current_agg_nlive = nlive
         try:
@@ -868,7 +1204,8 @@ class Executor:
                 key_items, agg_items, subset, child, live, nlive
             )
         finally:
-            self._current_agg_live, self._current_agg_nlive = prev
+            (self._current_agg_keys, self._current_agg_live,
+             self._current_agg_nlive) = prev
 
     def _aggregate_once_inner(self, key_items, agg_items, subset, child,
                               live, nlive):
@@ -993,7 +1330,8 @@ class Executor:
             )
         for agg, name in agg_items:
             cols[name] = self._eval_agg(
-                agg, ev, None, gid_dense, gcap, live, ngroups, child,
+                agg, ev, None, gid_dense, gcap, live, ngroups, child, subset,
+                key_cols,
             )
         return Table(cols, ngroups,
                      unique_key=_active_key_names(key_items, key_cols))
@@ -1043,16 +1381,30 @@ class Executor:
         for agg, name in agg_items:
             cols[name] = self._eval_agg(
                 agg, ev, order, gid, gcap, live_sorted, ngroups, child,
-                key_words,
+                subset, key_cols, key_words,
             )
         return Table(cols, ngroups,
                      unique_key=_active_key_names(key_items, key_cols))
 
     def _eval_agg(self, agg: E.Agg, ev, order, gid, gcap, live_sorted,
-                  ngroups, child, key_words=None) -> Column:
+                  ngroups, child, subset, key_cols,
+                  key_words=None) -> Column:
         fn = agg.fn
         if fn == "grouping":
-            raise _not_ported("grouping()", TODO_OPERATORS)
+            # grouping(key) = 1 where the key is rolled away in this set.
+            # The arg is the raw key expr or, after the post-aggregate
+            # rewrite, the key's output Col: match either form
+            idx = None
+            for i, (ke, kn) in enumerate(self._current_agg_keys):
+                if agg.arg == ke or agg.arg == E.Col(kn):
+                    idx = i
+                    break
+            rolled = subset is not None and idx is not None and idx not in subset
+            return Column(
+                torch.full((gcap,), 1 if rolled else 0, dtype=torch.int32,
+                           device=self.device),
+                INT32,
+            )
         if agg.distinct:
             return self._eval_distinct_agg(agg, ev, child, key_words)
         if fn == "count" and agg.arg is None:
@@ -1181,6 +1533,224 @@ class Executor:
                 v = v / 10**c.dtype.scale
             return Column(v, FLOAT64, n > 0)
         raise ExecError(f"distinct agg {agg.fn}")
+
+    # ------------------------------------------------------------------
+    def _exec_window(self, node: P.Window) -> Table:
+        # windows sort and scan several word / rank arrays at the input cap:
+        # pack masked inputs first
+        child = self.execute(node.child).compacted()
+        out_cols = dict(child.columns)
+        for wf, name in node.fns:
+            out_cols[name] = self._eval_window(child, wf)
+        return Table(out_cols, child.nrows_lazy, live=child.live)
+
+    def _eval_window(self, child: Table, wf: E.WindowFn) -> Column:
+        """One window function over a compacted table: sort by partition
+        then order words, number the partitions (int32 ids, as the JAX
+        scan keeps them), compute over the sorted rows and scatter back
+        through the inverse permutation. Every gather by a partition or
+        peer-group id is clamped to its table: dead rows sort last and may
+        carry ids past the live groups."""
+        ev = self._evaluator(child)
+        live = child.row_mask(self.device)
+        cap = child.cap
+        dev = live.device
+        pkeys, pcols = [], []
+        for e in wf.partition_by:
+            c = ev.eval(e)
+            d = c.data.to(torch.int32) if c.data.dtype == torch.bool else c.data
+            pkeys.append((d, c.valid, True, True))
+            pcols.append(c)
+        okeys, ocols = [], []
+        for e, asc in wf.order_by:
+            c = ev.eval(e)
+            d = c.data
+            if c.dtype.is_string:
+                d, _ = sort_dictionary(c)
+            if d.dtype == torch.bool:
+                d = d.to(torch.int32)
+            okeys.append((d, c.valid, asc, asc))
+            ocols.append(c)
+        # partition words carry the live bit (dead rows last); the order
+        # words are a separate list, so partition boundaries read off the
+        # sorted partition words alone
+        pwords = self._sort_words(pkeys, pcols, live)
+        owords = self._sort_words(okeys, ocols, live, include_live=False)
+        order = K.sort_by_words(pwords + owords)
+        sorted_ow = [w[order] for w in owords]
+        nlive = child.nrows
+        if pkeys:
+            flags = K._word_flags([w[order] for w in pwords])
+            gid = K.fast_cumsum(flags.to(torch.int32)) - 1
+            ng = int(gid[nlive - 1].item()) + 1 if nlive else 0
+        else:
+            gid = torch.zeros(cap, dtype=torch.int32, device=dev)
+            ng = 1 if nlive else 0
+        gcap = bucket_cap(max(ng, 1))
+        gi = gid.long().clamp(0, gcap - 1)  # the gather index of gid
+        inv = torch.empty(cap, dtype=torch.int64, device=dev)
+        inv[order] = torch.arange(cap, device=dev)
+
+        def peer_groups():
+            """(peer-group id, group count): order-key ties within a
+            partition."""
+            oflags = K._word_flags([gid] + sorted_ow)
+            ogid = K.fast_cumsum(oflags.to(torch.int32)) - 1
+            n_og = int(ogid[nlive - 1].item()) + 1 if nlive else 1
+            return ogid, oflags, bucket_cap(max(n_og, 1))
+
+        def peer_group_end():
+            """Sorted position of the last row of each row's peer group
+            (the RANGE frame's end), clamped to the table."""
+            ogid, _, ogcap = peer_groups()
+            og_first = K.segment_starts(ogid, ogcap)
+            og_count = K.segment_reduce(
+                torch.ones(cap, dtype=torch.int64, device=dev), ogid,
+                torch.ones(cap, dtype=torch.bool, device=dev), ogcap, "count",
+            )
+            og_end = (og_first + og_count - 1)[ogid.long().clamp(0, ogcap - 1)]
+            return og_end.clamp(0, cap - 1)
+
+        fn = wf.fn
+        if fn in ("rank", "dense_rank", "row_number"):
+            if fn == "row_number":
+                vals = K.running_position(gid) + 1
+            else:
+                ogid, oflags, ogcap = peer_groups()
+                part_first = K.segment_starts(gid, gcap)
+                if fn == "dense_rank":
+                    # count of peer-group starts since the partition start
+                    cums = K.fast_cumsum(oflags.to(torch.int32))
+                    base = cums[part_first.clamp(0, cap - 1)]
+                    vals = cums - base[gi] + 1
+                else:
+                    # rank: 1 + rows before the first row of the peer group
+                    og_first = K.segment_starts(ogid, ogcap)
+                    vals = (og_first[ogid.long().clamp(0, ogcap - 1)]
+                            - part_first[gi] + 1)
+            return Column(vals.to(torch.int64)[inv], INT64, None)
+
+        # aggregate-over-partition functions
+        if fn not in ("sum", "avg", "min", "max", "count"):
+            raise ExecError(f"window fn {fn}")
+        w = live[order]
+        if wf.arg is None and fn == "count":
+            c = None
+            sdata = torch.ones(cap, dtype=torch.int64, device=dev)
+            dtype = INT64
+        else:
+            c = ev.eval(wf.arg)
+            if c.dtype.is_string and fn in ("min", "max"):
+                # rank-transform codes so that min/max compare
+                # lexicographically (raw codes are in encounter order)
+                ranks, sorted_dict = sort_dictionary(c)
+                c = Column(ranks, c.dtype, c.valid, sorted_dict)
+            sdata = c.data[order]
+            if c.valid is not None:
+                w = w & c.valid[order]
+            dtype = c.dtype
+
+        # the frame. SQL default: the whole partition without ORDER BY,
+        # RANGE UNBOUNDED PRECEDING..CURRENT ROW (peers included) with it
+        frame = wf.frame
+        running = (("unbounded", "preceding"), ("current", None))
+        whole = (not wf.order_by and frame is None) or frame == (
+            ("unbounded", "preceding"), ("unbounded", "following"))
+        if whole:
+            red_map = {"sum": "sum", "min": "min", "max": "max",
+                       "count": "count", "avg": "sum"}
+            red, counts = K.segment_reduce_with_count(
+                sdata, gid, w, gcap, red_map[fn]
+            )
+            return self._window_result(fn, red[gi][inv], counts[gi][inv], c,
+                                       dtype)
+
+        if fn in ("min", "max"):
+            # running min/max by rank transform and a prefix max (exact)
+            if frame not in (running, None):
+                raise ExecError(f"window {fn} over frame {frame}")
+            sorted_vals, rank = K.value_rank(sdata)
+            scanned = K.segmented_running_extreme(
+                sorted_vals, rank, gid, w, fn == "max"
+            )
+            cnt_run = _segment_cumsum(w.to(torch.int64), gid)
+            if frame is None:
+                # RANGE: the current row's peers are in the frame, so read
+                # the running value at the end of the peer group
+                og_end = peer_group_end()
+                scanned = scanned[og_end]
+                cnt_run = cnt_run[og_end]
+            return self._window_result(fn, scanned[inv], cnt_run[inv], c,
+                                       dtype)
+
+        x = torch.where(w, sdata, torch.zeros((), dtype=sdata.dtype,
+                                              device=dev))
+        if not x.is_floating_point():
+            x = x.to(torch.int64)
+        csum = _segment_cumsum(x, gid)
+        cnt = _segment_cumsum(w.to(torch.int64), gid)
+
+        if frame is None or frame == running:
+            if frame is None:
+                og_end = peer_group_end()
+                csum = csum[og_end]
+                cnt = cnt[og_end]
+            return self._window_result(fn, csum[inv], cnt[inv], c, dtype)
+
+        # bounded ROWS frame: the sum over [lo, hi] by prefix-sum
+        # differences
+        (lo_n, lo_u), (hi_n, hi_u) = frame
+        part_first = K.segment_starts(gid, gcap)
+        pos = torch.arange(cap, dtype=torch.int64, device=dev)
+        start_of_part = part_first[gi]
+        part_count = K.segment_reduce(
+            torch.ones(cap, dtype=torch.int64, device=dev), gid, live[order],
+            gcap, "count",
+        )
+        end_of_part = start_of_part + part_count[gi] - 1
+
+        def bound(n, unit, unbounded):
+            if (n, unit) == ("current", None):
+                return pos
+            if n == "unbounded":
+                return unbounded
+            return pos - int(n) if unit == "preceding" else pos + int(n)
+
+        lo_raw = bound(lo_n, lo_u, start_of_part)
+        hi_raw = bound(hi_n, hi_u, end_of_part)
+        # the true frame is [lo_raw, hi_raw] within the partition; it can
+        # be EMPTY (`2 preceding and 1 preceding` at a partition's first
+        # row), where a clamp alone would fake a one-row frame
+        empty = ((hi_raw < lo_raw) | (hi_raw < start_of_part)
+                 | (lo_raw > end_of_part))
+        lo = torch.maximum(lo_raw, start_of_part).clamp(0, cap - 1)
+        hi = torch.minimum(hi_raw, end_of_part).clamp(0, cap - 1)
+        # the prefix sums restart at each partition head: where lo is the
+        # head, lo - 1 lies in the previous partition and the baseline is
+        # 0. The lo - 1 read is clamped (and masked at row 0)
+        before = (lo - 1).clamp(min=0)
+        base_zero = (lo == 0) | (lo == start_of_part)
+        zs = torch.zeros((), dtype=csum.dtype, device=dev)
+        s_lo = torch.where(base_zero, zs, csum[before])
+        c_lo = torch.where(base_zero, 0, cnt[before])
+        s_out = torch.where(empty, zs, csum[hi] - s_lo)
+        c_out = torch.where(empty, 0, cnt[hi] - c_lo)
+        return self._window_result(fn, s_out[inv], c_out[inv], c, dtype)
+
+    def _window_result(self, fn, red, counts, c, dtype):
+        if fn == "count":
+            return Column(counts.to(torch.int64), INT64)
+        if fn == "avg":
+            vals = red.to(torch.float64) / counts.clamp(min=1)
+            if c is not None and c.dtype.is_decimal:
+                vals = vals / 10**c.dtype.scale
+            return Column(vals, FLOAT64, counts > 0)
+        if fn in ("min", "max"):
+            return Column(red, dtype, counts > 0,
+                          None if c is None else c.dictionary)
+        # sum
+        return Column(red, INT64 if dtype.kind == "int32" else dtype,
+                      counts > 0)
 
     # -- the engine.pallas_* kernel routes --------------------------------
 
@@ -1369,10 +1939,27 @@ class Executor:
         a power-of-two bucket) under a combined live mask, with no
         repacking gathers and no count syncs."""
         cap = bucket_cap(max(a.cap + b.cap, 1))
-        live = _pad_to(
-            torch.cat([a.row_mask(self.device), b.row_mask(self.device)]), cap
-        )
-        n_lazy = a.nrows_lazy + b.nrows_lazy  # device counts stay lazy
+        live = _stack(a.row_mask(self.device), b.row_mask(self.device),
+                      a.cap, b.cap, cap)
+        return self._stacked(a, b, a.cap, b.cap, cap, a.nrows_lazy
+                             + b.nrows_lazy, live)
+
+    def _concat_rows(self, a: Table, b: Table) -> Table:
+        """Packed concatenation of two packed tables whose row counts the
+        host holds: a's rows then b's at the bucket of their sum, the table
+        _concat gives once compacted. A chain of masked concatenations adds
+        capacities: over ROLLUP's sets, whose first part holds a fact-sized
+        bucket of groups, the JAX executor's chain doubles per set (query67
+        at SF100: 2^26 groups, then 2^27 .. 2^31 lanes)."""
+        na, nb = a.nrows_known, b.nrows_known
+        if a.live is not None or b.live is not None or na is None or nb is None:
+            raise ExecError("_concat_rows needs packed tables with known counts")
+        return self._stacked(a, b, na, nb, bucket_cap(max(na + nb, 1)),
+                             na + nb, None)
+
+    def _stacked(self, a, b, na, nb, cap, nrows, live):
+        """a's first na rows, then b's first nb, in buffers of `cap` rows:
+        dtypes promoted and string dictionaries shared as a union does."""
         cols = {}
         for an, bn in zip(a.columns, b.columns):
             ca, cb = a.columns[an], b.columns[bn]
@@ -1384,14 +1971,14 @@ class Executor:
                 da = _cast_column(ca, dtype, ca.data.shape[0])
                 db = _cast_column(cb, dtype, cb.data.shape[0])
                 dictionary = None
-            data = _pad_to(torch.cat([da.data, db.data]), cap)
+            data = _stack(da.data, db.data, na, nb, cap)
             if da.valid is None and db.valid is None:
                 valid = None
             else:
-                va = da.valid if da.valid is not None else torch.ones(
-                    a.cap, dtype=torch.bool, device=data.device)
-                vb = db.valid if db.valid is not None else torch.ones(
-                    b.cap, dtype=torch.bool, device=data.device)
-                valid = _pad_to(torch.cat([va, vb]), cap)
+                ones = torch.ones(max(na, nb), dtype=torch.bool,
+                                  device=data.device)
+                valid = _stack(
+                    ones if da.valid is None else da.valid,
+                    ones if db.valid is None else db.valid, na, nb, cap)
             cols[an] = Column(data, dtype, valid, dictionary)
-        return Table(cols, n_lazy, live=live)
+        return Table(cols, nrows, live=live)

@@ -169,6 +169,9 @@ class Session:
         # the measured plain-vs-kernel A/B and the winning route
         self.pallas_promotions = {}
         self.cache_lock = threading.RLock()
+        # stats of the most recent blocked union aggregation (windows,
+        # window rows and cap, total rows, largest table cap), or None
+        self.last_blocked_union = None
 
     def union_agg_window_rows(self, row_bytes: int) -> int:
         """Rows per window of blocked union aggregation, as the JAX session

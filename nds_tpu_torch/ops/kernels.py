@@ -613,3 +613,76 @@ def segment_starts(gid, num_segments):
                      device=gid.device)
     out.scatter_reduce_(0, idx, _iota(n, gid.device), "amin")
     return out[:num_segments]
+
+
+# ---------------------------------------------------------------------------
+# Cumulative ops and window helpers. The JAX package blocks its cumulative
+# ops for TPU compile time (fast_cumsum / fast_cummax); torch's cumsum and
+# cummax are one kernel each, so the counterparts below are the plain scans
+# with the JAX result widths kept: torch.cumsum widens int32 to int64 unless
+# told otherwise, the JAX scan does not.
+# ---------------------------------------------------------------------------
+
+
+def fast_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Exact inclusive prefix sum in x's own dtype."""
+    return torch.cumsum(x, 0, dtype=x.dtype)
+
+
+def fast_cummax(x: torch.Tensor) -> torch.Tensor:
+    """Exact inclusive prefix max."""
+    return torch.cummax(x, 0).values
+
+
+def segment_heads(gid: torch.Tensor) -> torch.Tensor:
+    """True at the first row of each run of equal ids (row 0 included)."""
+    first = torch.ones(gid.shape[0], dtype=torch.bool, device=gid.device)
+    if gid.shape[0] > 1:
+        first[1:] = gid[1:] != gid[:-1]
+    return first
+
+
+def running_position(gid: torch.Tensor) -> torch.Tensor:
+    """0-based int32 position of each sorted row within its segment: each
+    head's own index carried forward by a prefix max."""
+    idx = _iota(gid.shape[0], gid.device, I32)
+    seg_start = fast_cummax(torch.where(segment_heads(gid), idx, 0))
+    return idx - seg_start
+
+
+def value_rank(x: torch.Tensor):
+    """(sorted_values, rank): each row's int32 position in the ascending
+    stable sort of its value. Floats sort as float64 with -0.0 normalised
+    to 0.0; torch's sort puts NaN last (Spark's NaN-greatest)."""
+    if x.is_floating_point():
+        key = x.to(torch.float64)
+        key = torch.where(key == 0.0, 0.0, key)
+    else:
+        key = x.to(I64)
+    p = kv_sort_perm(key)
+    n = x.shape[0]
+    rank = torch.empty(n, dtype=I32, device=x.device)
+    rank[p] = _iota(n, x.device, I32)
+    return x[p], rank
+
+
+def segmented_running_extreme(vals_sorted_by_rank, rank, gid, weight,
+                              is_max: bool):
+    """Running min/max within contiguous segments (gid ascending), exact for
+    any dtype. `rank` / `vals_sorted_by_rank` come from value_rank. The
+    prefix max runs over y = gid * n + rank, which is gid-major monotone, so
+    no earlier segment's entry can win (rank < n); the winning rank maps
+    back through the sorted values. Zero-weight rows take rank -1 (never
+    win); a row whose segment prefix has no weight gathers an arbitrary
+    value, which callers mask by the running weight count. The gather is
+    clamped to [0, n), as the JAX clip."""
+    n = rank.shape[0]
+    r = rank.to(I64)
+    if not is_max:
+        r = n - 1 - r  # running min == running max of reversed ranks
+    r = torch.where(weight, r, -1)
+    g = gid.to(I64) * n
+    win = fast_cummax(g + r) - g
+    if not is_max:
+        win = n - 1 - win
+    return vals_sorted_by_rank[win.clamp(0, max(n - 1, 0))]

@@ -382,17 +382,19 @@ def _join_cases():
     return torch_join_cases
 
 
-def _port_sessions(device, tables, mode):
+def _port_sessions(device, tables, mode, conf=None):
     from nds_tpu_torch.engine.session import Session
 
-    s = Session(conf={f"engine.pallas_{k}": mode
-                      for k in ("agg", "join", "sort")}, device=device)
+    s = Session(conf={**(conf or {}), **{f"engine.pallas_{k}": mode
+                                        for k in ("agg", "join", "sort")}},
+                device=device)
     for name, t in tables.items():
         s.register_arrow(name, t)
     return s
 
 
-def _same_on_card_and_cpu(cuda, tables, sql, mode, ordered=False):
+def _same_on_card_and_cpu(cuda, tables, sql, mode, ordered=False,
+                          conf=None):
     from nds_tpu_torch.engine import exec as TX
 
     C = _join_cases()
@@ -401,7 +403,8 @@ def _same_on_card_and_cpu(cuda, tables, sql, mode, ordered=False):
         ev = []
         restore = C.CS.branch_spy(TX.Executor, ev)
         try:
-            out.append(_port_sessions(dev, tables, mode).sql(sql).collect())
+            out.append(_port_sessions(dev, tables, mode, conf)
+                       .sql(sql).collect())
         finally:
             restore()
         events.append(ev)
@@ -435,3 +438,96 @@ def test_chip_join_query_on_card_matches_cpu(cuda, q):
     tables = {n: C.arrow_table(c) for n, c in star.items()}
     _same_on_card_and_cpu(cuda, tables, C.CS.JOIN_QUERIES[q], "on",
                           ordered=q == "q78")
+
+
+# ---------------------------------------------------------------------------
+# Windows, ROLLUP / grouping sets, grouping() and blocked union aggregation
+# on the card (tests/torch_window_cases.py), and chip_smoke's windows-phase
+# queries cut to size, through Session(device="cuda") against the same port
+# session on the CPU. Tolerance as in torch_window_cases.
+# ---------------------------------------------------------------------------
+
+
+def _window_cases():
+    _join_cases()  # puts tests/ on the path
+    import torch_window_cases
+
+    return torch_window_cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["off", "on"])
+@pytest.mark.parametrize("case", sorted(_window_cases().WINDOW_CASES))
+def test_window_on_card_matches_cpu(cuda, case, mode):
+    W = _window_cases()
+    sql, kinds = W.WINDOW_CASES[case]
+    events = _same_on_card_and_cpu(cuda, W.window_tables(), sql, mode)
+    assert not W.missing_kinds(events, kinds), (kinds, events)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["off", "on"])
+@pytest.mark.parametrize("case", sorted(_window_cases().ROLLUP_CASES))
+def test_grouping_sets_on_card_match_cpu(cuda, case, mode):
+    W = _window_cases()
+    sql, wanted = W.ROLLUP_CASES[case]
+    events = _same_on_card_and_cpu(cuda, W.window_tables(), sql, mode,
+                                   ordered="order by" in sql)
+    assert not W.CS.missing_branches(events, wanted), (wanted, events)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["off", "on"])
+@pytest.mark.parametrize("case", sorted(_window_cases().BLOCKED_CASES))
+def test_blocked_union_on_card_matches_cpu(cuda, case, mode):
+    W = _window_cases()
+    sql, wanted = W.BLOCKED_CASES[case]
+    events = _same_on_card_and_cpu(
+        cuda, W.channel_tables(), sql, mode, ordered="order by" in sql,
+        conf={"engine.union_agg_window_rows": W.SMALL_WINDOW})
+    assert not W.CS.missing_branches(events, wanted), (wanted, events)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", sorted(_window_cases().CS.WINDOW_QUERIES))
+def test_chip_window_query_on_card_matches_cpu(cuda, q):
+    """q36's margins divide a net-profit sum whose terms have both signs:
+    its f32 sums are held to chip_smoke's cancellation bound (check_q36)
+    against the CPU session, the other queries to EPS."""
+    from nds_tpu_torch.engine import exec as TX
+
+    W = _window_cases()
+    C = _join_cases()
+    star = C.CS.make_star(0, W.CHIP_SCALE)
+    tables = {n: C.arrow_table(c) for n, c in star.items()}
+    sql = W.chip_window_sql(q, star)
+    if q != "q36":
+        events = _same_on_card_and_cpu(cuda, tables, sql, "on",
+                                       conf=W.CHIP_CONF)
+        assert not W.CS.missing_branches(events, W.CS.WINDOW_BRANCHES[q])
+        return
+    out, events = [], []
+    for dev in (cuda, "cpu"):
+        ev = []
+        restore = C.CS.branch_spy(TX.Executor, ev)
+        try:
+            out.append(_port_sessions(dev, tables, "on").sql(sql).collect())
+        finally:
+            restore()
+        events.append(ev)
+    assert events[0] == events[1]
+    assert not W.CS.missing_branches(events[0], W.CS.WINDOW_BRANCHES[q])
+    states = tuple(sorted({C.CS.STATES[i] for i in star["store"]["s_state"]}))
+    ref = C.CS.q36_reference(star, states=states)
+
+    def rtol_of(r):
+        _, n, a, p, _ = ref[(r["lochierarchy"], r["i_category"],
+                             r["i_class"])]
+        return C.CS.f32_cancel_rtol(n, a, p) + C.CS.f32_sum_rtol(n)
+
+    C.CS.same_ranked(
+        out[0], out[1], ["lochierarchy", "i_category", "i_class"],
+        "gross_margin", "rank_within_parent",
+        lambda r: (r["lochierarchy"],
+                   r["i_category"] if r["lochierarchy"] == 0 else None),
+        rtol_of, "q36 card vs cpu")

@@ -28,52 +28,20 @@ import pytest
 import torch
 
 from nds_tpu.engine import exec as JX
-from nds_tpu.engine.session import Session as JaxSession
 from nds_tpu_torch.engine import exec as TX
-from nds_tpu_torch.engine.session import Session as TorchSession
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_join_cases import (  # noqa: E402
     CASES, CS, EDGE_CASES, EPS, arrow_table, assert_same, structural, tables,
 )
+from torch_parity import run_both as _run_both, sessions as _sessions  # noqa: E402
 
 torch.set_num_threads(1)
-
-
-def _conf(mode):
-    return {f"engine.pallas_{k}": mode for k in ("agg", "join", "sort")}
-
-
-def _sessions(arrow):
-    out = {}
-    for mode in ("off", "on"):
-        j = JaxSession(conf={**_conf(mode), "engine.aot_cache_dir": ""})
-        t = TorchSession(conf=_conf(mode), device="cpu")
-        for name, at in arrow.items():
-            j.register_arrow(name, at)
-            t.register_arrow(name, at)
-        out[mode] = (j, t)
-    return out
 
 
 @pytest.fixture(scope="module")
 def sessions():
     return _sessions(tables())
-
-
-def _run_both(j, t, sql):
-    ev_j, ev_t = [], []
-    restore = CS.branch_spy(JX.Executor, ev_j)
-    try:
-        a = j.sql(sql).collect()
-    finally:
-        restore()
-    restore = CS.branch_spy(TX.Executor, ev_t)
-    try:
-        b = t.sql(sql).collect()
-    finally:
-        restore()
-    return a, b, ev_j, ev_t
 
 
 @pytest.mark.parametrize("mode", ["off", "on"])

@@ -292,3 +292,109 @@ def test_matched_mask(case):
     _eq(t, JK.matched_mask(jli, jok, cap))
     if case == "padded_index0":
         assert bool(t[0])
+
+
+# ---------------------------------------------------------------------------
+# window helpers (the window library functions of ROADMAP queue 2 item B)
+# ---------------------------------------------------------------------------
+
+
+def _sorted_gid(n, groups, seed):
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.integers(0, groups, n)).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float64])
+@pytest.mark.parametrize("n", [0, 1, 1000, 4096])
+def test_fast_cumsum_and_cummax(dtype, n):
+    """Blocked (n a multiple of 512, n >= 1024) and flat JAX scans; the
+    result keeps the input's width (torch.cumsum alone widens int32)."""
+    rng = np.random.default_rng(n)
+    x = (rng.integers(-100, 100, n) if dtype != np.float64
+         else rng.integers(-100, 100, n) / 4.0).astype(dtype)
+    jx, tx = _both(x)
+    out = TK.fast_cumsum(tx)
+    assert out.dtype == tx.dtype
+    _eq(out, JK.fast_cumsum(jx))
+    if n:
+        _eq(TK.fast_cummax(tx), JK.fast_cummax(jx))
+
+
+@pytest.mark.parametrize("case", ["random", "one_segment", "singletons",
+                                  "one_row"])
+def test_running_position(case):
+    n = 1 if case == "one_row" else 5000
+    gid = {"random": _sorted_gid(n, 300, 1),
+           "one_segment": np.zeros(n, np.int32),
+           "singletons": np.arange(n, dtype=np.int32),
+           "one_row": np.zeros(1, np.int32)}[case]
+    jg, tg = _both(gid)
+    out = TK.running_position(tg)
+    assert out.dtype == torch.int32
+    _eq(out, JK.running_position(jg))
+
+
+@pytest.mark.parametrize("kind", ["int32", "int64", "float", "float_specials"])
+def test_value_rank(kind):
+    """Stable ranks exactly, ties by position; floats as f64 with -0.0
+    equal to 0.0 and NaN last."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    if kind == "int32":
+        x = rng.integers(-40, 40, n).astype(np.int32)
+    elif kind == "int64":
+        x = rng.integers(-(1 << 40), 1 << 40, n)
+    else:
+        x = (rng.integers(-30, 30, n) / 8.0).astype(np.float64)
+        if kind == "float_specials":
+            x[::11] = -0.0
+            x[::13] = 0.0
+            x[::17] = np.nan
+            x[::19] = np.inf
+            x[::23] = -np.inf
+    jx, tx = _both(x)
+    tv, tr = TK.value_rank(tx)
+    jv, jr = JK.value_rank(jx)
+    assert tr.dtype == torch.int32
+    _eq(tr, jr)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("is_max", [False, True])
+@pytest.mark.parametrize("case", ["random", "zero_weight_heads", "floats",
+                                  "one_segment"])
+def test_segmented_running_extreme(case, is_max):
+    """Exact running min / max within segments, zero-weight rows never
+    winning; rows whose segment prefix has no weight are excluded (they
+    gather an arbitrary value, masked by the callers)."""
+    rng = np.random.default_rng(7)
+    n = 4000
+    gid = (np.zeros(n, np.int32) if case == "one_segment"
+           else _sorted_gid(n, 200, 8))
+    vals = (rng.integers(-1000, 1000, n) / 10.0 if case == "floats"
+            else rng.integers(-1000, 1000, n))
+    weight = rng.random(n) > 0.2
+    if case == "zero_weight_heads":
+        weight[np.flatnonzero(np.r_[True, gid[1:] != gid[:-1]])] = False
+    (jg, tg), (jv, tv), (jw, tw) = _both(gid), _both(vals), _both(weight)
+    t_sorted, t_rank = TK.value_rank(tv)
+    j_sorted, j_rank = JK.value_rank(jv)
+    t = TK.segmented_running_extreme(t_sorted, t_rank, tg, tw, is_max)
+    j = JK.segmented_running_extreme(j_sorted, j_rank, jg, jw, is_max)
+    # the running weight count of each row's segment prefix
+    seen = np.zeros(n, bool)
+    for i in range(n):
+        head = i == 0 or gid[i] != gid[i - 1]
+        seen[i] = weight[i] or (not head and seen[i - 1])
+    np.testing.assert_array_equal(t.numpy()[seen], np.asarray(j)[seen])
+    # against numpy: the running extreme of the weighted rows
+    want = np.empty(n)
+    for i in range(n):
+        head = i == 0 or gid[i] != gid[i - 1]
+        cur = vals[i] if weight[i] else None
+        prev = None if head else want[i - 1]
+        if head or not seen[i - 1]:
+            prev = None
+        cands = [c for c in (cur, prev) if c is not None]
+        want[i] = (max if is_max else min)(cands) if cands else np.nan
+    np.testing.assert_array_equal(t.numpy()[seen].astype(float), want[seen])

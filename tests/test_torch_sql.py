@@ -214,7 +214,10 @@ QUERIES = {
     """,
 }
 
-UNPORTED = {
+#: the operators queue 1 item 8 ported (windows, ROLLUP, grouping(),
+#: blocked union aggregation): once NotImplementedError, now held against
+#: the JAX engine
+ITEM8_CASES = {
     "window": """
         select ss_store_sk, rank() over (partition by ss_store_sk
                                          order by ss_quantity) rk
@@ -228,8 +231,8 @@ UNPORTED = {
         select ss_store_sk, grouping(ss_store_sk) g, count(*) c
         from store_sales group by ss_store_sk
     """,
-    # an aggregate over a UNION ALL past one window: the JAX engine
-    # aggregates it window by window (blocked union aggregation)
+    # an aggregate over a UNION ALL past one window: both engines
+    # aggregate it window by window (blocked union aggregation)
     "blocked_union": """
         select k, sum(q) s from (
             select ss_store_sk k, ss_quantity q from store_sales
@@ -240,7 +243,17 @@ UNPORTED = {
 }
 
 #: session conf a case needs to reach its branch
-UNPORTED_CONF = {"blocked_union": {"engine.union_agg_window_rows": 1024}}
+ITEM8_CONF = {"blocked_union": {"engine.union_agg_window_rows": 1024}}
+
+#: what the port still raises NotImplementedError for, naming the ROADMAP.md
+#: item that ports it: (SQL or None, session conf)
+UNPORTED = {
+    "create_view": ("create view v as select ss_store_sk from store_sales",
+                    {}),
+    "insert": ("insert into store_sales select * from store_sales", {}),
+    "spill_force": (None, {"engine.spill": "force"}),
+    "trace_dir": (None, {"engine.trace_dir": "traces"}),
+}
 
 
 def _conf(mode):
@@ -328,16 +341,30 @@ def test_q3_routes_through_every_kernel_wrapper(sessions, monkeypatch):
         assert set(calls) == expect, mode
 
 
+@pytest.mark.parametrize("qname", sorted(ITEM8_CASES))
+def test_item8_branches_match_jax(tables, qname):
+    conf = {**_conf("on"), **ITEM8_CONF.get(qname, {})}
+    j = JaxSession(conf={**conf, "engine.aot_cache_dir": ""})
+    t = TorchSession(conf=conf, device="cpu")
+    for name, at in tables.items():
+        j.register_arrow(name, at)
+        t.register_arrow(name, at)
+    a = j.sql(ITEM8_CASES[qname]).collect()
+    b = t.sql(ITEM8_CASES[qname]).collect()
+    assert b.num_rows > 0
+    assert_same(a, b, qname)
+    if qname == "blocked_union":
+        assert t.last_blocked_union["windows"] > 1
+
+
 @pytest.mark.parametrize("qname", sorted(UNPORTED))
-def test_unported_branches_raise(tables, sessions, qname):
-    t = sessions["on"][1]
-    if qname in UNPORTED_CONF:
-        t = TorchSession(conf={**_conf("on"), **UNPORTED_CONF[qname]},
-                         device="cpu")
+def test_unported_branches_raise(tables, qname):
+    sql, conf = UNPORTED[qname]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        t = TorchSession(conf={**_conf("on"), **conf}, device="cpu")
         for name, at in tables.items():
             t.register_arrow(name, at)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t.sql(UNPORTED[qname]).collect()
+        t.sql(sql).collect()
 
 
 def test_table_from_numpy_tables_run_through_sql(tables, sessions):

@@ -300,8 +300,8 @@ def arrow_table(cols):
         if c.endswith("__valid"):
             continue
         v = cols.get(c + "__valid")
-        if c in CS.DICTIONARIES:
-            out[c] = pa.array(np.array(CS.DICTIONARIES[c], dtype=object)[d])
+        if CS.dictionary(c) is not None:
+            out[c] = pa.array(np.array(CS.dictionary(c), dtype=object)[d])
         elif CS.COLUMN_TYPES.get(c) == "date":
             out[c] = pa.array(d.astype("datetime64[D]"))
         else:
