@@ -5,10 +5,18 @@ Drives the port's main path on one NVIDIA H100 at TPC-DS SF100 row counts:
 `Session.sql` -> parse / bind / prune -> scan -> filter -> dense star-join ->
 group-by aggregate -> ORDER BY -> collect, with engine.pallas_agg,
 engine.pallas_join and engine.pallas_sort set to `on`, so every
-hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
+hand-written kernel of ops/csrc/ runs. Every statement goes through the
+port's plan budgeter on the card's own lines (NDS_PLAN_BUDGET_STRICT is
+set, so a budgeter fault fails the run), and every query line carries its
+`budget` record: the verdict, the modeled peak, the window and partition
+count it annotated, the measured working set (the peak of the steady runs
+less what was allocated before them) and their ratio against the
+reference's CALIBRATION_SLACK. Phases, each printing one JSON line:
 
-  device   the card (plus the nvidia-smi name/power-limit line) and whether
-           pyarrow imports
+  device   the card (plus the nvidia-smi name/power-limit line), whether
+           pyarrow imports, and the caching allocator's setting and its
+           segments (the package makes expandable_segments hold)
+  budget_lines  the card's memory and the plan budgeter's lines on it
   build    nvcc builds every kernel from ops/csrc/, one process per source
   data     store_sales (as tickets), store_returns, catalog_sales (as
            orders), item, date_dim, reason and store, made with numpy from
@@ -46,6 +54,18 @@ hand-written kernel of ops/csrc/ runs. Phases, each printing one JSON line:
            default size), launch segment_sums and dense_build and equal the
            off session, q98, q36 and the q5 shape their numpy references;
            one line per query and a `windows` summary line
+  spill    the out-of-core paths at SF100: SPILL_CASES (q3's hash join
+           forced through the spill pool at 8 and at 3 partitions, the
+           ORDER BY's sorted runs at 8, the same with the pool capped so
+           that segments tier to a temporary directory, q87's DISTINCTs at
+           8, and q3 in `auto` mode under a working-set line below its
+           modeled peak) against the same queries with engine.spill=off;
+           launch counts zeroed just before the cold runs and read just
+           after; each case must take its SPILL_BRANCHES and equal the
+           direct run (the ORDER BY bit for bit); one line per case (steady
+           and direct ms, peaks and working sets, the pool's bytes in / out,
+           evictions and disk bytes, partitions, launches) and a `spill`
+           summary line
   kernel_sweep  the kernels redesigned for Hopper against their plain
            versions at shapes beyond the main path's: segment_extreme's
            global-atomic path, sorted ids and one group; 2^21-row builds
@@ -852,7 +872,10 @@ def branch_spy(executor_cls, events):
     "inner packed join, 2 keys", "semi hash join, 1 key, residual",
     "cross join", "except", "distinct", "count(distinct)",
     "sort group-by, 2 keys", "window rank, sum whole", "grouping sets, 3
-    sets", "grouping()", "blocked union, 1 key". Returns a function that
+    sets", "grouping()", "blocked union, 1 key", "spilled join, 8
+    partitions" (the out-of-core paths, recorded where they ran rather
+    than declined: a join's partitions add their own join events before
+    it). Returns a function that
     restores the class. The method names are the JAX executor's too, so
     the tests put the same spy on both engines."""
     originals = {}
@@ -942,6 +965,16 @@ def branch_spy(executor_cls, events):
             return orig(self, agg, *a, **kw)
         return run
 
+    def spilled(op, parts_of):
+        def make(orig):
+            def run(self, *a, **kw):
+                out = orig(self, *a, **kw)
+                if out is not None:
+                    events.append(f"spilled {op}, {parts_of(a)} partitions")
+                return out
+            return run
+        return make
+
     def blocked(orig):
         def run(self, node, ctx, subset, *a, **kw):
             n = len(node.keys) if subset is None else len(subset)
@@ -965,6 +998,9 @@ def branch_spy(executor_cls, events):
         else f"grouping sets, {len(n.grouping_sets)} sets"))
     wrap("_eval_agg", grouping)
     wrap("_blocked_union_once", blocked)
+    wrap("_spilled_join", spilled("join", lambda a: a[-1]))
+    wrap("_spilled_take", spilled("sort", lambda a: a[2]))
+    wrap("_spilled_distinct", spilled("distinct", lambda a: a[-1]))
 
     def restore():
         for name, fn in originals.items():
@@ -1522,7 +1558,8 @@ def q93_rows(res):
     return [(r["ss_customer_sk"], r["sumsales"]) for r in rows]
 
 
-def joins_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows):
+def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
+                rows):
     """The joins and set operators at SF100 row counts: JOIN_QUERIES through
     a session with the kernels on and one with them off. Each query must
     take its JOIN_BRANCHES and give the same result both ways; q93 and q16
@@ -1584,9 +1621,12 @@ def joins_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows):
     out = {}
     for q in JOIN_QUERIES:
         res, cold_ms = cold[q]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         steady = [run(s_on, q)[1] for _ in range(5)]
         peaks[q] = torch.cuda.max_memory_allocated(dev) / 2**30
+        budget = budget_record(B, s_on, peaks[q] * 2**30 - before)
         got_off, off_cold_ms = run(s_off, q)
         off_ms = run(s_off, q)[1]
         prof = profile_query(torch, lambda q=q: run(s_on, q), q)
@@ -1598,7 +1638,7 @@ def joins_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows):
                "device_busy_share": prof["device_busy_share"],
                "device_ms": prof["device_ms"],
                "device_launches": prof["device_launches"],
-               "top": prof["top"][:5]}
+               "top": prof["top"][:5], "budget": budget}
         fact = sum(rows[t] for t in JOIN_FACTS[q])
         rec["fact_rows"] = fact
         rec["fact_rows_per_s"] = fact / (rec["steady_ms"] / 1e3)
@@ -1829,8 +1869,8 @@ def same_ranked(got, ref, keys, val, rank, part, rtol_of, tag):
     return worst
 
 
-def windows_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows,
-                  scale):
+def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
+                  rows, scale):
     """Windows, ROLLUP / grouping sets, grouping() and blocked union
     aggregation at SF100 row counts: WINDOW_QUERIES through a session with
     the kernels on and one with them off, over the tables with the
@@ -1895,9 +1935,12 @@ def windows_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows,
     out = {}
     for q in WINDOW_QUERIES:
         res, cold_ms = cold[q]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         steady = [run(s_on, q)[1] for _ in range(WINDOW_STEADY_RUNS)]
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        budget = budget_record(B, s_on, peak * 2**30 - before)
         got_off, off_cold_ms = run(s_off, q)
         off_ms = run(s_off, q)[1]
         # torch's scatter kernel: segment_starts' amin scatter (queue 2
@@ -1913,7 +1956,7 @@ def windows_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows,
                "device_ms": prof["device_ms"],
                "device_launches": prof["device_launches"],
                "scatter_ms": prof["match_ms"],
-               "top": prof["top"][:5]}
+               "top": prof["top"][:5], "budget": budget}
         fact = sum(rows[t] for t in WINDOW_FACTS[q])
         rec["fact_rows"] = fact
         rec["fact_rows_per_s"] = fact / (rec["steady_ms"] / 1e3)
@@ -1948,9 +1991,7 @@ def windows_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows,
             rec["union_window"] = (extra.get("engine.union_agg_window_rows")
                                    or "default")
             rec["blocked_union"] = blocked[q]
-            if not blocked[q] or blocked[q]["windows"] < 2:
-                fail(f"q5 did not aggregate its union in windows: "
-                     f"{blocked[q]}")
+            check_q5_windows(blocked[q], extra, budget, rows)
             rec.update(check_q5(res, got_off, ref5, blocked[q]["windows"]))
         out[q] = rec
         emit(rec)
@@ -1960,6 +2001,33 @@ def windows_phase(torch, GK, TX, Session, star, tables, dev, on, off, rows,
           "steady_runs": WINDOW_STEADY_RUNS,
           "seconds": time.perf_counter() - t_phase})
     return out, launches
+
+
+def check_q5_windows(blocked, extra, budget, rows):
+    """The q5 shape aggregates its union in windows of the size the
+    session resolves (the conf window at a cut --scale; else the plan
+    budgeter's static window where its verdict annotated one; else the
+    catalog budget's default, a power of two in [2^16, 2^24]), one run of
+    window slices (the window's power-of-two capacity) over each branch:
+    store_sales, then store_returns."""
+    if not blocked:
+        fail("q5 did not aggregate its union in windows")
+    wrows = blocked["window_rows"]
+    want = extra.get("engine.union_agg_window_rows")
+    if want is None and budget["annotated"]:
+        want = budget["window_rows"]
+    if want is not None and wrows != want:
+        fail(f"q5 windows of {wrows} rows, the session resolves {want}")
+    if want is None and (wrows & (wrows - 1) or
+                         not 1 << 16 <= wrows <= 1 << 24):
+        fail(f"q5 windows of {wrows} rows: not a default window size")
+    branch_rows = (rows["store_sales"], rows["store_returns"])
+    wcap = blocked["window_cap"]  # the window's power-of-two slice
+    n = sum(-(-r // wcap) for r in branch_rows)
+    if blocked["total_rows"] != sum(branch_rows) or blocked["windows"] != n:
+        fail(f"q5 aggregated {blocked['total_rows']} rows in "
+             f"{blocked['windows']} windows of {wcap}; want "
+             f"{sum(branch_rows)} rows in {n}")
 
 
 def check_q98(res, got_off, ref, item_of):
@@ -2063,6 +2131,196 @@ def check_q5(res, got_off, ref, windows):
     return out
 
 
+def budget_record(B, session, working_set):
+    """The plan budgeter's verdict on the statement `session` planned last,
+    beside the working set the card measured for it (the peak of its steady
+    runs less what was allocated before them) and their ratio, held
+    against the reference's CALIBRATION_SLACK (printed, not gated)."""
+    rec = session.last_plan_budget
+    if rec is None or rec.get("verdict") == "error":
+        fail(f"the plan budgeter gave no verdict: {rec}")
+    ratio = working_set / rec["peak_bytes"] if rec["peak_bytes"] else None
+    return {"verdict": rec["verdict"],
+            "modeled_peak_gib": rec["peak_bytes"] / 2**30,
+            "window_rows": rec["window_rows"],
+            "spill_partitions": rec["spill_partitions"],
+            "annotated": rec["annotated"],
+            "working_set_gib": working_set / 2**30, "ratio": ratio,
+            "above_slack": ratio is not None
+            and ratio > B.CALIBRATION_SLACK}
+
+
+#: the spill phase: (case, query, conf beyond the kernels' `on`). `force`
+#: spills every eligible node; `auto` spills the nodes the budgeter
+#: annotates, here under a working-set line set below the query's modeled
+#: peak (SPILL_AUTO_SHARE of it); `disk` caps the pool at
+#: SPILL_DISK_POOL_BYTES so that segments tier to a temporary directory.
+SPILL_CASES = (
+    ("q3_force_8", "q3", {"engine.spill": "force",
+                          "engine.spill_partitions": 8}),
+    ("q3_force_3", "q3", {"engine.spill": "force",
+                          "engine.spill_partitions": 3}),
+    ("order_force_8", "order", {"engine.spill": "force",
+                                "engine.spill_partitions": 8}),
+    ("order_disk_8", "order", {"engine.spill": "force",
+                               "engine.spill_partitions": 8}),
+    ("q87_force_8", "q87", {"engine.spill": "force",
+                            "engine.spill_partitions": 8}),
+    ("q3_auto", "q3", {}),
+)
+#: the spilled path each case must take (branch_spy events)
+SPILL_BRANCHES = {
+    "q3_force_8": ["spilled join, 8 partitions"],
+    "q3_force_3": ["spilled join, 3 partitions"],
+    "order_force_8": ["spilled sort, 8 partitions"],
+    "order_disk_8": ["spilled sort, 8 partitions"],
+    "q87_force_8": ["spilled distinct, 8 partitions",
+                    "spilled distinct, 8 partitions"],
+}
+SPILL_AUTO_SHARE = 3
+SPILL_DISK_POOL_BYTES = 1 << 20
+SPILL_KERNELS = ("segment_sums", "dense_build", "sort_perm")
+SPILL_STEADY_RUNS = 3
+
+
+def spill_phase(torch, GK, TX, B, Session, tables, dev, on):
+    """The out-of-core paths at SF100 row counts: SPILL_CASES through
+    sessions with the kernels on, each against the same query in a session
+    with `engine.spill=off` (the direct run). Each case must take its
+    SPILL_BRANCHES (q3's join is the hash-candidate join, the one the
+    spilled join replaces) and equal the direct run: q3's groups with
+    counts exact and sums within the f32 bound, q87's count exactly, the
+    ORDER BY bit for bit; the auto case must get the `spill` verdict and
+    spill (last_spill ops >= 1). The phase must launch SPILL_KERNELS.
+    Launch counts are zeroed just before the cold runs and read just
+    after. One line per case and a `spill` summary line."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    sql = {**QUERIES, **JOIN_QUERIES}
+    spill_dir = tempfile.mkdtemp(prefix="nds-spill-")
+    direct = Session(conf={**on, "engine.spill": "off"})
+    for name, t in tables.items():
+        direct.register_table(name, t)
+
+    def run(session, q):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = session.sql(sql[q]).collect()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    def steady(session, q):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = [run(session, q)[1] for _ in range(SPILL_STEADY_RUNS)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        return ms, peak - before, peak
+
+    try:
+        ref = {}
+        for q in ("q3", "order", "q87"):
+            res, _ = run(direct, q)
+            if direct.last_spill is not None:
+                fail(f"the direct run of {q} spilled: {direct.last_spill}")
+            ref[q] = (res, *steady(direct, q),
+                      direct.last_plan_budget["peak_bytes"])
+        sessions = {}
+        for case, q, conf in SPILL_CASES:
+            conf = {**on, "engine.spill_dir": spill_dir, **conf}
+            if case == "q3_auto":
+                conf["engine.plan_budget_bytes"] = (
+                    ref[q][4] // SPILL_AUTO_SHARE)
+            if case.startswith("order_disk"):
+                conf["engine.spill_pool_bytes"] = SPILL_DISK_POOL_BYTES
+            s = sessions[case] = Session(conf=conf)
+            for name, t in tables.items():
+                s.register_table(name, t)
+
+        GK.reset_launches()
+        prev = dict(GK.LAUNCHES)
+        cold, events, per_case, spilled = {}, {}, {}, {}
+        for case, q, _ in SPILL_CASES:
+            s = sessions[case]
+            s.last_spill = None
+            ev = events[case] = []
+            restore = branch_spy(TX.Executor, ev)
+            try:
+                cold[case] = run(s, q)
+            finally:
+                restore()
+            spilled[case] = s.last_spill
+            per_case[case] = {k: GK.LAUNCHES[k] - prev[k]
+                              for k in GK.LAUNCHES}
+            prev = dict(GK.LAUNCHES)
+        launches = dict(GK.LAUNCHES)
+        for name in SPILL_KERNELS:
+            if launches[name] == 0:
+                fail(f"kernel {name} was not launched on the spill path")
+
+        for case, q, _ in SPILL_CASES:
+            s = sessions[case]
+            missing = missing_branches(events[case],
+                                       SPILL_BRANCHES.get(case, []))
+            if missing:
+                fail(f"spill {case} did not take {missing}: it took "
+                     f"{events[case]}")
+            note = spilled[case]
+            if not note or note["ops"] < 1:
+                fail(f"spill {case}: no operator spilled ({note})")
+            res, cold_ms = cold[case]
+            want, direct_ms, direct_ws, direct_peak, _ = ref[q]
+            if q == "q3":
+                got, exp = q3_groups(res), q3_groups(want)
+                rtol = f32_sum_rtol(max(n for _, n in exp.values()))
+                worst = same_groups(got, exp, rtol, f"spill {case}")
+            elif q == "order":
+                rtol = 0.0
+                worst = same_result(res, want, rtol, f"spill {case}")
+                if not res.equals(want):
+                    fail(f"spill {case}: the sorted output is not the "
+                         f"direct run's, bit for bit")
+            else:
+                rtol = 0.0
+                worst = same_result(res, want, rtol, f"spill {case}")
+            ms, ws, peak = steady(s, q)
+            pool = dict(s.spill_pool.stats)
+            rec = {"phase": "spill_case", "case": case, "query": q,
+                   "rows": res.num_rows, "cold_ms": cold_ms,
+                   "steady_ms": float(np.median(ms)), "steady_runs_ms": ms,
+                   "direct_steady_ms": float(np.median(direct_ms)),
+                   "peak_gib": peak / 2**30,
+                   "direct_peak_gib": direct_peak / 2**30,
+                   "working_set_gib": ws / 2**30,
+                   "direct_working_set_gib": direct_ws / 2**30,
+                   "spill": note, "pool_cold_and_steady": pool,
+                   "launches": per_case[case],
+                   "branches": [e for e in events[case]
+                                if e.startswith("spilled ")],
+                   "max_rel_vs_direct": worst, "rtol": rtol,
+                   "budget": budget_record(B, s, ws)}
+            if case.startswith("order_disk") and (
+                    note["evictions"] < 1 or pool["disk_bytes_read"] < 1):
+                fail(f"spill {case}: no segment went through the disk "
+                     f"tier ({note}, {pool})")
+            if case == "q3_auto":
+                if rec["budget"]["verdict"] != "spill":
+                    fail(f"spill {case}: verdict {rec['budget']} under a "
+                         f"line below the modeled peak")
+                rec["plan_budget_bytes"] = s.conf["engine.plan_budget_bytes"]
+            emit(rec)
+        for s in sessions.values():
+            s.spill_pool.close()
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    emit({"phase": "spill", "launches": launches,
+          "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def profile_query(torch, run_once, q, top=10, match=None):
     """Where one steady run's time goes: torch.profiler's device time by
     kernel, the device's busy share of the wall time, and the launches;
@@ -2107,9 +2365,9 @@ def main(argv=None):
                     help="fraction of SF100 row counts (1.0 = SF100)")
     args = ap.parse_args(argv)
 
-    # SF100 leaves ~50 GB for the joins' transients: map the caching
-    # allocator's blocks as segments that grow, against fragmentation
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # a plan-budgeter fault fails the statement instead of being recorded
+    # as verdict "error"
+    os.environ["NDS_PLAN_BUDGET_STRICT"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -2117,9 +2375,14 @@ def main(argv=None):
     if not os.path.isdir(os.path.join(ROOT, "nds_tpu_torch")):
         fail(f"no nds_tpu_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
-    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.analysis import budget as B
+    from nds_tpu_torch.engine.session import Session, resolve_device
     from nds_tpu_torch.ops import _build
     from nds_tpu_torch.ops import gpu_kernels as GK
+
+    # the package makes the allocator's expandable segments hold (SF100
+    # leaves little room for fragmentation): before any other CUDA call
+    dev = resolve_device("cuda:0")
 
     # -- device ----------------------------------------------------------
     smi = subprocess.run(
@@ -2137,11 +2400,26 @@ def main(argv=None):
     except ImportError:
         has_pyarrow = False
     kind = torch.cuda.get_device_name(0)
+    probe = torch.empty(1 << 20, device=dev)
+    expandable = [seg.get("is_expandable")
+                  for seg in torch.cuda.memory_snapshot()]
+    del probe
     print(smi_line, flush=True)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi_line,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "pyarrow": has_pyarrow})
-    dev = torch.device("cuda", 0)
+          "cuda": torch.version.cuda, "pyarrow": has_pyarrow,
+          "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
+          "segments_expandable": expandable})
+    if not expandable or False in expandable:
+        fail(f"the allocator's segments are not expandable: {expandable}")
+    lines = B.budget_lines(dev)
+    emit({"phase": "budget_lines",
+          "total_memory": torch.cuda.get_device_properties(dev).total_memory,
+          "working_set_bytes": B.resolve_budget_bytes({}, dev),
+          "reject_bytes": B.resolve_reject_bytes({}, dev),
+          "catalog_bytes": B.resolve_catalog_bytes(dev),
+          "card_lines_gib": {k: v / 2**30 for k, v in
+                             vars(lines).items()}})
 
     # -- build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2226,7 +2504,12 @@ def main(argv=None):
     results = {}
     for q in QUERIES:
         res, cold_ms = cold[q]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         steady = [run(s_on, q)[1] for _ in range(5)]
+        budget = budget_record(
+            B, s_on, torch.cuda.max_memory_allocated(dev) - before)
         got_off, off_ms = run(s_off, q)
         if q == "q3":
             ref_off = q3_groups(got_off)
@@ -2241,7 +2524,7 @@ def main(argv=None):
                "off_ms": off_ms,
                "fact_rows_per_s": n_fact / (float(np.median(steady)) / 1e3),
                "launches": per_query[q], "max_rel_vs_off": worst,
-               "rtol": rtol}
+               "rtol": rtol, "budget": budget}
         if q == "q3":
             ref = q3_reference(star)
             rec["max_rel_vs_numpy"], rec["rtol_numpy"] = check_q3(
@@ -2268,17 +2551,24 @@ def main(argv=None):
     from nds_tpu_torch.engine import exec as TX
 
     del s_on, s_off
-    _, join_launches = joins_phase(torch, GK, TX, Session, star, tables, dev,
-                                   on, off, rows)
+    _, join_launches = joins_phase(torch, GK, TX, B, Session, star, tables,
+                                   dev, on, off, rows)
     for rec in kernels:
         rec["joins_launches"] = join_launches[rec["name"]]
 
     # -- windows -----------------------------------------------------------
     torch.cuda.empty_cache()
-    _, window_launches = windows_phase(torch, GK, TX, Session, star, tables,
-                                       dev, on, off, rows, args.scale)
+    _, window_launches = windows_phase(torch, GK, TX, B, Session, star,
+                                       tables, dev, on, off, rows,
+                                       args.scale)
     for rec in kernels:
         rec["windows_launches"] = window_launches[rec["name"]]
+
+    # -- spill -------------------------------------------------------------
+    torch.cuda.empty_cache()
+    spill_launches = spill_phase(torch, GK, TX, B, Session, tables, dev, on)
+    for rec in kernels:
+        rec["spill_launches"] = spill_launches[rec["name"]]
 
     # -- kernel_sweep ------------------------------------------------------
     del tables, star

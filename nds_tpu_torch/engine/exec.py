@@ -14,11 +14,13 @@ star-join, the packed-word join and the hash-candidate join for inner,
 left, right, full, semi, anti and mark joins, with residuals, and the
 cross join), DISTINCT, the set operations (UNION [ALL], INTERSECT, EXCEPT),
 aggregate (direct and sort-based, distinct aggregates included), ROLLUP /
-grouping sets with grouping(), blocked union aggregation, windows and
-scalar subqueries. What is left raises NotImplementedError naming the
-ROADMAP.md item that ports it (fused pipelines, spill), or is a path the
-JAX executor declines on one device (the mesh's exchange join); none
-returns a different answer.
+grouping sets with grouping(), blocked union aggregation, windows, scalar
+subqueries, and the out-of-core paths (the spilled join, sort and
+distinct, staged through the session's host-RAM spill pool). What is left
+raises NotImplementedError naming the ROADMAP.md item that ports it (fused
+pipelines), or is a path the JAX executor declines on one device (the
+mesh's exchange join and its spill fallback); none returns a different
+answer.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..ops import gpu_kernels as GK
 from ..ops import kernels as K
 from . import expr as E
 from . import plan as P
+from . import spill as SP
 from .columnar import (
     Column,
     Table,
@@ -236,6 +239,9 @@ class Executor:
         self._current_agg_nlive = None
         # stats of the most recent blocked union aggregation (tests/tools)
         self.last_blocked_union = None
+        # stats of this statement's out-of-core (spilled) operators: ops,
+        # partitions, pool bytes in / out, evictions
+        self.last_spill = None
 
     # ------------------------------------------------------------------
     def execute(self, node: P.PlanNode) -> Table:
@@ -315,6 +321,14 @@ class Executor:
             return child
         words = self._sort_order_words(node, child)
         order = self._sort_perm_route(words)
+        parts = self._spill_parts_for(node)
+        if parts > 1:
+            # external sort: the same permutation, but the output gather
+            # runs in bounded windows staged through the host spill pool
+            # (bit-identical to the direct path)
+            out = self._spilled_take(child, order, parts, op="sort")
+            if out is not None:
+                return out
         return self._take(child, order, child.nrows_lazy)
 
     def _sort_order_words(self, node: P.Sort, child: Table):
@@ -395,7 +409,9 @@ class Executor:
         child = self.execute(node.child)
         if child.nrows_known == 0:
             return child
-        return self._distinct_table(child)
+        return self._distinct_table(
+            child, spill_parts=self._spill_parts_for(node)
+        )
 
     # ------------------------------------------------------------------
     def _exec_setop(self, node: P.SetOp) -> Table:
@@ -404,7 +420,10 @@ class Executor:
         if node.op == "union_all":
             return self._concat(left, right)
         if node.op == "union":
-            return self._distinct_table(self._concat(left, right))
+            return self._distinct_table(
+                self._concat(left, right),
+                spill_parts=self._spill_parts_for(node),
+            )
         # intersect / except: set semantics over whole rows
         dl = self._distinct_table(left)
         lkeys, lvalids, rkeys, rvalids = [], [], [], []
@@ -447,13 +466,17 @@ class Executor:
         return self._join(
             left, right, node.kind, node.left_keys, node.right_keys,
             node.residual, node.mark_name,
+            spill_parts=self._spill_parts_for(node),
         )
 
     def _exec_multijoin(self, node: P.MultiJoin) -> Table:
         tables = self._execute_relations_batched(node.relations)
-        return self._multijoin_over_tables(tables, node.edges)
+        return self._multijoin_over_tables(
+            tables, node.edges, spill_parts=self._spill_parts_for(node)
+        )
 
-    def _multijoin_over_tables(self, tables, edges, trace=None) -> Table:
+    def _multijoin_over_tables(self, tables, edges, trace=None,
+                               spill_parts=0) -> Table:
         """Greedy N-way inner join over already-executed relation tables
         (shared by _exec_multijoin and blocked union aggregation, which
         joins each union window against the other relations). `trace`: an
@@ -473,7 +496,7 @@ class Executor:
 
         current = {i: tables[i] for i in range(n)}
         return self._multijoin_greedy(current, edges, merged, group, n,
-                                      trace)
+                                      trace, spill_parts)
 
     def _execute_relations_batched(self, relations):
         """Execute a MultiJoin's relations and bring every still-lazy live
@@ -489,7 +512,7 @@ class Executor:
         return tables
 
     def _multijoin_greedy(self, current, edges, merged, group, n,
-                          trace=None):
+                          trace=None, spill_parts=0):
         # greedy: repeatedly take the connecting edge whose joined inputs
         # are smallest (sum of live rows) and execute that join. When
         # `trace` carries recorded steps, replay them instead (replay never
@@ -543,7 +566,8 @@ class Executor:
                     rest.append((i, j, le, re_))
             edges = rest
             joined = self._join(
-                current[gi], current[gj], "inner", lkeys, rkeys, None
+                current[gi], current[gj], "inner", lkeys, rkeys, None,
+                spill_parts=spill_parts,
             )
             merged[gj] = gi
             current[gi] = joined
@@ -562,7 +586,7 @@ class Executor:
         return t
 
     def _join(self, left, right, kind, left_keys, right_keys, residual,
-              mark_name=None):
+              mark_name=None, spill_parts=0):
         if kind == "cross":
             return self._cross_join(left, right)
         left = self._pack_sparse(left)
@@ -570,7 +594,7 @@ class Executor:
         if kind == "right":
             # swap before any matching so the residual is preserved
             return self._join(right, left, "left", right_keys, left_keys,
-                              residual)
+                              residual, spill_parts=spill_parts)
         lev = self._evaluator(left)
         rev = self._evaluator(right)
         lcols = [lev.eval(e) for e in left_keys]
@@ -593,13 +617,23 @@ class Executor:
         if fast is not None:
             return fast
         # (the JAX executor's exchange join comes here: a mesh path, which
-        # declines off-mesh; ROADMAP.md queue 1 item 13)
+        # declines off-mesh, with its fallback through the spill pool;
+        # ROADMAP.md queue 1 item 13)
         fast = self._try_packed_join(
             left, right, kind, aligned, right_keys, llive, rlive, residual,
             mark_name,
         )
         if fast is not None:
             return fast
+        if spill_parts > 1 and kind in ("inner", "left"):
+            # out-of-core tier: the hash join's pair expansion and its
+            # full-width pair-table gathers are the additive device memory
+            # of a build side too big to fit; join hash partitions one pair
+            # at a time and stage each output in the host spill pool
+            return self._spilled_join(
+                left, right, kind, left_keys, right_keys, residual,
+                lk, lv, llive, rk, rv, rlive, spill_parts,
+            )
         li, ri, pl, total = K.join_candidates(lk, lv, llive, rk, rv, rlive)
         ok = K.verify_pairs(li, ri, pl, lk, lv, llive, rk, rv, rlive)
 
@@ -991,10 +1025,10 @@ class Executor:
         and align the union branches, execute the join's other relations
         once, size the window. None when the shape, the aggregates or the
         size rule the blocked path out (the caller takes the plain path).
-        The window comes from `engine.union_agg_window_rows` /
-        NDS_UNION_AGG_WINDOW_ROWS, else from the device budget as the JAX
-        session derives it; the plan budgeter's static window is not
-        ported (ROADMAP.md queue 1 item 10)."""
+        The window comes from Session.union_agg_window_rows:
+        `engine.union_agg_window_rows`, NDS_UNION_AGG_WINDOW_ROWS, the plan
+        budgeter's static `budget_window_rows`, else the catalog's device
+        budget."""
         shape = P.union_agg_shape(node)
         if shape is None:
             return None
@@ -1015,7 +1049,9 @@ class Executor:
                 for c in branches[0].columns.values()),
             1,
         )
-        wrows = session.union_agg_window_rows(row_bytes)
+        wrows = session.union_agg_window_rows(
+            row_bytes, getattr(node, "budget_window_rows", None)
+        )
         if total_rows <= wrows:
             # one window: the plain path is the same. The branch tables
             # just executed are cached by id, so the SetOp reuses them
@@ -1922,8 +1958,12 @@ class Executor:
             )
         return Table(cols, nrows)
 
-    def _distinct_table(self, t: Table) -> Table:
+    def _distinct_table(self, t: Table, spill_parts=0) -> Table:
         t = self._pack_sparse(t)
+        if spill_parts > 1 and t.columns:
+            out = self._spilled_distinct(t, spill_parts)
+            if out is not None:
+                return out
         live = t.row_mask(self.device)
         words = self._group_words(list(t.columns.values()), live)
         order, gid, ng = K.group_by_words(words, live, t.nrows)
@@ -1931,6 +1971,177 @@ class Executor:
         first = K.segment_starts(gid, gcap)
         rows = order[first.clamp(0, t.cap - 1)]
         out = self._take(t, rows, ng)
+        out.unique_key = frozenset(out.columns)
+        return out
+
+    def _compact(self, table: Table, mask) -> Table:
+        count = K.mask_count(mask)
+        idx = K.compact_indices(mask, bucket_cap(max(count, 1)))
+        return self._take(table, idx, count)
+
+    # -- out-of-core (spilled) execution --------------------------------
+    # When a plan's peak materialization cannot fit the card, the three
+    # shapes whose memory adds up (a hash join whose build side is too big,
+    # a full-table sort, a whole-input distinct) run partitioned or
+    # windowed, with their intermediates staged in the session's host-RAM
+    # spill pool (engine/spill.py; disk-backed past its budget).
+    # `engine.spill` = off | auto | force: `auto` (the default) spills the
+    # nodes the plan budgeter annotated with `spill_partitions` (verdict
+    # `spill`); `force` spills every eligible node. The results are the
+    # direct paths': the external sort reuses the direct permutation, and
+    # hash partitioning is value-exact for joins and distinct (whose row
+    # order SQL leaves open: partition-major here, as in the JAX engine).
+    # Partition ids are hash_columns' int64 hash modulo the partition
+    # count, floor-wise as jnp's `%` takes it on the JAX engine's int64
+    # hash, so both engines put every row in the same partition for every
+    # partition count.
+
+    def _spill_parts_for(self, node) -> int:
+        """Partition/run count for out-of-core execution of `node`, or 0
+        for the direct path."""
+        session = getattr(self.catalog, "session", None)
+        if session is None:
+            return 0
+        mode = str(session.conf.get("engine.spill", "auto")).lower()
+        if mode == "off":
+            return 0
+        if mode == "force":
+            try:
+                p = int(session.conf.get("engine.spill_partitions", 0) or 0)
+            except (TypeError, ValueError):
+                p = 0
+            return p if p > 1 else SP.DEFAULT_FORCE_PARTITIONS
+        try:
+            return int(getattr(node, "spill_partitions", 0) or 0)
+        except (TypeError, ValueError):
+            return 0
+
+    def _spill_finish(self, parts, pool, before, segments) -> Table:
+        """Assemble a spilled operator's segments into one table on the
+        session's device, record the statement's spill evidence (the
+        executor's and the session's `last_spill`) and release the
+        segments. (The JAX engine's `spill` trace event is ROADMAP.md
+        queue 1 item 12.)"""
+        try:
+            out = SP.assemble_segments(pool, segments, self.device)
+        finally:
+            pool.release(segments)
+        note = self.last_spill or {
+            "ops": 0, "partitions": 0, "bytes_in": 0, "bytes_out": 0,
+            "evictions": 0,
+        }
+        note["ops"] += 1
+        note["partitions"] = max(note["partitions"], parts)
+        for k in ("bytes_in", "bytes_out", "evictions"):
+            note[k] += pool.stats[k] - before.get(k, 0)
+        self.last_spill = self.catalog.session.last_spill = note
+        return out
+
+    def _spilled_join(self, left, right, kind, left_keys, right_keys,
+                      residual, lk, lv, llive, rk, rv, rlive, parts) -> Table:
+        """Partitioned (Grace) hash join through the spill pool: both sides
+        hash-partition on the join key, each partition pair joins with the
+        regular paths (keys and residual evaluated again over the compacted
+        partitions), and each partition's output goes to the host pool, so
+        only one partition's pair table is live on the device. Exact: equal
+        keys share a partition, so the partitions' results together are the
+        direct join's (null-keyed left rows land in some partition, never
+        match, and are null-extended under LEFT as the direct path does)."""
+        session = self.catalog.session
+        pool = session.spill_pool
+        before = dict(pool.stats)
+        lp = K.hash_columns(lk, lv) % parts
+        rp = K.hash_columns(rk, rv) % parts
+        segments = []
+        try:
+            for p in range(parts):
+                lpart = self._compact(left, (lp == p) & llive)
+                if lpart.nrows == 0 and segments:
+                    continue  # empty probe side: an empty partition
+                rpart = self._compact(right, (rp == p) & rlive)
+                if kind == "inner" and rpart.nrows == 0 and segments:
+                    continue  # (LEFT must still null-extend its rows)
+                out = self._join(
+                    lpart, rpart, kind, left_keys, right_keys, residual
+                )
+                segments.append(pool.put(out))
+                session.spill_progress()
+            return self._spill_finish(parts, pool, before, segments)
+        except BaseException:
+            pool.release(segments)
+            raise
+
+    def _spilled_take(self, child: Table, order, parts, op="sort"):
+        """External sort tail: gather the sorted output in bounded windows
+        of the direct path's own permutation, staging each sorted run in
+        the host pool, then upload the assembled result once per column:
+        the device transient is O(window x width) instead of every
+        column's full-capacity gather at once. None when the input is too
+        small to window (the caller takes the direct gather). Bit-identical
+        to the direct path: the same `order`, the same row order."""
+        wcap = bucket_cap(max(child.cap // parts, 1))
+        if wcap >= child.cap:
+            return None
+        session = self.catalog.session
+        pool = session.spill_pool
+        before = dict(pool.stats)
+        nrows = child.nrows
+        segments = []
+        try:
+            # the capacity is a multiple of the window (powers of two), so
+            # every window is a full slice of the permutation
+            for start in range(0, child.cap, wcap):
+                n_w = min(max(nrows - start, 0), wcap)
+                if n_w <= 0 and segments:
+                    break
+                idx = order[start:start + wcap].long()
+                cols = {
+                    name: Column(
+                        c.data[idx], c.dtype,
+                        None if c.valid is None else c.valid[idx],
+                        c.dictionary,
+                    )
+                    for name, c in child.columns.items()
+                }
+                segments.append(pool.put(Table(cols, n_w)))
+                session.spill_progress()
+            return self._spill_finish(parts, pool, before, segments)
+        except BaseException:
+            pool.release(segments)
+            raise
+
+    def _spilled_distinct(self, t: Table, parts):
+        """Spilling distinct: partition-hash dedup. Rows hash-partition
+        over all columns (validity folded in, so NULLs, which distinct
+        treats as equal, share a partition), each partition dedups with the
+        direct path, and the partitions' results stage in the host pool.
+        Exact as a row set: equal rows share a partition and partitions are
+        disjoint. None for an empty input (the direct path takes it)."""
+        t = t.compacted()
+        if t.nrows == 0:
+            return None
+        session = self.catalog.session
+        pool = session.spill_pool
+        before = dict(pool.stats)
+        live = t.row_mask(self.device)
+        h = K.hash_columns(
+            [c.data for c in t.columns.values()],
+            [c.valid for c in t.columns.values()],
+        ) % parts
+        segments = []
+        try:
+            for p in range(parts):
+                part = self._compact(t, (h == p) & live)
+                if part.nrows == 0:
+                    if not segments:
+                        segments.append(pool.put(part))  # schema carrier
+                    continue
+                segments.append(pool.put(self._distinct_table(part)))
+                session.spill_progress()
+            out = self._spill_finish(parts, pool, before, segments)
+        except BaseException:
+            pool.release(segments)
+            raise
         out.unique_key = frozenset(out.columns)
         return out
 

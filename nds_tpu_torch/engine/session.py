@@ -10,22 +10,34 @@ It runs on the card unless the caller asks for the CPU: `device=None`
 resolves to `cuda` and raises when no GPU is present; nothing moves to the
 CPU on its own. The conf keys keep the JAX package's names, defaults and
 meanings (`engine.pallas_agg`, `engine.pallas_join`, `engine.pallas_sort`:
-off | on | auto, default off). Conf keys and environment knobs of layers not
-ported yet (tracing, plan verification, fault injection, forced spill)
-raise NotImplementedError rather than being ignored.
+off | on | auto, default off). Every statement goes through the static plan
+budgeter (analysis/budget.py) on the device's own budget lines, and the
+executor's out-of-core paths stage through the session's host-RAM spill
+pool (engine/spill.py; `engine.spill` = off | auto | force). Conf keys and
+environment knobs of layers not ported yet (tracing, plan verification,
+fault injection, cardinality feedback) raise NotImplementedError rather
+than being ignored.
+
+A CUDA session needs the caching allocator's expandable segments (the
+SF100 working sets leave little room for fragmentation): the first one
+sets PYTORCH_CUDA_ALLOC_CONF before torch's first CUDA allocation, and a
+session refuses to start on a CUDA runtime already initialised without it.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+from time import monotonic as _monotonic
 from typing import Optional
 
 import torch
 
+from ..analysis import budget as B
 from ..schema import Field, Schema, TABLE_PRIMARY_KEYS
 from . import expr as E
 from . import plan as P
+from . import spill as SP
 from .binder import Binder
 from .columnar import Table, _infer_dtype, table_from_arrow, table_to_arrow
 from .exec import Executor
@@ -42,15 +54,49 @@ _UNPORTED_KNOBS = (
 )
 
 
+_ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
+
+
+def ensure_expandable_segments():
+    """Make `expandable_segments:True` hold for torch's CUDA caching
+    allocator: set it in PYTORCH_CUDA_ALLOC_CONF while CUDA is not yet
+    initialised (the allocator reads it at initialisation), and raise when
+    CUDA already runs without it, or when the variable asks against it.
+    The port's SF100 queries peak within about 10 GiB of an 80 GB card
+    (PERF.md), where segments that grow in place keep fragmentation from
+    failing an allocation."""
+    conf = os.environ.get(_ALLOC_CONF, "")
+    opts = dict(
+        kv.split(":", 1) for kv in conf.split(",") if kv.count(":") == 1
+    )
+    if opts.get("expandable_segments") == "True":
+        return
+    if "expandable_segments" in opts or torch.cuda.is_initialized():
+        raise RuntimeError(
+            f"nds_tpu_torch needs {_ALLOC_CONF} to hold "
+            f"expandable_segments:True before CUDA starts; it is {conf!r}"
+            f" and CUDA is {'' if torch.cuda.is_initialized() else 'not '}"
+            f"initialised: create the first CUDA Session, or call "
+            f"resolve_device(), before any other CUDA work"
+        )
+    os.environ[_ALLOC_CONF] = ",".join(
+        ([conf] if conf else []) + ["expandable_segments:True"]
+    )
+
+
 def resolve_device(device=None) -> torch.device:
     """`device` as given, or `cuda` when None. Raises when CUDA is asked
-    for (explicitly or by default) and no GPU is present."""
+    for (explicitly or by default) and no GPU is present. For CUDA it makes
+    the allocator's expandable segments hold (ensure_expandable_segments)."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "nds_tpu_torch runs on a CUDA GPU and none is available; pass "
-            "device='cpu' to run the engine's plain PyTorch path on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "nds_tpu_torch runs on a CUDA GPU and none is available; "
+                "pass device='cpu' to run the engine's plain PyTorch path "
+                "on the CPU"
+            )
+        ensure_expandable_segments()
     return dev
 
 
@@ -68,6 +114,10 @@ class Catalog:
     def __init__(self, session):
         self.session = session
         self.entries = {}  # name -> _Entry
+        # the catalog's device residency budget, which the blocked union
+        # windows are sized against (NDS_CATALOG_BUDGET_BYTES, else the
+        # device's line: analysis/budget.py budget_lines)
+        self.DEVICE_BUDGET_BYTES = B.resolve_catalog_bytes(session.device)
 
     def schema(self, name):
         e = self.entries.get(name)
@@ -158,10 +208,14 @@ class Session:
                     f"{key} / {env} is not ported to nds_tpu_torch yet: "
                     f"ROADMAP.md {item}"
                 )
-        if str(self.conf.get("engine.spill", "auto")).lower() == "force":
+        fb = self.conf.get("engine.plan_feedback") or os.environ.get(
+            "NDS_PLAN_FEEDBACK")
+        if fb and str(fb).lower() == "on":
+            # `record` and `off` are accepted: nothing is recorded yet
             raise NotImplementedError(
-                "engine.spill=force is not ported to nds_tpu_torch yet: "
-                "ROADMAP.md queue 1 item 10 (spill)"
+                "engine.plan_feedback=on / NDS_PLAN_FEEDBACK is not ported "
+                "to nds_tpu_torch yet: ROADMAP.md queue 1 item 14 "
+                "(cardinality feedback)"
             )
         self.device = resolve_device(device)
         self.catalog = Catalog(self)
@@ -172,21 +226,57 @@ class Session:
         # stats of the most recent blocked union aggregation (windows,
         # window rows and cap, total rows, largest table cap), or None
         self.last_blocked_union = None
+        # the plan budgeter's record of the most recent statement
+        # (analysis/budget.py budget_plan: the JAX session's keys)
+        self.last_plan_budget = None
+        # stats of the most recent statement that took an out-of-core
+        # path (ops, partitions, pool bytes in / out, evictions), or None
+        self.last_spill = None
+        # the host-RAM spill pool, built on first use; session start sweeps
+        # the segment files a crashed process left in the spill dir (once
+        # per process and directory)
+        self._spill_pool = None
+        SP.sweep_at_session_start(SP.resolve_spill_dir(self.conf))
+        # (thread id, monotonic seconds) of the last out-of-core partition
+        # or run: a watchdog tells a slow spill from a hang by it
+        self._progress_ts = None
 
-    def union_agg_window_rows(self, row_bytes: int) -> int:
-        """Rows per window of blocked union aggregation, as the JAX session
-        derives them: `engine.union_agg_window_rows`, then the
-        NDS_UNION_AGG_WINDOW_ROWS knob, else 1/16 of the catalog's device
-        budget (NDS_CATALOG_BUDGET_BYTES, 6 GiB) in `row_bytes`-wide rows,
-        rounded down to a power of two and clamped to [2^16, 2^24]."""
+    @property
+    def spill_pool(self) -> SP.SpillPool:
+        """The session's host-RAM spill pool, built on first use. Knobs:
+        `engine.spill_pool_bytes` / NDS_SPILL_POOL_BYTES (the host budget
+        before segments tier to disk), `engine.spill_dir` / NDS_SPILL_DIR
+        (the disk tier; "" disables it)."""
+        if self._spill_pool is None:
+            with self.cache_lock:
+                if self._spill_pool is None:
+                    self._spill_pool = SP.SpillPool(
+                        budget_bytes=SP.resolve_pool_bytes(self.conf),
+                        spill_dir=SP.resolve_spill_dir(self.conf),
+                    )
+        return self._spill_pool
+
+    def spill_progress(self):
+        """Stamp out-of-core progress (the executor's spill paths call it
+        per partition or run), with the calling thread's identity."""
+        self._progress_ts = (threading.get_ident(), _monotonic())
+
+    def union_agg_window_rows(self, row_bytes: int,
+                              static_rows: Optional[int] = None) -> int:
+        """Rows per window of blocked union aggregation, resolved as the
+        JAX session does: `engine.union_agg_window_rows`, then the
+        NDS_UNION_AGG_WINDOW_ROWS knob, then `static_rows` (the plan
+        budgeter's `budget_window_rows` annotation), else
+        budget.default_window_rows against the catalog's device budget."""
         v = self.conf.get("engine.union_agg_window_rows") or os.environ.get(
             "NDS_UNION_AGG_WINDOW_ROWS"
         )
         if v:
             return max(int(v), 1)
-        budget = int(os.environ.get("NDS_CATALOG_BUDGET_BYTES", 6 << 30))
-        rows = max(budget // 16 // max(row_bytes, 1), 1)
-        return int(min(max(1 << (rows.bit_length() - 1), 1 << 16), 1 << 24))
+        if static_rows:
+            return max(int(static_rows), 1)
+        return B.default_window_rows(row_bytes,
+                                     self.catalog.DEVICE_BUDGET_BYTES)
 
     # ---- registration ----------------------------------------------------
     def register_arrow(self, name, arrow, schema=None):
@@ -218,6 +308,7 @@ class Session:
             binder = Binder(self.catalog)
             plan = prune_columns(binder.bind(stmt), self.catalog)
             P.mark_blocked_union_aggs(plan)
+            B.budget_plan(plan, self)
             return Result(self, plan)
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported to nds_tpu_torch yet: "

@@ -8,6 +8,9 @@ ColStats EXACTLY.
 
 import decimal
 
+import os
+import sys
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -16,6 +19,9 @@ import torch
 from nds_tpu.engine import columnar as JC
 from nds_tpu.engine.session import Session as JaxSession
 from nds_tpu_torch.engine import columnar as TC
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_join_cases import strict_budget  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

@@ -10,6 +10,8 @@ exact in any accumulation order; counts, extremes, dense tables, ranks,
 histograms and permutations are integers or exact selections.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,12 @@ def _seg_inputs(n, g, seed, lo=0, hi=1000):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
+    from nds_tpu_torch.engine.session import resolve_device
+
+    # the package's entry point, before the first CUDA allocation: it
+    # makes the allocator's expandable segments hold, as a CUDA Session
+    # requires
+    return resolve_device("cuda")
 
 
 @pytest.mark.gpu
@@ -531,3 +538,92 @@ def test_chip_window_query_on_card_matches_cpu(cuda, q):
         lambda r: (r["lochierarchy"],
                    r["i_category"] if r["lochierarchy"] == 0 else None),
         rtol_of, "q36 card vs cpu")
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core execution on the card (tests/torch_spill_cases.py): the host
+# spill pool's round trip of CUDA tables through RAM and disk, and each
+# spilled path through Session(device="cuda") against the same port session
+# on the CPU. Tolerance as in torch_join_cases.
+# ---------------------------------------------------------------------------
+
+
+def _spill_cases():
+    _join_cases()  # puts tests/ on the path
+    import torch_spill_cases
+
+    return torch_spill_cases
+
+
+@pytest.fixture(autouse=True)
+def _strict_budget(monkeypatch):
+    monkeypatch.setenv("NDS_PLAN_BUDGET_STRICT", "1")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [1 << 30, 1])
+def test_spill_pool_round_trip_of_cuda_tables(cuda, tmp_path, budget):
+    """CUDA tables through the pool's RAM tier (a 1 GiB budget) and its disk
+    tier (a 1-byte budget evicts all but the newest segment): the assembled
+    table lies on the card and holds the live rows, validity and
+    dictionaries exactly."""
+    import pyarrow as pa
+
+    from nds_tpu_torch.dtypes import FLOAT64, INT64, parse_dtype
+    from nds_tpu_torch.engine import spill as SP
+    from nds_tpu_torch.engine.columnar import Column, Table, column_from_arrow
+
+    rng = np.random.default_rng(7)
+    pool = SP.SpillPool(budget_bytes=budget, spill_dir=str(tmp_path))
+    segs, want = [], []
+    for n in (3000, 1, 4096):
+        ints = rng.integers(-2**40, 2**40, 4096)
+        vals = rng.random(4096)
+        valid = rng.random(4096) < 0.8
+        words = pa.array(rng.choice(["a", "bb", None], 4096).tolist())
+        strings = column_from_arrow(words.dictionary_encode(),
+                                    parse_dtype("string"), 4096, cuda)
+        t = Table({
+            "i": Column(torch.from_numpy(ints).to(cuda), INT64,
+                        torch.from_numpy(valid).to(cuda)),
+            "f": Column(torch.from_numpy(vals).to(cuda), FLOAT64),
+            "s": strings,
+        }, n)
+        segs.append(pool.put(t))
+        want.append((ints[:n], valid[:n], vals[:n],
+                     words.to_pylist()[:n]))
+    if budget == 1:
+        assert pool.stats["evictions"] == 2
+        assert pool.stats["disk_bytes_written"] > 0
+    out = SP.assemble_segments(pool, segs, cuda)
+    total = sum(len(w[0]) for w in want)
+    assert out.nrows == total
+    cols = out.columns
+    assert all(c.data.device.type == cuda.type for c in cols.values())
+    i = cols["i"].data[:total].cpu().numpy()
+    v = cols["i"].valid[:total].cpu().numpy()
+    np.testing.assert_array_equal(i, np.concatenate([w[0] for w in want]))
+    np.testing.assert_array_equal(v, np.concatenate([w[1] for w in want]))
+    np.testing.assert_array_equal(cols["f"].data[:total].cpu().numpy(),
+                                  np.concatenate([w[2] for w in want]))
+    s = cols["s"]
+    got = [None if not ok else s.dictionary[int(c)].as_py() for c, ok in
+           zip(s.data[:total].tolist(), s.valid[:total].tolist())]
+    assert got == [x for w in want for x in w[3]]
+    pool.release(segs)
+    pool.close()
+    assert not [p for p in os.listdir(tmp_path) if p.endswith(".npz")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parts", [3, 8])
+@pytest.mark.parametrize("case", sorted(_spill_cases().CASES))
+def test_spilled_path_on_card_matches_cpu(cuda, tmp_path, case, parts):
+    S = _spill_cases()
+    sql, op = S.CASES[case]
+    events = _same_on_card_and_cpu(
+        cuda, S.tables(), sql, "on", ordered="order by" in sql,
+        conf={"engine.spill": "force", "engine.spill_partitions": parts,
+              "engine.spill_dir": str(tmp_path)})
+    if op is not None:
+        assert f"spilled {op}, {parts} partitions" in events, events

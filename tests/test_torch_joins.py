@@ -31,6 +31,7 @@ from nds_tpu.engine import exec as JX
 from nds_tpu_torch.engine import exec as TX
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_join_cases import strict_budget  # noqa: E402,F401
 from torch_join_cases import (  # noqa: E402
     CASES, CS, EDGE_CASES, EPS, arrow_table, assert_same, structural, tables,
 )

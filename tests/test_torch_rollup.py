@@ -32,7 +32,7 @@ import torch
 from nds_tpu_torch.engine.columnar import bucket_cap
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_join_cases import CS, assert_same  # noqa: E402
+from torch_join_cases import CS, assert_same, strict_budget  # noqa: E402,F401
 from torch_parity import run_both, session_pair, sessions  # noqa: E402
 from torch_window_cases import (  # noqa: E402
     BLOCKED_CASES, ONE_WINDOW_SQL, ROLLUP_CASES, SMALL_WINDOW,

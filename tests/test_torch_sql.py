@@ -15,6 +15,7 @@ tests/test_torch_joins.py.
 
 import ast
 import os
+import sys
 
 import numpy as np
 import pyarrow as pa
@@ -24,6 +25,9 @@ import torch
 from nds_tpu.engine.session import Session as JaxSession
 from nds_tpu_torch.engine import session as TS
 from nds_tpu_torch.engine.session import Session as TorchSession
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_join_cases import strict_budget  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -251,7 +255,10 @@ UNPORTED = {
     "create_view": ("create view v as select ss_store_sk from store_sales",
                     {}),
     "insert": ("insert into store_sales select * from store_sales", {}),
-    "spill_force": (None, {"engine.spill": "force"}),
+    # forced spill is ported; the spill fault-injection points are not
+    "spill_force": (None, {"engine.spill": "force",
+                           "engine.fault_spec": "io:spill:write:1"}),
+    "plan_feedback_on": (None, {"engine.plan_feedback": "on"}),
     "trace_dir": (None, {"engine.trace_dir": "traces"}),
 }
 
@@ -406,8 +413,40 @@ def test_session_defaults_to_cuda_and_never_falls_back(monkeypatch):
 def test_unported_conf_knobs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TorchSession(conf={"engine.verify_plans": "all"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchSession(conf={"engine.spill": "force"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TorchSession(conf={"engine.plan_feedback": "on"}, device="cpu")
+    # ported (forced spill), or accepted with nothing recorded (feedback)
+    for conf in ({"engine.spill": "force"}, {"engine.plan_feedback": "record"},
+                 {"engine.plan_feedback": "off"}):
+        assert TorchSession(conf=conf, device="cpu").conf == conf
+
+
+def test_cuda_session_makes_expandable_segments_hold(monkeypatch):
+    """A CUDA session sets PYTORCH_CUDA_ALLOC_CONF's expandable_segments
+    before CUDA starts, keeps the other settings, and refuses to start
+    when CUDA already runs without it or the variable asks against it."""
+    var = "PYTORCH_CUDA_ALLOC_CONF"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.delenv(var, raising=False)
+    assert TS.resolve_device(None).type == "cuda"
+    assert os.environ[var] == "expandable_segments:True"
+    monkeypatch.setenv(var, "max_split_size_mb:512")
+    TS.resolve_device("cuda")
+    assert os.environ[var] == (
+        "max_split_size_mb:512,expandable_segments:True")
+    TS.resolve_device("cuda")  # already holds: unchanged
+    assert os.environ[var].count("expandable_segments") == 1
+    monkeypatch.setenv(var, "expandable_segments:False")
+    with pytest.raises(RuntimeError, match="expandable_segments"):
+        TS.resolve_device("cuda")
+    monkeypatch.delenv(var)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    with pytest.raises(RuntimeError, match="CUDA is initialised"):
+        TS.resolve_device("cuda")
+    monkeypatch.setenv(var, "expandable_segments:True")
+    assert TS.resolve_device("cuda").type == "cuda"
+    assert TS.resolve_device("cpu").type == "cpu"
 
 
 def _imports(path):
@@ -425,6 +464,10 @@ def test_port_imports_neither_jax_nor_nds_tpu():
     for d, _, names in os.walk(os.path.join(ROOT, "nds_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {"nds_tpu_torch/analysis/budget.py",
+            "nds_tpu_torch/analysis/verifier.py",
+            "nds_tpu_torch/engine/spill.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch

@@ -33,7 +33,7 @@ from nds_tpu_torch.engine.sql.parser import parse_script as torch_parse
 from nds_tpu_torch.schema import get_schemas as torch_schemas
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_join_cases import CS, assert_same  # noqa: E402
+from torch_join_cases import CS, assert_same, strict_budget  # noqa: E402,F401
 from torch_parity import session_pair  # noqa: E402
 from torch_window_cases import structural  # noqa: E402
 

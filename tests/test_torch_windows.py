@@ -32,7 +32,9 @@ from nds_tpu.engine.exec import ExecError as JaxExecError
 from nds_tpu_torch.engine.exec import ExecError as TorchExecError
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_join_cases import CS, EPS, arrow_table, assert_same  # noqa: E402
+from torch_join_cases import (  # noqa: E402,F401
+    CS, EPS, arrow_table, assert_same, strict_budget,
+)
 from torch_parity import run_both, sessions  # noqa: E402
 from torch_window_cases import (  # noqa: E402
     WINDOW_CASES, WINDOW_ERROR_SQL, missing_kinds, structural,

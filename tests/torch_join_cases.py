@@ -16,11 +16,19 @@ import sys
 
 import numpy as np
 import pyarrow as pa
+import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as CS  # noqa: E402,F401
 
 EPS = 1e-5  # nds_tpu/validate.py compare's relative epsilon
+
+
+@pytest.fixture(autouse=True)
+def strict_budget(monkeypatch):
+    """A plan-budgeter fault fails the statement instead of being recorded
+    as `verdict="error"` (import this fixture into a test module)."""
+    monkeypatch.setenv("NDS_PLAN_BUDGET_STRICT", "1")
 #: a key domain past the dense join's reach (domain > 2^14 and > 8 x rows):
 #: single-key joins on f_key take the packed or the hash path
 KEY_SPAN = 9_000_000
