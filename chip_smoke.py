@@ -11,7 +11,11 @@ set, so a budgeter fault fails the run), and every query line carries its
 `budget` record: the verdict, the modeled peak, the window and partition
 count it annotated, the measured working set (the peak of the steady runs
 less what was allocated before them) and their ratio against the
-reference's CALIBRATION_SLACK. Phases, each printing one JSON line:
+reference's CALIBRATION_SLACK, and the allocator's gap at that peak. A
+statement the budgeter refuses at the default lines (PlanBudgetError on
+a `reject` verdict, as in the reference) is shown to be refused, and then
+runs under REFUSED_MODE so that its checks still hold; its line says so.
+Phases, each printing one JSON line:
 
   device   the card (plus the nvidia-smi name/power-limit line), whether
            pyarrow imports, and the caching allocator's setting and its
@@ -58,14 +62,20 @@ reference's CALIBRATION_SLACK. Phases, each printing one JSON line:
            forced through the spill pool at 8 and at 3 partitions, the
            ORDER BY's sorted runs at 8, the same with the pool capped so
            that segments tier to a temporary directory, q87's DISTINCTs at
-           8, and q3 in `auto` mode under a working-set line below its
-           modeled peak) against the same queries with engine.spill=off;
+           8, and the ORDER BY, direct at the card's lines, in `auto` mode
+           under a working-set line below its modeled peak) against the
+           same queries with engine.spill=off;
            launch counts zeroed just before the cold runs and read just
            after; each case must take its SPILL_BRANCHES and equal the
            direct run (the ORDER BY bit for bit); one line per case (steady
            and direct ms, peaks and working sets, the pool's bytes in / out,
            evictions and disk bytes, partitions, launches) and a `spill`
            summary line
+  budget_refusals  the statements the default lines refused, with their
+           modeled peaks against the reject line
+  device_memory  what the CUDA runtime holds outside the caching
+           allocator and each query's allocator gap: the readings
+           budget.budget_lines' headrooms come from
   kernel_sweep  the kernels redesigned for Hopper against their plain
            versions at shapes beyond the main path's: segment_extreme's
            global-atomic path, sorted ids and one group; 2^21-row builds
@@ -86,6 +96,7 @@ Usage: python3 chip_smoke.py [--seed N] [--scale F]   (F < 1 cuts row counts)
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -1572,10 +1583,13 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         for name, t in tables.items():
             s.register_table(name, t)
 
+    refused = {q: refusal(B, s_on, JOIN_QUERIES[q]) for q in JOIN_QUERIES}
+
     def run(session, q):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = session.sql(JOIN_QUERIES[q]).collect()
+        with admitted(session, refused[q]):
+            res = session.sql(JOIN_QUERIES[q]).collect()
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t) * 1e3
 
@@ -1608,6 +1622,7 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         prev = dict(GK.LAUNCHES)
     launches = dict(GK.LAUNCHES)
     peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
+    reserved_all = torch.cuda.max_memory_reserved(dev) / 2**30
     for name in JOIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the joins path")
@@ -1622,11 +1637,14 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     for q in JOIN_QUERIES:
         res, cold_ms = cold[q]
         torch.cuda.synchronize()
+        # the allocator gap of budget_record is read from an emptied cache
+        torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         steady = [run(s_on, q)[1] for _ in range(5)]
         peaks[q] = torch.cuda.max_memory_allocated(dev) / 2**30
-        budget = budget_record(B, s_on, peaks[q] * 2**30 - before)
+        budget = budget_record(B, s_on, peaks[q] * 2**30 - before, dev,
+                               refused[q])
         got_off, off_cold_ms = run(s_off, q)
         off_ms = run(s_off, q)[1]
         prof = profile_query(torch, lambda q=q: run(s_on, q), q)
@@ -1638,7 +1656,8 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
                "device_busy_share": prof["device_busy_share"],
                "device_ms": prof["device_ms"],
                "device_launches": prof["device_launches"],
-               "top": prof["top"][:5], "budget": budget}
+               "top": prof["top"][:5], "budget": budget,
+               "refusal": refused[q]}
         fact = sum(rows[t] for t in JOIN_FACTS[q])
         rec["fact_rows"] = fact
         rec["fact_rows_per_s"] = fact / (rec["steady_ms"] / 1e3)
@@ -1688,7 +1707,7 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         out[q] = rec
         emit(rec)
     emit({"phase": "joins", "launches": launches, "pk_check_ms": pk_ms,
-          "peak_gib": peak_all,
+          "peak_gib": peak_all, "reserved_peak_gib": reserved_all,
           "resident_gib": torch.cuda.memory_allocated(dev) / 2**30,
           "seconds": time.perf_counter() - t_phase})
     return out, launches
@@ -1894,10 +1913,14 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         for name, t in wtables.items():
             s.register_table(name, t)
 
+    refused = {q: refusal(B, s_on, WINDOW_QUERIES[q])
+               for q in WINDOW_QUERIES}
+
     def run(session, q):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = session.sql(WINDOW_QUERIES[q]).collect()
+        with admitted(session, refused[q]):
+            res = session.sql(WINDOW_QUERIES[q]).collect()
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t) * 1e3
 
@@ -1918,6 +1941,7 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         prev = dict(GK.LAUNCHES)
     launches = dict(GK.LAUNCHES)
     peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
+    reserved_all = torch.cuda.max_memory_reserved(dev) / 2**30
     for q, wanted in WINDOW_BRANCHES.items():
         missing = missing_branches(events[q], wanted)
         if missing:
@@ -1936,11 +1960,14 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     for q in WINDOW_QUERIES:
         res, cold_ms = cold[q]
         torch.cuda.synchronize()
+        # the allocator gap of budget_record is read from an emptied cache
+        torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         steady = [run(s_on, q)[1] for _ in range(WINDOW_STEADY_RUNS)]
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        budget = budget_record(B, s_on, peak * 2**30 - before)
+        budget = budget_record(B, s_on, peak * 2**30 - before, dev,
+                               refused[q])
         got_off, off_cold_ms = run(s_off, q)
         off_ms = run(s_off, q)[1]
         # torch's scatter kernel: segment_starts' amin scatter (queue 2
@@ -1956,7 +1983,8 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
                "device_ms": prof["device_ms"],
                "device_launches": prof["device_launches"],
                "scatter_ms": prof["match_ms"],
-               "top": prof["top"][:5], "budget": budget}
+               "top": prof["top"][:5], "budget": budget,
+               "refusal": refused[q]}
         fact = sum(rows[t] for t in WINDOW_FACTS[q])
         rec["fact_rows"] = fact
         rec["fact_rows_per_s"] = fact / (rec["steady_ms"] / 1e3)
@@ -1997,6 +2025,7 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         emit(rec)
     del s_on, s_off, wtables
     emit({"phase": "windows", "launches": launches, "peak_gib": peak_all,
+          "reserved_peak_gib": reserved_all,
           "resident_gib": resident, "numpy_reference_s": ref_s,
           "steady_runs": WINDOW_STEADY_RUNS,
           "seconds": time.perf_counter() - t_phase})
@@ -2131,29 +2160,87 @@ def check_q5(res, got_off, ref, windows):
     return out
 
 
-def budget_record(B, session, working_set):
+#: the mode under which a phase runs a statement that the plan budgeter
+#: refuses at the card's default lines (PlanBudgetError on a `reject`
+#: verdict): the reference's observe-only mode, which records the verdict
+#: and neither annotates nor refuses. The refusal is checked first and
+#: printed (`refused` in the query's `budget` record and the
+#: `budget_refusals` line), and the phase's checks of the statement's
+#: result then run as before.
+REFUSED_MODE = "warn"
+
+
+def refusal(B, session, sql):
+    """Plan `sql` at the session's lines: None when the budgeter admits
+    it, else the refusal (its modeled peak against the reject line)."""
+    try:
+        session.sql(sql)
+    except B.PlanBudgetError as exc:
+        rec = session.last_plan_budget
+        if rec is None or rec.get("verdict") != "reject":
+            fail(f"PlanBudgetError without a reject verdict: {rec}")
+        return {"modeled_peak_gib": rec["peak_bytes"] / 2**30,
+                "reject_gib": B.resolve_reject_bytes(
+                    session.conf, session.device) / 2**30,
+                "error": str(exc)}
+    return None
+
+
+@contextlib.contextmanager
+def admitted(session, refused):
+    """Run a statement under REFUSED_MODE where the budgeter `refused` it
+    at the session's own mode; else as the session is."""
+    if not refused:
+        yield
+        return
+    old = session.conf.get("engine.plan_budget")
+    session.conf["engine.plan_budget"] = REFUSED_MODE
+    try:
+        yield
+    finally:
+        if old is None:
+            session.conf.pop("engine.plan_budget")
+        else:
+            session.conf["engine.plan_budget"] = old
+
+
+def budget_record(B, session, working_set, dev, refused=None):
     """The plan budgeter's verdict on the statement `session` planned last,
     beside the working set the card measured for it (the peak of its steady
     runs less what was allocated before them) and their ratio, held
-    against the reference's CALIBRATION_SLACK (printed, not gated)."""
+    against the reference's CALIBRATION_SLACK (printed, not gated), and
+    the caching allocator's gap at those runs' peaks (peak reserved less
+    peak allocated: the allocator headroom budget.budget_lines keeps).
+    `refused`: the default mode's refusal of the statement, which then ran
+    under REFUSED_MODE."""
+    import torch
+
     rec = session.last_plan_budget
     if rec is None or rec.get("verdict") == "error":
         fail(f"the plan budgeter gave no verdict: {rec}")
     ratio = working_set / rec["peak_bytes"] if rec["peak_bytes"] else None
+    gap = (torch.cuda.max_memory_reserved(dev)
+           - torch.cuda.max_memory_allocated(dev))
     return {"verdict": rec["verdict"],
             "modeled_peak_gib": rec["peak_bytes"] / 2**30,
             "window_rows": rec["window_rows"],
             "spill_partitions": rec["spill_partitions"],
             "annotated": rec["annotated"],
+            "refused": refused is not None,
+            "ran_under": (f"engine.plan_budget={REFUSED_MODE}" if refused
+                          else "default"),
             "working_set_gib": working_set / 2**30, "ratio": ratio,
             "above_slack": ratio is not None
-            and ratio > B.CALIBRATION_SLACK}
+            and ratio > B.CALIBRATION_SLACK,
+            "allocator_gap_gib": gap / 2**30}
 
 
 #: the spill phase: (case, query, conf beyond the kernels' `on`). `force`
 #: spills every eligible node; `auto` spills the nodes the budgeter
-#: annotates, here under a working-set line set below the query's modeled
-#: peak (SPILL_AUTO_SHARE of it); `disk` caps the pool at
+#: annotates, here on a query whose verdict at the card's default lines is
+#: `direct`, under a working-set line set below its modeled peak
+#: (1 / SPILL_AUTO_SHARE of it), so that the verdict turns to `spill` and
+#: the annotation switches the path; `disk` caps the pool at
 #: SPILL_DISK_POOL_BYTES so that segments tier to a temporary directory.
 SPILL_CASES = (
     ("q3_force_8", "q3", {"engine.spill": "force",
@@ -2166,7 +2253,7 @@ SPILL_CASES = (
                                "engine.spill_partitions": 8}),
     ("q87_force_8", "q87", {"engine.spill": "force",
                             "engine.spill_partitions": 8}),
-    ("q3_auto", "q3", {}),
+    ("order_auto", "order", {}),
 )
 #: the spilled path each case must take (branch_spy events)
 SPILL_BRANCHES = {
@@ -2190,10 +2277,11 @@ def spill_phase(torch, GK, TX, B, Session, tables, dev, on):
     SPILL_BRANCHES (q3's join is the hash-candidate join, the one the
     spilled join replaces) and equal the direct run: q3's groups with
     counts exact and sums within the f32 bound, q87's count exactly, the
-    ORDER BY bit for bit; the auto case must get the `spill` verdict and
-    spill (last_spill ops >= 1). The phase must launch SPILL_KERNELS.
-    Launch counts are zeroed just before the cold runs and read just
-    after. One line per case and a `spill` summary line."""
+    ORDER BY bit for bit; the auto case (a query the default lines run
+    direct) must get the `spill` verdict and spill at the annotated
+    partition count (last_spill ops >= 1). The phase must launch
+    SPILL_KERNELS. Launch counts are zeroed just before the cold runs and
+    read just after. One line per case and a `spill` summary line."""
     import shutil
     import tempfile
 
@@ -2226,11 +2314,15 @@ def spill_phase(torch, GK, TX, B, Session, tables, dev, on):
             if direct.last_spill is not None:
                 fail(f"the direct run of {q} spilled: {direct.last_spill}")
             ref[q] = (res, *steady(direct, q),
-                      direct.last_plan_budget["peak_bytes"])
+                      direct.last_plan_budget["peak_bytes"],
+                      direct.last_plan_budget["verdict"])
         sessions = {}
         for case, q, conf in SPILL_CASES:
             conf = {**on, "engine.spill_dir": spill_dir, **conf}
-            if case == "q3_auto":
+            if case.endswith("_auto"):
+                if ref[q][5] != "direct":
+                    fail(f"spill {case}: {q}'s default verdict is {ref[q][5]}"
+                         f", not direct")
                 conf["engine.plan_budget_bytes"] = (
                     ref[q][4] // SPILL_AUTO_SHARE)
             if case.startswith("order_disk"):
@@ -2271,7 +2363,7 @@ def spill_phase(torch, GK, TX, B, Session, tables, dev, on):
             if not note or note["ops"] < 1:
                 fail(f"spill {case}: no operator spilled ({note})")
             res, cold_ms = cold[case]
-            want, direct_ms, direct_ws, direct_peak, _ = ref[q]
+            want, direct_ms, direct_ws, direct_peak, _, _ = ref[q]
             if q == "q3":
                 got, exp = q3_groups(res), q3_groups(want)
                 rtol = f32_sum_rtol(max(n for _, n in exp.values()))
@@ -2300,16 +2392,21 @@ def spill_phase(torch, GK, TX, B, Session, tables, dev, on):
                    "branches": [e for e in events[case]
                                 if e.startswith("spilled ")],
                    "max_rel_vs_direct": worst, "rtol": rtol,
-                   "budget": budget_record(B, s, ws)}
+                   "budget": budget_record(B, s, ws, dev)}
             if case.startswith("order_disk") and (
                     note["evictions"] < 1 or pool["disk_bytes_read"] < 1):
                 fail(f"spill {case}: no segment went through the disk "
                      f"tier ({note}, {pool})")
-            if case == "q3_auto":
-                if rec["budget"]["verdict"] != "spill":
+            if case.endswith("_auto"):
+                parts = rec["budget"]["spill_partitions"]
+                if rec["budget"]["verdict"] != "spill" or not parts:
                     fail(f"spill {case}: verdict {rec['budget']} under a "
                          f"line below the modeled peak")
+                if note["partitions"] != parts:
+                    fail(f"spill {case}: spilled at {note['partitions']} "
+                         f"partitions, annotated {parts}")
                 rec["plan_budget_bytes"] = s.conf["engine.plan_budget_bytes"]
+                rec["direct_verdict"] = ref[q][5]
             emit(rec)
         for s in sessions.values():
             s.spill_pool.close()
@@ -2476,10 +2573,13 @@ def main(argv=None):
         originals[name] = getattr(GK, name)
         setattr(GK, name, recorder(name, originals[name]))
 
+    refused = {q: refusal(B, s_on, QUERIES[q]) for q in QUERIES}
+
     def run(session, q):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = session.sql(QUERIES[q]).collect()
+        with admitted(session, refused[q]):
+            res = session.sql(QUERIES[q]).collect()
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t) * 1e3
 
@@ -2505,11 +2605,14 @@ def main(argv=None):
     for q in QUERIES:
         res, cold_ms = cold[q]
         torch.cuda.synchronize()
+        # the allocator gap of budget_record is read from an emptied cache
+        torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         steady = [run(s_on, q)[1] for _ in range(5)]
         budget = budget_record(
-            B, s_on, torch.cuda.max_memory_allocated(dev) - before)
+            B, s_on, torch.cuda.max_memory_allocated(dev) - before, dev,
+            refused[q])
         got_off, off_ms = run(s_off, q)
         if q == "q3":
             ref_off = q3_groups(got_off)
@@ -2524,7 +2627,7 @@ def main(argv=None):
                "off_ms": off_ms,
                "fact_rows_per_s": n_fact / (float(np.median(steady)) / 1e3),
                "launches": per_query[q], "max_rel_vs_off": worst,
-               "rtol": rtol, "budget": budget}
+               "rtol": rtol, "budget": budget, "refusal": refused[q]}
         if q == "q3":
             ref = q3_reference(star)
             rec["max_rel_vs_numpy"], rec["rtol_numpy"] = check_q3(
@@ -2551,16 +2654,16 @@ def main(argv=None):
     from nds_tpu_torch.engine import exec as TX
 
     del s_on, s_off
-    _, join_launches = joins_phase(torch, GK, TX, B, Session, star, tables,
-                                   dev, on, off, rows)
+    joined, join_launches = joins_phase(torch, GK, TX, B, Session, star,
+                                        tables, dev, on, off, rows)
     for rec in kernels:
         rec["joins_launches"] = join_launches[rec["name"]]
 
     # -- windows -----------------------------------------------------------
     torch.cuda.empty_cache()
-    _, window_launches = windows_phase(torch, GK, TX, B, Session, star,
-                                       tables, dev, on, off, rows,
-                                       args.scale)
+    windowed, window_launches = windows_phase(torch, GK, TX, B, Session,
+                                              star, tables, dev, on, off,
+                                              rows, args.scale)
     for rec in kernels:
         rec["windows_launches"] = window_launches[rec["name"]]
 
@@ -2569,6 +2672,25 @@ def main(argv=None):
     spill_launches = spill_phase(torch, GK, TX, B, Session, tables, dev, on)
     for rec in kernels:
         rec["spill_launches"] = spill_launches[rec["name"]]
+
+    # -- budget_refusals / device_memory -----------------------------------
+    lines_all = {**results, **joined, **windowed}
+    emit({"phase": "budget_refusals",
+          "refused": {q: r["refusal"] for q, r in lines_all.items()
+                      if r["refusal"]},
+          "admitted": sorted(q for q, r in lines_all.items()
+                             if not r["refusal"]),
+          "ran_refused_under": f"engine.plan_budget={REFUSED_MODE}"})
+    gaps = {q: r["budget"]["allocator_gap_gib"] for q, r in lines_all.items()}
+    free, total = torch.cuda.mem_get_info(dev)
+    emit({"phase": "device_memory", "total_memory": total,
+          # what the CUDA runtime holds outside the caching allocator (the
+          # context, the loaded kernels): budget_lines' runtime headroom
+          "runtime_bytes": total - free - torch.cuda.memory_reserved(dev),
+          # the allocator's largest gap (peak reserved less peak allocated)
+          # at a query's steady runs: budget_lines' allocator headroom
+          "allocator_gap_max_gib": max(gaps.values()),
+          "allocator_gap_gib": gaps})
 
     # -- kernel_sweep ------------------------------------------------------
     del tables, star

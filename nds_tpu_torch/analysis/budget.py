@@ -17,8 +17,8 @@ union concatenations, per-window slices), and folds them into one verdict:
            the executor's `auto` spill mode runs them partitioned
   over     over budget, under the reject line, with no seam: admitted,
            the prediction recorded for the device-OOM ladder
-  reject   beyond the reject line even windowed: PlanBudgetError on the
-           CPU; recorded and admitted on a CUDA card (`refuses`)
+  reject   beyond the reject line even windowed: PlanBudgetError, on
+           every device, as in the reference
   unknown  some base-table cardinality is unknown: no enforcement
 
 The byte model is the JAX package's, unchanged (same nodes, bucketing and
@@ -210,6 +210,19 @@ class BudgetLines:
     catalog: int  # catalog residency: the union windows' budget
 
 
+#: a CUDA card's headrooms, each a reading on an NVIDIA H100 80GB HBM3 at
+#: 700 W (chip_smoke.py at SF100; PERF.md section 4) rounded up to a whole
+#: GiB. Runtime: what the CUDA runtime held outside the caching allocator
+#: (the context, the loaded kernels) at the end of the run, 665,649,152 B
+#: (0.62 GiB; chip_smoke's `device_memory.runtime_bytes`).
+CARD_RUNTIME_HEADROOM_BYTES = 1 << 30
+#: Allocator: the largest gap of peak reserved over peak allocated in any
+#: query's steady runs, read from an emptied cache with expandable
+#: segments: 8.76 GiB, in q51 (q97 8.01, q3 4.56; chip_smoke's
+#: `budget.allocator_gap_gib`).
+CARD_ALLOCATOR_HEADROOM_BYTES = 9 << 30
+
+
 def budget_lines(device=None) -> BudgetLines:
     """The lines of a session on `device` where neither conf nor
     environment sets them.
@@ -221,13 +234,11 @@ def budget_lines(device=None) -> BudgetLines:
     (`torch.cuda.get_device_properties(device).total_memory`), by the rule
     the reference states for its device: the working set is the device
     minus the catalog's residency minus the allocator's headroom, and the
-    reject line is the device minus the runtime's headroom. The reference's
-    shares of its device are kept: catalog residency 3/8 of M (the port's
-    SF100 tables hold 25.7-32.5 GiB of an 80 GB card), allocator headroom
-    3/8 (fragmentation of the caching allocator and the transients the
-    model does not count), runtime headroom 1/8 (the CUDA context, library
-    workspaces and the allocator's rounding). So working set = M/4,
-    reject = 7M/8 and catalog = 3M/8 (PERF.md gives them for the H100).
+    reject line is the device minus the runtime's headroom. The catalog
+    residency keeps the reference's share, 3/8 of M (the port's SF100
+    tables hold 25.7-32.5 GiB of an 80 GB card); the two headrooms are
+    readings on the card (CARD_RUNTIME_HEADROOM_BYTES,
+    CARD_ALLOCATOR_HEADROOM_BYTES). PERF.md gives the lines for the H100.
     """
     dev = torch.device("cpu" if device is None else device)
     if dev.type != "cuda":
@@ -235,10 +246,8 @@ def budget_lines(device=None) -> BudgetLines:
                            DEFAULT_CATALOG_BUDGET_BYTES)
     m = int(torch.cuda.get_device_properties(dev).total_memory)
     catalog = 3 * m // 8
-    runtime_headroom = m // 8
-    allocator_headroom = 3 * m // 8
-    return BudgetLines(m - catalog - allocator_headroom,
-                       m - runtime_headroom, catalog)
+    return BudgetLines(m - catalog - CARD_ALLOCATOR_HEADROOM_BYTES,
+                       m - CARD_RUNTIME_HEADROOM_BYTES, catalog)
 
 
 def _conf_bytes(conf, key, env, default) -> int:
@@ -922,8 +931,7 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
       every blocked-union Aggregate with `budget_window_rows`;
     * verdict `spill`: annotates `spill_partitions` on the spillable nodes
       (the executor's `auto` spill mode runs exactly those);
-    * verdict `reject` in mode `on`: raises PlanBudgetError where the
-      device refuses (`refuses`);
+    * verdict `reject` in mode `on`: raises PlanBudgetError;
     * records the result on `session.last_plan_budget` (the JAX session's
       keys; the device-OOM ladder of ROADMAP.md queue 1 item 9 reads it).
 
@@ -979,27 +987,12 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
         _annotate_blocked_windows(plan, pb.window_rows)
     if mode == "on" and pb.verdict == "spill" and pb.spill_partitions:
         _annotate_spill(plan, pb.spill_partitions)
-    if pb.verdict == "reject" and mode == "on" and refuses(session.device):
+    if pb.verdict == "reject" and mode == "on":
         raise PlanBudgetError(
             pb.peak_bytes, pb.budget_bytes,
             detail="no blocked-union seam can window the overage",
         )
     return pb
-
-
-def refuses(device) -> bool:
-    """Whether a `reject` verdict refuses the statement on `device`.
-
-    On the CPU it does, as in the reference. On a CUDA card it is recorded
-    (`last_plan_budget["verdict"] == "reject"`) and the statement is
-    admitted as the reference admits `over` (unannotated, the prediction
-    recorded for the device-OOM ladder): the reference's byte model,
-    calibrated at SF1 and SF10, puts six SF100 queries that the card runs
-    beyond the card's whole memory (query67 at 199.5 GiB modeled, against a
-    measured working set of about 24 GiB; PERF.md), and the model is kept
-    unchanged so that both budgeters agree. Refusal on the card waits for
-    a model calibrated there (ROADMAP.md queue 3 item 9)."""
-    return torch.device(device).type != "cuda"
 
 
 def _annotate_blocked_windows(plan: P.PlanNode, window_rows: int):

@@ -216,6 +216,32 @@ def test_reject_raises_warn_records():
     assert not t.last_plan_budget["annotated"]
 
 
+def test_chip_smoke_runs_a_refused_statement_under_warn():
+    """chip_smoke.py's handling of a statement the budgeter refuses at the
+    session's lines: the refusal is checked (PlanBudgetError, verdict
+    `reject`), the statement then runs under the reference's observe-only
+    mode and gives the budgeter-off session's result, and the session's
+    own mode, which still refuses, is restored after it."""
+    from torch_join_cases import CS
+
+    sql = "select k, sum(v) sv, count(*) n from t1 group by k order by k"
+    s = _union_session(**{"engine.plan_budget_bytes": 1,
+                          "engine.plan_budget_reject_bytes": 1})
+    refused = CS.refusal(TB, s, sql)
+    assert refused and refused["reject_gib"] == 1 / 2**30
+    assert refused["modeled_peak_gib"] > refused["reject_gib"]
+    with CS.admitted(s, refused):
+        got = s.sql(sql).collect()
+    assert "engine.plan_budget" not in s.conf
+    assert s.last_plan_budget["verdict"] == "reject"
+    assert not s.last_plan_budget["annotated"]
+    with pytest.raises(TB.PlanBudgetError):
+        s.sql(sql)
+    off = _union_session(**{"engine.plan_budget": "off"})
+    assert got.equals(off.sql(sql).collect())
+    assert CS.refusal(TB, _union_session(), sql) is None
+
+
 def test_unknown_tables_disable_enforcement():
     """A schema-only entry with no scale factor has no cardinality: the
     verdict is `unknown` in both engines, and the statement is admitted."""
@@ -237,8 +263,9 @@ def test_default_lines_of_a_cpu_session():
 
 
 def test_card_lines_follow_the_card(monkeypatch):
-    """On a CUDA device the lines come from the card's memory M: working
-    set M/4, reject 7M/8, catalog 3M/8; never above the card."""
+    """On a CUDA device the lines come from the card's memory M: catalog
+    3M/8, working set M less the catalog less the allocator's headroom,
+    reject M less the runtime's headroom; never above the card."""
     import torch
 
     class Props:
@@ -248,8 +275,9 @@ def test_card_lines_follow_the_card(monkeypatch):
                         lambda dev: Props)
     m = Props.total_memory
     lines = TB.budget_lines("cuda:0")
-    assert lines == TB.BudgetLines(m - 3 * m // 8 - 3 * m // 8,
-                                   m - m // 8, 3 * m // 8)
+    assert lines == TB.BudgetLines(
+        m - 3 * m // 8 - TB.CARD_ALLOCATOR_HEADROOM_BYTES,
+        m - TB.CARD_RUNTIME_HEADROOM_BYTES, 3 * m // 8)
     assert lines.working_set < lines.reject < m
     monkeypatch.setenv("NDS_PLAN_BUDGET_REJECT_BYTES", "777")
     monkeypatch.setenv("NDS_CATALOG_BUDGET_BYTES", "555")

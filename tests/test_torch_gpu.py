@@ -561,6 +561,35 @@ def _strict_budget(monkeypatch):
 
 
 @pytest.mark.gpu
+def test_reject_verdict_refuses_on_card(cuda):
+    """A CUDA session refuses a `reject` verdict as the reference does
+    (PlanBudgetError under the default engine.plan_budget=on) and records
+    it; `warn` runs the statement, unannotated. The card's default lines
+    lie below its memory."""
+    from nds_tpu_torch.analysis import budget as B
+
+    C = _join_cases()
+    sql = "select f_grp, sum(f_qty) s from fact group by f_grp"
+    lines = {"engine.plan_budget_bytes": 1,
+             "engine.plan_budget_reject_bytes": 1}
+    s = _port_sessions(cuda, C.tables(), "on", lines)
+    with pytest.raises(B.PlanBudgetError):
+        s.sql(sql)
+    assert s.last_plan_budget["verdict"] == "reject"
+    w = _port_sessions(cuda, C.tables(), "on",
+                       {**lines, "engine.plan_budget": "warn"})
+    got = w.sql(sql).collect()
+    assert w.last_plan_budget["verdict"] == "reject"
+    assert not w.last_plan_budget["annotated"]
+    C.assert_same(got, _port_sessions("cpu", C.tables(), "on")
+                  .sql(sql).collect(), sql)
+    card = B.budget_lines(cuda)
+    m = torch.cuda.get_device_properties(cuda).total_memory
+    assert 0 < card.working_set < card.reject < m
+    assert card.catalog < m
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("budget", [1 << 30, 1])
 def test_spill_pool_round_trip_of_cuda_tables(cuda, tmp_path, budget):
     """CUDA tables through the pool's RAM tier (a 1 GiB budget) and its disk
