@@ -76,6 +76,31 @@ Phases, each printing one JSON line:
   device_memory  what the CUDA runtime holds outside the caching
            allocator and each query's allocator gap: the readings
            budget.budget_lines' headrooms come from
+  warehouse  the star written as a parquet warehouse in a temporary
+           directory (write_warehouse: every TPC-DS source table with its
+           full schema, the columns the star does not build all-null), the
+           device tables and then the numpy star dropped
+  power    the Power Run's harness: POWER_STREAM (the earlier phases'
+           queries as one stream file, with a two-part entry) through
+           nds_tpu_torch.power.run_query_stream on the card, reading the
+           warehouse, with a property file that sets the kernels on.
+           Launch counts are zeroed just before the stream and read just
+           after. Every query the earlier phases admitted must be Completed
+           and pass the check its phase made of it (power.py writes each
+           result; its phase's tolerance); every refused one Failed with
+           failureKind `planner` and no retry; the time log must hold the
+           reference's rows. One `power_query` line per query and a `power`
+           line. Then a real CUDA OOM (`power_oom`): a ballast leaves the
+           card's free memory below q97's scanned columns plus its measured
+           working set and above q3's, and a two-entry stream (q97, q3)
+           must show a torch OutOfMemoryError first, only device_oom rungs
+           in the reference's order, q97 recovered (its check) or Failed as
+           device_oom, q3 completed with its check, and allocated memory
+           back to the ballast plus the catalog within 1 GiB. Then the
+           injected drills (`power_drill`, POWER_DRILLS): oom, io on
+           store_sales, io on a spill write, and a hang under a 2 s
+           watchdog, each against the summaries the reference's tests
+           expect. The directory goes at the end.
   kernel_sweep  the kernels redesigned for Hopper against their plain
            versions at shapes beyond the main path's: segment_extreme's
            global-atomic path, sorted ids and one group; 2^21-row builds
@@ -98,11 +123,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1569,13 +1598,39 @@ def q93_rows(res):
     return [(r["ss_customer_sk"], r["sumsales"]) for r in rows]
 
 
+def check_q16(res, got_off, ref, both=False):
+    """q16 against numpy (order_count exactly, total_sales to the f32 bound
+    of its rows) and against the off session to the same bound; with
+    `both`, the off session against numpy (to 1e-9) too, returning each
+    side's relative error."""
+    want_n, want_sum, want_rows = ref
+    sides = [("on", res, f32_sum_rtol(want_rows))]
+    if both:
+        sides.append(("off", got_off, 1e-9))
+    out = {}
+    for tag, r, tol in sides:
+        row = r.to_pylist()[0]
+        if row["order_count"] != want_n:
+            fail(f"q16 {tag}: order_count {row['order_count']} != {want_n}")
+        rel = abs(row["total_sales"] - want_sum) / max(want_sum, 1e-300)
+        if rel > tol:
+            fail(f"q16 {tag}: total_sales {row['total_sales']} vs "
+                 f"{want_sum} (rel {rel})")
+        out[tag] = rel
+    if both:
+        return out
+    return same_result(res, got_off, f32_sum_rtol(want_rows), "q16 on vs off")
+
+
 def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
-                rows):
+                rows, checks):
     """The joins and set operators at SF100 row counts: JOIN_QUERIES through
     a session with the kernels on and one with them off. Each query must
     take its JOIN_BRANCHES and give the same result both ways; q93 and q16
     must equal their numpy references. Launch counts are zeroed just
-    before the cold runs and read just after."""
+    before the cold runs and read just after. `checks` gains, per query,
+    the phase's check of a result with the kernels on (against the off
+    result and the numpy reference, to the phase's tolerance)."""
     t_phase = time.perf_counter()
     s_on = Session(conf=on)
     s_off = Session(conf=off, device="cuda")
@@ -1670,8 +1725,13 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
                 ((k, v[0]) for k, v in ref93.items()),
                 key=lambda kv: (kv[1], -float("inf") if kv[0] is None
                                 else kv[0]))[:100]
-            rec["max_rel_vs_off"] = same_topk(
-                q93_rows(res), q93_rows(got_off), rtol_of, "q93 on vs off")
+
+            def check(r, got_off=got_off, rtol_of=rtol_of, ref_top=ref_top):
+                same_topk(q93_rows(r), ref_top, rtol_of, "q93 vs numpy")
+                return same_topk(q93_rows(r), q93_rows(got_off), rtol_of,
+                                 "q93 on vs off")
+
+            rec["max_rel_vs_off"] = check(res)
             rec["max_rel_vs_numpy"] = same_topk(
                 q93_rows(res), ref_top, rtol_of, "q93 vs numpy")
             rec["max_rel_off_vs_numpy"] = same_topk(
@@ -1687,23 +1747,18 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
             elif q == "q16":
                 rtol = f32_sum_rtol(ref16[2])
             rec["rtol"] = rtol
-            rec["max_rel_vs_off"] = same_result(res, got_off, rtol,
-                                                f"{q} on vs off")
+            check = functools.partial(same_result, b=got_off, rtol=rtol,
+                                      tag=f"{q} on vs off")
+            if q == "q16":
+                check = functools.partial(check_q16, got_off=got_off,
+                                          ref=ref16)
+            rec["max_rel_vs_off"] = check(res)
         if q == "q16":
-            want_n, want_sum, want_rows = ref16
-            for tag, r, tol in (("on", res, f32_sum_rtol(want_rows)),
-                                ("off", got_off, 1e-9)):
-                row = r.to_pylist()[0]
-                if row["order_count"] != want_n:
-                    fail(f"q16 {tag}: order_count {row['order_count']} != "
-                         f"{want_n}")
-                rel = abs(row["total_sales"] - want_sum) / max(want_sum, 1e-300)
-                if rel > tol:
-                    fail(f"q16 {tag}: total_sales {row['total_sales']} vs "
-                         f"{want_sum} (rel {rel})")
+            for tag, rel in check_q16(res, got_off, ref16, both=True).items():
                 rec[f"rel_vs_numpy_{tag}"] = rel
-            rec["numpy"] = {"order_count": want_n, "total_sales": want_sum,
-                            "rows": want_rows}
+            rec["numpy"] = dict(zip(("order_count", "total_sales", "rows"),
+                                    ref16))
+        checks[q] = check
         out[q] = rec
         emit(rec)
     emit({"phase": "joins", "launches": launches, "pk_check_ms": pk_ms,
@@ -1889,7 +1944,7 @@ def same_ranked(got, ref, keys, val, rank, part, rtol_of, tag):
 
 
 def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
-                  rows, scale):
+                  rows, scale, checks):
     """Windows, ROLLUP / grouping sets, grouping() and blocked union
     aggregation at SF100 row counts: WINDOW_QUERIES through a session with
     the kernels on and one with them off, over the tables with the
@@ -1898,7 +1953,9 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     the q5 shape must equal their numpy references. Launch counts are
     zeroed just before the cold runs and read just after. At a cut
     --scale the q5 shape's union fits one default window, so the window is
-    set to an eighth of its rows there (the `union_window` of its line)."""
+    set to an eighth of its rows there (the `union_window` of its line).
+    `checks` gains, per query, the phase's check of a result with the
+    kernels on."""
     t_phase = time.perf_counter()
     wtables = to_tables(star, dev, windows=True, base=tables)
     torch.cuda.synchronize()
@@ -1991,9 +2048,10 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         if res.num_rows == 0:
             fail(f"{q} returned no rows")
         if q == "q98":
-            rec.update(check_q98(res, got_off, ref98, item_of))
+            check = functools.partial(check_q98, got_off=got_off, ref=ref98,
+                                      item_of=item_of)
         elif q == "q36":
-            rec.update(check_q36(res, got_off, ref36))
+            check = functools.partial(check_q36, got_off=got_off, ref=ref36)
         elif q == "q67":
             # the sums reach the f32 kernel once per rollup level: a row's
             # error is bounded by the fan-ins along its path (a finest
@@ -2002,25 +2060,32 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
             # under 512 at SF100) plus one f64 -> f32 rounding per level
             rtol = f32_sum_rtol(1024)
             rec["rtol"] = rtol
-            rec["max_rel_vs_off"] = same_ranked(
-                res, got_off, ["i_category", "i_class", "i_brand",
-                               "i_product_name", "d_year", "d_qoy", "d_moy",
-                               "s_store_id"],
-                "sumsales", "rk", lambda r: r["i_category"],
-                lambda r: rtol, "q67 on vs off")
+
+            def check(r, got_off=got_off, rtol=rtol):
+                return {"max_rel_vs_off": same_ranked(
+                    r, got_off, ["i_category", "i_class", "i_brand",
+                                 "i_product_name", "d_year", "d_qoy",
+                                 "d_moy", "s_store_id"],
+                    "sumsales", "rk", lambda x: x["i_category"],
+                    lambda x: rtol, "q67 on vs off")}
         elif q == "q51":
             # running sums of (item, date) group sums, each of a few rows
             # summed in f32; a running max of those
             rtol = f32_sum_rtol(64)
             rec["rtol"] = rtol
-            rec["max_rel_vs_off"] = same_result(res, got_off, rtol,
-                                                "q51 on vs off")
+
+            def check(r, got_off=got_off, rtol=rtol):
+                return {"max_rel_vs_off": same_result(r, got_off, rtol,
+                                                      "q51 on vs off")}
         else:
             rec["union_window"] = (extra.get("engine.union_agg_window_rows")
                                    or "default")
             rec["blocked_union"] = blocked[q]
             check_q5_windows(blocked[q], extra, budget, rows)
-            rec.update(check_q5(res, got_off, ref5, blocked[q]["windows"]))
+            check = functools.partial(check_q5, got_off=got_off, ref=ref5,
+                                      windows=blocked[q]["windows"])
+        rec.update(check(res))
+        checks[q] = check
         out[q] = rec
         emit(rec)
     del s_on, s_off, wtables
@@ -2418,13 +2483,550 @@ def spill_phase(torch, GK, TX, B, Session, tables, dev, on):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the power phase: the Power Run's harness over a parquet warehouse
+# ---------------------------------------------------------------------------
+
+#: rows per parquet row group, and the files a fact table is cut into (each
+#: written by its own thread): the cheapest write that keeps the data
+#: (no compression, no dictionary pages)
+WAREHOUSE_ROW_GROUP = 1 << 23
+WAREHOUSE_FILES = 8
+
+
+def write_warehouse(star, root, workers=WAREHOUSE_FILES):
+    """Write the star as a parquet warehouse under `root`: every TPC-DS
+    source table of nds_tpu_torch.schema (floats mode: decimals as
+    float64), with its full schema. The columns the star does not build
+    are all-null; the tables it does not build are empty. Fact tables are
+    cut into `workers` files of consecutive rows, named so that their
+    order is the rows' order. Returns the bytes written and the seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from nds_tpu_torch.schema import get_schemas
+
+    t0 = time.perf_counter()
+    nulls = {}  # (arrow type, rows) -> one all-null array, shared
+
+    def null_array(typ, n):
+        if (typ, n) not in nulls:
+            nulls[(typ, n)] = pa.nulls(n, typ)
+        return nulls[(typ, n)]
+
+    host_dtype = {pa.int32(): np.int32, pa.date32(): np.int32,
+                  pa.int64(): np.int64, pa.float64(): np.float64}
+
+    def column(cols, name, typ, lo, hi):
+        data = cols[name][lo:hi]
+        valid = cols.get(name + "__valid")
+        bitmap = None
+        if valid is not None:
+            bitmap = pa.py_buffer(np.packbits(valid[lo:hi],
+                                              bitorder="little"))
+        if dictionary(name) is not None:
+            words = pa.array(dictionary(name), type=pa.string())
+            codes = pa.Array.from_buffers(
+                pa.int32(), hi - lo,
+                [bitmap, pa.py_buffer(np.ascontiguousarray(data,
+                                                           np.int32))])
+            return pa.DictionaryArray.from_arrays(codes, words).cast(typ)
+        return pa.Array.from_buffers(typ, hi - lo, [
+            bitmap, pa.py_buffer(np.ascontiguousarray(data, host_dtype[typ]))])
+
+    jobs = []
+    for tname, schema in get_schemas(False).items():
+        fields = [pa.field(f.name, f.dtype.to_arrow(False)) for f in schema]
+        arrow_schema = pa.schema(fields)
+        cols = star.get(tname, {})
+        unknown = {c for c in cols if not c.endswith("__valid")} - set(
+            schema.names)
+        if unknown:
+            fail(f"{tname}: the star's columns {sorted(unknown)} are not in "
+                 f"its TPC-DS schema")
+        n = next(iter(cols.values())).shape[0] if cols else 0
+        parts = workers if n >= WAREHOUSE_ROW_GROUP else 1
+        step = -(-n // parts) if n else 0
+        os.makedirs(os.path.join(root, tname))
+        for k in range(parts):
+            lo, hi = k * step, min(n, (k + 1) * step)
+            jobs.append((tname, arrow_schema, cols, lo, hi,
+                         os.path.join(root, tname, f"part-{k:05d}.parquet")))
+
+    def write(job):
+        tname, arrow_schema, cols, lo, hi, path = job
+        arrays = [column(cols, f.name, f.type, lo, hi) if f.name in cols
+                  else null_array(f.type, hi - lo) for f in arrow_schema]
+        pq.write_table(pa.Table.from_arrays(arrays, schema=arrow_schema),
+                       path, compression="none", use_dictionary=False,
+                       row_group_size=WAREHOUSE_ROW_GROUP)
+        return os.path.getsize(path)
+
+    with ThreadPoolExecutor(workers) as ex:
+        written = sum(ex.map(write, jobs))
+    return {"bytes": written, "files": len(jobs),
+            "seconds": time.perf_counter() - t0,
+            "tables": sorted(star)}
+
+
+#: the power phase's stream: (template tag, the earlier phases' queries it
+#: runs), in the generator's format; the tag with two queries is a
+#: two-part entry (query14_part1, query14_part2)
+POWER_STREAM = (
+    ("query3", ("q3",)), ("query14", ("minmax", "order")),
+    ("query93", ("q93",)), ("query78", ("q78",)), ("query16", ("q16",)),
+    ("query97", ("q97",)), ("query28", ("q28",)), ("query87", ("q87",)),
+    ("query98", ("q98",)), ("query36", ("q36",)), ("query67", ("q67",)),
+    ("query51", ("q51",)), ("query5", ("q5",)),
+)
+#: the `direct` query that meets a real CUDA OOM under a ballast, then the
+#: query that must still complete after it
+POWER_OOM_QUERIES = ("q97", "q3")
+#: the card's free memory under the ballast sits this far below the OOM
+#: query's measured need, and at least this far above the next query's
+POWER_OOM_MARGIN = 3 << 29
+#: injected drills: name -> (fault spec, conf beyond the kernels' `on`,
+#: the two queries' SQL); the summaries the reference's tests expect for
+#: each are checked in check_drill
+DRILL_SQL = {
+    "fact": "select count(*) cnt from store_sales where ss_quantity > 0",
+    "dim": "select d_year, count(*) c from date_dim group by d_year "
+           "order by d_year limit 5",
+    "spill": "select distinct i_brand_id from item order by i_brand_id",
+    "count": "select count(*) c from date_dim",
+}
+POWER_DRILLS = {
+    "oom": ("oom:query96:1", {}, ("fact", "dim")),
+    "io": ("io:store_sales:1", {}, ("fact", "dim")),
+    "spill_io": ("io:spill:write:1",
+                 {"engine.spill": "force", "engine.spill_partitions": 4,
+                  "engine.spill_pool_bytes": 1}, ("spill", "count")),
+    "hang": ("hang:query96:5", {"engine.query_timeout": 2},
+             ("count", "dim")),
+}
+
+
+def phase_sql(q):
+    return {**QUERIES, **JOIN_QUERIES, **WINDOW_QUERIES}[q]
+
+
+def stream_file(path, entries):
+    """Write a stream file in the generator's format: `entries` are
+    (template tag, [SQL statements])."""
+    parts = []
+    for n, (tag, stmts) in enumerate(entries, 1):
+        body = "".join(f"{sql.strip()}\n;\n" for sql in stmts)
+        parts.append(f"-- start query {n} in stream 0 using template "
+                     f"{tag}.tpl\n{body}-- end query {n} in stream 0 using "
+                     f"template {tag}.tpl\n")
+    with open(path, "w") as f:
+        f.write("\n".join(parts))
+    return path
+
+
+def property_file(path, conf):
+    with open(path, "w") as f:
+        f.writelines(f"{k}={v}\n" for k, v in conf.items())
+    return path
+
+
+def stream_names(entries):
+    """Query names of a stream as gen_sql_from_stream makes them, mapped to
+    the phase queries they run."""
+    out = {}
+    for tag, qs in entries:
+        if len(qs) == 1:
+            out[tag] = qs[0]
+        else:
+            out.update({f"{tag}_part{i}": q for i, q in enumerate(qs, 1)})
+    return out
+
+
+def read_summaries(folder):
+    out = {}
+    for f in os.listdir(folder):
+        with open(os.path.join(folder, f)) as fh:
+            s = json.load(fh)
+        out[s["query"]] = s
+    return out
+
+
+def read_time_log(path):
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["application_id", "query", "time/milliseconds"]:
+        fail(f"time log header {rows[0]}")
+    return [(r[1], int(r[2])) for r in rows[1:]]
+
+
+def brief(summary):
+    """A query summary without its environment (for a failure message)."""
+    return {k: v for k, v in summary.items() if k != "env"}
+
+
+def worst_rel(out):
+    """A check's worst relative error (a check returns it, or a record of
+    `max_rel_*` fields)."""
+    if isinstance(out, dict):
+        return max((v for k, v in out.items() if k.startswith("max_rel")),
+                   default=0.0)
+    return out
+
+
+def expected_device_ladder(rec, conf):
+    """The reference's device-OOM rungs, in order, for a plan whose budget
+    record is `rec` in a session of `conf` (nds_tpu/report.py
+    _next_rung): budget_shrink where a pressure verdict carries a window
+    not yet annotated, recover_retry, shrink_union_window, and spill_retry
+    where the plan has an out-of-core seam and spill is neither off nor
+    forced."""
+    rungs = []
+    if (rec.get("verdict") in ("blocked", "spill", "over", "reject")
+            and rec.get("window_rows") and not rec.get("annotated")):
+        rungs.append("budget_shrink")
+    rungs += ["recover_retry", "shrink_union_window"]
+    if (str(conf.get("engine.spill", "auto")).lower() not in ("off", "force")
+            and rec.get("spillable")):
+        rungs.append("spill_retry")
+    return rungs
+
+
+def instrument_stream(torch, GK, TP, dev, per_query):
+    """Wrap power.run_one_query (the callable each BenchReport attempt
+    runs) to record, per query name, its attempts, its kernel launches, its
+    peak device memory and the budget record of its last statement.
+    Returns the function that restores it."""
+    orig = TP.run_one_query
+
+    def run_one_query(session, query, query_name, output_path,
+                      output_format):
+        rec = per_query.setdefault(query_name, {
+            "attempts": 0, "launches": {k: 0 for k in GK.LAUNCHES},
+            "peak_gib": 0.0})
+        rec["attempts"] += 1
+        prev = dict(GK.LAUNCHES)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            return orig(session, query, query_name, output_path,
+                        output_format)
+        finally:
+            torch.cuda.synchronize(dev)
+            for k in GK.LAUNCHES:
+                rec["launches"][k] += GK.LAUNCHES[k] - prev[k]
+            rec["peak_gib"] = max(
+                rec["peak_gib"], torch.cuda.max_memory_allocated(dev) / 2**30)
+            rec["budget"] = dict(session.last_plan_budget or {})
+
+    TP.run_one_query = run_one_query
+
+    def restore():
+        TP.run_one_query = orig
+    return restore
+
+
+def power_phase(torch, GK, dev, root, wh, checks, earlier, on, reduced):
+    """The Power Run's harness at SF100 row counts, from the parquet
+    warehouse `wh`: POWER_STREAM through power.run_query_stream on the
+    card with the kernels on (the property file), then a real CUDA OOM
+    under a ballast, then the injected drills. Launch counts are zeroed
+    just before the stream and read just after. Returns them."""
+    from nds_tpu_torch import faults
+    from nds_tpu_torch import power as TP
+    from nds_tpu_torch.schema import get_schemas
+
+    t_phase = time.perf_counter()
+    per_query = {}
+    restore = instrument_stream(torch, GK, TP, dev, per_query)
+    names = stream_names(POWER_STREAM)
+    try:
+        run = os.path.join(root, "stream")
+        os.makedirs(run)
+        stream = stream_file(os.path.join(run, "query_0.sql"), [
+            (tag, [phase_sql(q) for q in qs]) for tag, qs in POWER_STREAM])
+        prop = property_file(os.path.join(run, "power.properties"), on)
+        torch.cuda.synchronize(dev)
+        allocated_before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        GK.reset_launches()
+        t0 = time.perf_counter()
+        session = TP.run_query_stream(
+            input_prefix=wh, property_file=prop,
+            query_dict=TP.gen_sql_from_stream(stream),
+            time_log_output_path=os.path.join(run, "time.csv"),
+            use_decimal=False, output_path=os.path.join(run, "results"),
+            json_summary_folder=os.path.join(run, "json"),
+            keep_session=True, device=dev)
+        torch.cuda.synchronize(dev)
+        stream_s = time.perf_counter() - t0
+        launches = dict(GK.LAUNCHES)
+        peak = max(r["peak_gib"] for r in per_query.values())
+        for name, n in launches.items():
+            if n == 0:
+                fail(f"kernel {name} was not launched on the power path")
+        summaries = read_summaries(os.path.join(run, "json"))
+        log = read_time_log(os.path.join(run, "time.csv"))
+        want_rows = ([f"CreateTempView {t}" for t in get_schemas(False)]
+                     + list(names) + ["Power Start Time", "Power End Time",
+                                      "Power Test Time", "Total Time"])
+        if [r for r, _ in log] != want_rows:
+            fail(f"power time log rows {[r for r, _ in log]}")
+        timings = dict(log)
+        for name, q in names.items():
+            s, pq_ = summaries[name], per_query[name]
+            rec = {"phase": "power_query", "query": name, "runs": q,
+                   "cold_ms": s["queryTimes"][0],
+                   "status": s["queryStatus"][0],
+                   "verdict": pq_["budget"].get("verdict"),
+                   "retries": s["retries"], "launches": pq_["launches"],
+                   "peak_gib": pq_["peak_gib"]}
+            if earlier[q]["refusal"]:
+                # refused at the card's lines: a deterministic planner
+                # failure, as in the reference
+                if (s["queryStatus"] != ["Failed"]
+                        or s.get("failureKind") != faults.PLANNER
+                        or s["retries"] != 0
+                        or "PlanBudgetError" not in s["exceptions"][0]):
+                    fail(f"power: refused {name} ({q}) gave {brief(s)}")
+                rec["failure_kind"] = s["failureKind"]
+            else:
+                if s["queryStatus"] != ["Completed"]:
+                    fail(f"power: {name} ({q}) gave {s['queryStatus']}: "
+                         f"{s['exceptions']}")
+                import pyarrow.parquet as pq
+
+                res = pq.read_table(os.path.join(run, "results", name,
+                                                 "part-0.parquet"))
+                rec["rows"] = res.num_rows
+                rec["max_rel_vs_earlier_checks"] = worst_rel(checks[q](res))
+            emit(rec)
+        refused = sorted(q for q in names.values() if earlier[q]["refusal"])
+        emit({"phase": "power", "reduced": reduced,
+              "power_test_ms": timings["Power Test Time"],
+              "total_ms": timings["Total Time"],
+              "setup_ms": {t[len("CreateTempView "):]: ms
+                           for t, ms in log if t.startswith("CreateTempView")},
+              "stream_s": stream_s, "peak_gib": peak,
+              "allocated_before_gib": allocated_before / 2**30,
+              "catalog_evictions": session.catalog.evictions,
+              "catalog_budget_gib": session.catalog.DEVICE_BUDGET_BYTES / 2**30,
+              "refused_as_planner": refused, "launches": launches})
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        oom_drill(torch, TP, faults, dev, root, wh, on, checks, per_query)
+        for name, (spec, conf, sqls) in POWER_DRILLS.items():
+            run_drill(TP, faults, dev, root, wh, on, name, spec, conf, sqls)
+    finally:
+        restore()
+        faults.reset()
+    emit({"phase": "power_done", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+#: the stream entries of POWER_OOM_QUERIES
+POWER_OOM_TAGS = ("query97", "query3")
+
+
+def oom_stream(torch, TP, dev, root, wh, on, tag, per_query, queries):
+    """Run `queries` (of POWER_OOM_QUERIES) as a stream in a fresh session
+    kept afterwards; returns (session, summaries, seconds), `per_query`
+    holding each query's attempts."""
+    run = os.path.join(root, tag)
+    os.makedirs(run)
+    per_query.clear()
+    entries = [(POWER_OOM_TAGS[POWER_OOM_QUERIES.index(q)], [phase_sql(q)])
+               for q in queries]
+    t0 = time.perf_counter()
+    session = TP.run_query_stream(
+        input_prefix=wh,
+        property_file=property_file(os.path.join(run, "p.properties"), on),
+        query_dict=TP.gen_sql_from_stream(
+            stream_file(os.path.join(run, "query_0.sql"), entries)),
+        time_log_output_path=os.path.join(run, "time.csv"),
+        use_decimal=False, output_path=os.path.join(run, "results"),
+        json_summary_folder=os.path.join(run, "json"), keep_session=True,
+        device=dev)
+    torch.cuda.synchronize(dev)
+    return (session, read_summaries(os.path.join(run, "json")),
+            time.perf_counter() - t0)
+
+
+def oom_drill(torch, TP, faults, dev, root, wh, on, checks, per_query):
+    """A real CUDA OOM. q97 and then q3, each alone as a stream in a fresh
+    session, measure what each needs on the card: its peak allocation
+    above what was allocated before, the catalog's loads included. Then a
+    ballast leaves the card's free memory POWER_OOM_MARGIN below q97's
+    need and at least that far above q3's, and the two-entry stream (q97,
+    q3) runs in a fresh session. The first attempt must die of a torch
+    OutOfMemoryError, the ladder walk only device_oom rungs in the
+    reference's order for the budget record, q97 end
+    CompletedWithTaskFailures (its result held to its checks) or Failed
+    with device_oom, and q3 complete with its earlier result; afterwards
+    allocated memory is the ballast plus the catalog, within 1 GiB."""
+    import pyarrow.parquet as pq
+
+    q_oom, q_next = POWER_OOM_QUERIES
+    gib = 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    need, calib_s = {}, 0.0
+    for q, tag in zip(POWER_OOM_QUERIES, POWER_OOM_TAGS):
+        session, _, secs = oom_stream(torch, TP, dev, root, wh, on,
+                                      f"oom_measure_{q}", per_query, [q])
+        need[q] = int(per_query[tag]["peak_gib"] * gib) - base
+        calib_s += secs
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+    target = need[q_oom] - POWER_OOM_MARGIN
+    if target < need[q_next] + POWER_OOM_MARGIN:
+        fail(f"oom drill: no room between {q_next} ({need[q_next]} B) and "
+             f"{q_oom} ({need[q_oom]} B)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    avail = (free + torch.cuda.memory_reserved(dev)
+             - torch.cuda.memory_allocated(dev))
+    ballast = torch.empty(avail - target, dtype=torch.uint8, device=dev)
+    session, s, seconds = oom_stream(torch, TP, dev, root, wh, on, "oom",
+                                     per_query, POWER_OOM_QUERIES)
+    first, second = s["query97"], s["query3"]
+    if not first["exceptions"] or not first["exceptions"][0].startswith(
+            "OutOfMemoryError: CUDA out of memory"):
+        fail(f"oom drill: the first attempt was no CUDA OOM: {brief(first)}")
+    kinds = [r["kind"] for r in first.get("ladder", [])]
+    rungs = [r["rung"] for r in first.get("ladder", [])]
+    budget = per_query["query97"]["budget"]
+    want = expected_device_ladder(budget, on)
+    host = [x for x in kinds + [r["kind"] for r in second.get("ladder", [])]
+            + [first.get("failureKind"), second.get("failureKind")]
+            if x == faults.HOST_OOM]
+    if host or set(kinds) != {faults.DEVICE_OOM} or rungs != want[:len(rungs)]:
+        fail(f"oom drill: ladder {first.get('ladder')}, want device_oom "
+             f"rungs {want}")
+    rec = {"phase": "power_oom", "query": q_oom, "status":
+           first["queryStatus"][0], "rungs": rungs, "want_rungs": want,
+           "exceptions": [e[:160] for e in first["exceptions"]],
+           "verdict": budget.get("verdict"),
+           "spillable": budget.get("spillable"),
+           "attempts": per_query["query97"]["attempts"],
+           "ballast_gib": ballast.numel() / gib, "target_free_gib": target / gib,
+           "need_gib": {q: v / gib for q, v in need.items()},
+           "measure_s": calib_s, "seconds": seconds}
+    results = os.path.join(root, "oom", "results")
+    if first["queryStatus"] == ["CompletedWithTaskFailures"]:
+        rec["max_rel_vs_earlier_checks"] = worst_rel(checks[q_oom](
+            pq.read_table(os.path.join(results, "query97",
+                                       "part-0.parquet"))))
+    elif not (first["queryStatus"] == ["Failed"]
+              and first["failureKind"] == faults.DEVICE_OOM
+              and rungs == want):
+        fail(f"oom drill: {q_oom} ended {brief(first)}")
+    if second["queryStatus"][0] not in ("Completed",
+                                        "CompletedWithTaskFailures"):
+        fail(f"oom drill: {q_next} after the OOM gave {brief(second)}")
+    rec["next_query"] = q_next
+    rec["next_status"] = second["queryStatus"][0]
+    rec["next_rungs"] = [r["rung"] for r in second.get("ladder", [])]
+    rec["next_max_rel_vs_earlier_checks"] = worst_rel(checks[q_next](
+        pq.read_table(os.path.join(results, "query3", "part-0.parquet"))))
+    gc.collect()
+    allocated = torch.cuda.memory_allocated(dev)
+    resident = session.catalog.resident_bytes()
+    rec["allocated_after_gib"] = allocated / gib
+    rec["ballast_plus_catalog_gib"] = (ballast.numel() + resident) / gib
+    if abs(allocated - ballast.numel() - resident) > gib:
+        fail(f"oom drill: {allocated} B allocated after the stream, "
+             f"ballast {ballast.numel()} + catalog {resident}")
+    emit(rec)
+    del session, ballast
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_drill(TP, faults, dev, root, wh, on, name, spec, conf, sqls):
+    """One injected drill: a two-entry stream (query96, query3) under a
+    property file holding the fault spec, checked against what the
+    reference's tests expect (tests/test_faults.py, tests/test_spill.py)."""
+    run = os.path.join(root, f"drill_{name}")
+    os.makedirs(run)
+    conf = {**on, "engine.fault_spec": spec, **conf}
+    if "engine.spill" in conf:
+        conf["engine.spill_dir"] = os.path.join(run, "spill")
+    faults.reset()
+    t0 = time.perf_counter()
+    TP.run_query_stream(
+        input_prefix=wh,
+        property_file=property_file(os.path.join(run, "p.properties"), conf),
+        query_dict=TP.gen_sql_from_stream(stream_file(
+            os.path.join(run, "query_0.sql"),
+            [("query96", [DRILL_SQL[sqls[0]]]),
+             ("query3", [DRILL_SQL[sqls[1]]])])),
+        time_log_output_path=os.path.join(run, "time.csv"),
+        use_decimal=False, json_summary_folder=os.path.join(run, "json"),
+        device=dev)
+    seconds = time.perf_counter() - t0
+    # an abandoned (hung) attempt's worker: wait for it to end
+    for t in threading.enumerate():
+        if t.name == "nds-query-watchdog-worker":
+            t.join(timeout=60)
+            if t.is_alive():
+                fail(f"drill {name}: an abandoned worker did not end")
+    faults.reset()
+    s = read_summaries(os.path.join(run, "json"))
+    first, second = s["query96"], s["query3"]
+    rungs = [r["rung"] for r in first.get("ladder", [])]
+    ok = second["queryStatus"] == ["Completed"] and second["retries"] == 0
+    if name == "oom":
+        ok &= (first["queryStatus"] == ["CompletedWithTaskFailures"]
+               and first["retries"] == 1 and rungs == ["recover_retry"]
+               and any("RESOURCE_EXHAUSTED" in e for e in first["exceptions"])
+               and "failureKind" not in first)
+    elif name in ("io", "spill_io"):
+        ok &= (first["queryStatus"] == ["CompletedWithTaskFailures"]
+               and rungs and set(rungs) == {"io_backoff_retry"}
+               and {r["kind"] for r in first["ladder"]}
+               == {faults.IO_TRANSIENT})
+    else:  # hang
+        ok &= (first["queryStatus"] == ["Failed"]
+               and first["failureKind"] == faults.TIMEOUT
+               and first["retries"] == 0
+               and first["queryTimes"][0] < 15000)
+    emit({"phase": "power_drill", "drill": name, "spec": spec,
+          "first": {k: first.get(k) for k in (
+              "queryStatus", "retries", "ladder", "failureKind",
+              "queryTimes")},
+          "first_exceptions": [e[:160] for e in first["exceptions"]],
+          "second": second["queryStatus"], "seconds": seconds})
+    if not ok:
+        fail(f"drill {name}: {brief(first)} / {brief(second)}")
+
+
+#: whether torch.profiler has traced the card once in this process
+_PROFILER_STARTED = []
+
+
 def profile_query(torch, run_once, q, top=10, match=None):
     """Where one steady run's time goes: torch.profiler's device time by
     kernel, the device's busy share of the wall time, and the launches;
     `match_ms` sums the device time of the kernels whose name holds
-    `match`."""
+    `match`. The process's first call profiles one run more and discards
+    it: the profiler's start-up (about 1.9 s on the H100) would otherwise
+    land in the first query's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    if not _PROFILER_STARTED:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            run_once()
+        _PROFILER_STARTED.append(True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_ms = run_once()
@@ -2602,6 +3204,10 @@ def main(argv=None):
 
     n_fact = rows["store_sales"]
     results = {}
+    # per query, the check of a result with the kernels on against the
+    # phase's references, to the phase's tolerance (the power phase holds
+    # its results to them)
+    checks = {}
     for q in QUERIES:
         res, cold_ms = cold[q]
         torch.cuda.synchronize()
@@ -2617,11 +3223,18 @@ def main(argv=None):
         if q == "q3":
             ref_off = q3_groups(got_off)
             rtol = f32_sum_rtol(max(n for _, n in ref_off.values()))
-            worst = same_groups(q3_groups(res), ref_off, rtol, "on vs off")
+            ref_np = q3_reference(star)
+
+            def check(r, ref_off=ref_off, rtol=rtol, ref_np=ref_np):
+                check_q3(r, ref_np, "vs numpy")
+                return same_groups(q3_groups(r), ref_off, rtol, "on vs off")
         else:
             # minmax: f64 -> f32 rounding of the extreme value; order: exact
             rtol = 2.0**-23 if q == "minmax" else 0.0
-            worst = same_result(res, got_off, rtol, f"{q} on vs off")
+            check = functools.partial(same_result, b=got_off, rtol=rtol,
+                                      tag=f"{q} on vs off")
+        worst = check(res)
+        checks[q] = check
         rec = {"phase": "query", "query": q, "rows": res.num_rows,
                "cold_ms": cold_ms, "steady_ms": float(np.median(steady)),
                "off_ms": off_ms,
@@ -2629,9 +3242,8 @@ def main(argv=None):
                "launches": per_query[q], "max_rel_vs_off": worst,
                "rtol": rtol, "budget": budget, "refusal": refused[q]}
         if q == "q3":
-            ref = q3_reference(star)
             rec["max_rel_vs_numpy"], rec["rtol_numpy"] = check_q3(
-                res, ref, "vs numpy")
+                res, ref_np, "vs numpy")
             if res.num_rows == 0:
                 fail("q3 returned no groups")
         if q == "order" and res.num_rows == 0:
@@ -2653,9 +3265,10 @@ def main(argv=None):
     # -- joins -------------------------------------------------------------
     from nds_tpu_torch.engine import exec as TX
 
-    del s_on, s_off
+    # (the registration loop's variables hold s_off and a table too)
+    del s_on, s_off, s, t
     joined, join_launches = joins_phase(torch, GK, TX, B, Session, star,
-                                        tables, dev, on, off, rows)
+                                        tables, dev, on, off, rows, checks)
     for rec in kernels:
         rec["joins_launches"] = join_launches[rec["name"]]
 
@@ -2663,7 +3276,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     windowed, window_launches = windows_phase(torch, GK, TX, B, Session,
                                               star, tables, dev, on, off,
-                                              rows, args.scale)
+                                              rows, args.scale, checks)
     for rec in kernels:
         rec["windows_launches"] = window_launches[rec["name"]]
 
@@ -2692,8 +3305,27 @@ def main(argv=None):
           "allocator_gap_max_gib": max(gaps.values()),
           "allocator_gap_gib": gaps})
 
+    # -- power -------------------------------------------------------------
+    # the stream reads the star back from parquet: the device tables and,
+    # once it is written, the numpy star go (the earlier phases' sessions
+    # hold them in reference cycles until the collector runs)
+    del tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="nds_power_")
+    try:
+        wh = os.path.join(root, "warehouse")
+        emit({"phase": "warehouse", "reduced": reduced,
+              **write_warehouse(star, wh)})
+        del star
+        power_launches = power_phase(torch, GK, dev, root, wh, checks,
+                                     lines_all, on, reduced)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for rec in kernels:
+        rec["power_launches"] = power_launches[rec["name"]]
+
     # -- kernel_sweep ------------------------------------------------------
-    del tables, star
     torch.cuda.empty_cache()
     kernel_sweep(torch, GK, dev, args.seed, min(1.0, args.scale))
 

@@ -400,8 +400,9 @@ def column_domain_table(col_name: str) -> Optional[str]:
 class CatalogStats:
     """Base-table row counts for the budgeter, best source first: the rows
     of a table already on the device, of a `table_from_numpy` table, of an
-    in-memory Arrow table; then the TPC-DS scale model when a scale factor
-    is declared (conf `engine.plan_budget_sf`); else None (unknown)."""
+    in-memory Arrow table, of a parquet dataset's metadata; then the TPC-DS
+    scale model when a scale factor is declared (conf
+    `engine.plan_budget_sf`); else None (unknown)."""
 
     def __init__(self, catalog, scale_factor: Optional[float] = None):
         self.catalog = catalog
@@ -416,6 +417,17 @@ class CatalogStats:
                 return int(e.table.nrows)
             if e.arrow is not None:
                 return int(e.arrow.num_rows)
+            if getattr(e, "fmt", None) == "parquet":
+                # memoized metadata count; a failed probe is memoized as
+                # -1 and falls through to the scale model
+                if e.budget_est_rows is None:
+                    try:
+                        e.budget_est_rows = int(
+                            self.catalog._dataset(e).count_rows())
+                    except Exception:
+                        e.budget_est_rows = -1
+                if e.budget_est_rows >= 0:
+                    return e.budget_est_rows
         if self.scale_factor is not None:
             return spec_table_rows(name, self.scale_factor)
         return None
@@ -956,6 +968,7 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
         if os.environ.get("NDS_PLAN_BUDGET_STRICT"):
             raise
         session.last_plan_budget = {"verdict": "error", "error": str(exc)}
+        session.notify_failure(f"plan budgeter failed: {str(exc)[:200]}")
         return None
     # `warn` is observe-only: record, but never annotate or reject
     annotate = (

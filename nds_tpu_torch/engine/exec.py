@@ -30,6 +30,7 @@ from time import perf_counter as _perf
 
 import torch
 
+from .. import faults
 from ..dtypes import BOOL, DType, FLOAT64, INT32, INT64
 from ..ops import gpu_kernels as GK
 from ..ops import kernels as K
@@ -242,9 +243,20 @@ class Executor:
         # stats of this statement's out-of-core (spilled) operators: ops,
         # partitions, pool bytes in / out, evictions
         self.last_spill = None
+        self._fault_checked = False
 
     # ------------------------------------------------------------------
     def execute(self, node: P.PlanNode) -> Table:
+        if not self._fault_checked:
+            # the `exec:<query>` injection site, once per executor (one
+            # statement): past parse and bind, inside the engine proper,
+            # so the report ladder sees what a failure mid-execution looks
+            # like
+            self._fault_checked = True
+            if faults.active():
+                scope = faults.current_scope()
+                if scope is not None:
+                    faults.maybe_fire(f"exec:{scope}")
         key = id(node)
         if key in self._cte_cache:
             return self._cte_cache[key]

@@ -1,10 +1,11 @@
 """Session: the user-facing entry point of the PyTorch/CUDA SQL engine — the
 single-device subset of nds_tpu/engine/session.py.
 
-A Session owns a catalog of named tables (in-memory Arrow tables, or device
-tables built with `table_from_numpy`), parses + binds + prunes SQL, executes
-it with the unfused operator path (whatever `engine.fuse` says: fusion is
-not ported), and returns Arrow tables.
+A Session owns a catalog of named tables (parquet datasets read lazily
+column by column, in-memory Arrow tables, or device tables built with
+`table_from_numpy`), parses + binds + prunes SQL, executes it with the
+unfused operator path (whatever `engine.fuse` says: fusion is not ported),
+and returns Arrow tables.
 
 It runs on the card unless the caller asks for the CPU: `device=None`
 resolves to `cuda` and raises when no GPU is present; nothing moves to the
@@ -13,10 +14,15 @@ meanings (`engine.pallas_agg`, `engine.pallas_join`, `engine.pallas_sort`:
 off | on | auto, default off). Every statement goes through the static plan
 budgeter (analysis/budget.py) on the device's own budget lines, and the
 executor's out-of-core paths stage through the session's host-RAM spill
-pool (engine/spill.py; `engine.spill` = off | auto | force). Conf keys and
-environment knobs of layers not ported yet (tracing, plan verification,
-fault injection, cardinality feedback) raise NotImplementedError rather
-than being ignored.
+pool (engine/spill.py; `engine.spill` = off | auto | force). The failure
+domain of the Power Run's harness is the reference's: fault injection
+(`engine.fault_spec` / NDS_FAULT_SPEC, faults.py), `recover_memory` and
+the task-failure listeners that report.py's degradation ladder drives,
+and the catalog's load-time retry after a device OOM (a CUDA OOM as well
+as an XLA RESOURCE_EXHAUSTED text). Conf keys and environment knobs of
+layers not ported yet (tracing, metrics, plan verification, the host-RSS
+watermark, cardinality feedback) raise NotImplementedError rather than
+being ignored.
 
 A CUDA session needs the caching allocator's expandable segments (the
 SF100 working sets leave little room for fragmentation): the first one
@@ -26,6 +32,7 @@ session refuses to start on a CUDA runtime already initialised without it.
 
 from __future__ import annotations
 
+import gc
 import os
 import threading
 from time import monotonic as _monotonic
@@ -33,8 +40,16 @@ from typing import Optional
 
 import torch
 
+from .. import faults
+from ..io.fs import local_path
 from ..analysis import budget as B
-from ..schema import Field, Schema, TABLE_PRIMARY_KEYS
+from ..schema import (
+    Field,
+    Schema,
+    TABLE_PARTITIONING,
+    TABLE_PRIMARY_KEYS,
+    get_schemas,
+)
 from . import expr as E
 from . import plan as P
 from . import spill as SP
@@ -42,16 +57,25 @@ from .binder import Binder
 from .columnar import Table, _infer_dtype, table_from_arrow, table_to_arrow
 from .exec import Executor
 from .sql import ast as A
-from .sql.parser import parse_sql
+from .sql.parser import parse_script, parse_sql
 
-#: (conf key, environment knob) of layers the port has not ported, with the
-#: ROADMAP.md item that ports them
+#: (conf key, environment knob, values that leave the layer off) of layers
+#: the port has not ported, with the ROADMAP.md item that ports them. "0" is
+#: off only for the watermark: a metrics port of 0 binds an ephemeral port,
+#: and a trace_dir of 0 names a directory.
 _UNPORTED_KNOBS = (
-    ("engine.trace_dir", "NDS_TRACE_DIR", "queue 1 item 12 (serve/obs)"),
-    ("engine.metrics_port", "NDS_METRICS_PORT", "queue 1 item 12 (serve/obs)"),
-    ("engine.verify_plans", "NDS_VERIFY_PLANS", "queue 1 item 9 (harness entry points)"),
-    ("engine.fault_spec", "NDS_FAULT_SPEC", "queue 1 item 9 (harness entry points)"),
+    ("engine.trace_dir", "NDS_TRACE_DIR", ("off",),
+     "queue 1 item 12 (serve/obs)"),
+    ("engine.metrics_port", "NDS_METRICS_PORT", ("off",),
+     "queue 1 item 12 (serve/obs)"),
+    # the watermark's sampler is obs/memwatch
+    ("engine.host_rss_watermark", "NDS_HOST_RSS_WATERMARK", ("off", "0"),
+     "queue 1 item 12 (serve/obs)"),
+    ("engine.verify_plans", "NDS_VERIFY_PLANS", ("off",),
+     "queue 1 item 9 (harness entry points)"),
 )
+
+_ITEM9 = "ROADMAP.md queue 1 item 9 (harness entry points)"
 
 
 _ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
@@ -101,23 +125,73 @@ def resolve_device(device=None) -> torch.device:
 
 
 class _Entry:
-    def __init__(self, schema=None, arrow=None, table=None):
+    def __init__(self, schema=None, arrow=None, table=None, path=None,
+                 fmt=None):
         self.schema = schema  # Schema or None (infer)
         self.arrow = arrow  # pa.Table (in-memory), or None
         self.table = table  # device Table (register_table), or None
+        self.path = path  # dataset directory (fmt "parquet"), or None
+        self.fmt = fmt
         self.device_cols = {}  # per-column device cache: name -> Column
         self.nrows = None
         self.pk_verified = None  # declared-PK verification memo
+        # the budgeter's metadata row count of a dataset (-1: probe failed)
+        self.budget_est_rows = None
+        self.last_use = 0  # recency tick of the residency LRU
 
 
 class Catalog:
     def __init__(self, session):
         self.session = session
         self.entries = {}  # name -> _Entry
-        # the catalog's device residency budget, which the blocked union
-        # windows are sized against (NDS_CATALOG_BUDGET_BYTES, else the
-        # device's line: analysis/budget.py budget_lines)
+        # the catalog's device residency budget (NDS_CATALOG_BUDGET_BYTES,
+        # else the device's line: analysis/budget.py budget_lines): loads
+        # past it evict the least recently used entries' columns, and the
+        # blocked union windows are sized against it
         self.DEVICE_BUDGET_BYTES = B.resolve_catalog_bytes(session.device)
+        # recency tick of the residency LRU (a lost increment only perturbs
+        # the eviction order)
+        self._use_tick = 0
+        # entries whose columns the budget evicted, over the session's life
+        self.evictions = 0
+
+    @staticmethod
+    def _cached_bytes(e) -> int:
+        total = 0
+        for c in e.device_cols.values():
+            total += int(c.data.nbytes)
+            if c.valid is not None:
+                total += int(c.valid.nbytes)
+        return total
+
+    def resident_bytes(self) -> int:
+        """Device bytes of every entry's cached columns."""
+        return sum(self._cached_bytes(e) for e in self.entries.values())
+
+    def _evict_to_budget(self, keep_name):
+        """Drop the least recently used entries' device columns until the
+        resident bytes fit DEVICE_BUDGET_BYTES. Only entries with a host
+        source (parquet, Arrow) can be dropped: a `register_table` table
+        has none and stays resident. Routine budget management, not a task
+        failure: it does not reach the listeners."""
+        total = self.resident_bytes()
+        if total <= self.DEVICE_BUDGET_BYTES:
+            return
+        victims = sorted(
+            (
+                (name, e)
+                for name, e in self.entries.items()
+                if name != keep_name and e.device_cols and e.table is None
+            ),
+            key=lambda kv: kv[1].last_use,
+        )
+        for name, e in victims:
+            total -= self._cached_bytes(e)
+            e.device_cols = {}
+            self.evictions += 1
+            print(f"catalog: evicted device columns of {name!r} (budget)")
+            if total <= self.DEVICE_BUDGET_BYTES:
+                return
 
     def schema(self, name):
         e = self.entries.get(name)
@@ -129,26 +203,85 @@ class Catalog:
             return Schema(tuple(
                 Field(n, c.dtype) for n, c in e.table.columns.items()
             ))
-        return Schema(
-            tuple(Field(f.name, _infer_dtype(f.type)) for f in e.arrow.schema)
-        )
+        at = e.arrow.schema if e.arrow is not None else self._dataset(e).schema
+        return Schema(tuple(Field(f.name, _infer_dtype(f.type)) for f in at))
+
+    def _dataset(self, e: _Entry):
+        """The entry's pyarrow dataset, with hive partitioning discovery:
+        a fact table written as <date_sk>=<value>/ directories declares its
+        partition field's type from the table schema, so keys round-trip
+        with the right dtype."""
+        import pyarrow as pa
+        import pyarrow.dataset as pads
+
+        part = "hive"
+        if e.schema is not None:
+            use_decimal = self.session.use_decimal
+            names = {f.name for f in e.schema}
+            pcols = [c for c in TABLE_PARTITIONING.values() if c in names]
+            if pcols:
+                part = pads.partitioning(
+                    pa.schema([
+                        (c, e.schema.field(c).dtype.to_arrow(use_decimal))
+                        for c in pcols
+                    ]),
+                    flavor="hive",
+                )
+        return pads.dataset(e.path, format=e.fmt, partitioning=part)
 
     def load(self, name, columns=None) -> Table:
         """Load (a projection of) a table to the device, caching per column
-        so repeated queries never re-upload what is already resident."""
+        so repeated queries never re-read or re-upload what is resident.
+
+        Injection sites `load:<name>` and `<name>` fire first. A device OOM
+        while loading (a CUDA OOM, or an error whose text carries
+        RESOURCE_EXHAUSTED) drops every cached column through
+        `Session.recover_memory` and reloads the requested columns once,
+        reporting a task failure to the listeners."""
         e = self.entries.get(name)
         if e is None:
             raise KeyError(f"unknown table {name}")
+        self._use_tick += 1
+        e.last_use = self._use_tick
         if columns is None:
             columns = self.schema(name).names
+        if faults.active():
+            faults.maybe_fire(f"load:{name}")
+            faults.maybe_fire(name)
         if e.table is not None:
             e.device_cols = e.table.columns
             e.nrows = e.table.nrows
         missing = [c for c in columns if c not in e.device_cols]
         if missing:
-            t = self._to_device(e.arrow.select(missing), e)
+
+            def _load(cols):
+                if e.arrow is not None:
+                    arrow = e.arrow.select(cols)
+                else:
+                    arrow = self._dataset(e).to_table(columns=cols)
+                return self._to_device(arrow, e)
+
+            t = None
+            try:
+                t = _load(missing)
+            except Exception as exc:
+                if faults.classify(exc) != faults.DEVICE_OOM:
+                    raise
+            # the retry runs outside the handler, so no live traceback
+            # pins the failed load's partial device columns
+            if t is None:
+                self.session.recover_memory(
+                    f"device memory exhausted loading {name!r}")
+                # the wipe dropped this entry's columns too: reload the
+                # whole requested set
+                t = _load(columns)
+                self.session.notify_failure(
+                    f"task retry: device memory exhausted loading {name!r}; "
+                    f"dropped cached tables and reloaded"
+                )
             e.nrows = t.nrows
             e.device_cols.update(t.columns)
+            self._evict_to_budget(keep_name=name)
         if e.nrows is None:
             e.nrows = 0
         out = Table({c: e.device_cols[c] for c in columns}, e.nrows)
@@ -195,15 +328,33 @@ class Result:
     def explain(self) -> str:
         return P.explain(self.plan)
 
+    def write(self, path, fmt="parquet", transform=None):
+        """Write the result as a single-file dataset directory
+        `path/part-0.parquet`, the layout the reference's validator reads
+        back. `transform(arrow) -> arrow` hooks a caller's step in before
+        the write (the Power Run's column-name sanitizer)."""
+        if fmt != "parquet":
+            raise NotImplementedError(
+                f"output format {fmt!r} is not ported to nds_tpu_torch yet "
+                f"(parquet is): {_ITEM9}"
+            )
+        import pyarrow.parquet as pq
+
+        os.makedirs(path, exist_ok=True)
+        arrow = self.collect()
+        if transform is not None:
+            arrow = transform(arrow)
+        pq.write_table(arrow, os.path.join(path, "part-0.parquet"))
+
 
 class Session:
     def __init__(self, use_decimal: bool = True, conf: Optional[dict] = None,
                  device=None):
         self.use_decimal = use_decimal
         self.conf = dict(conf or {})
-        for key, env, item in _UNPORTED_KNOBS:
+        for key, env, off, item in _UNPORTED_KNOBS:
             v = self.conf.get(key) or os.environ.get(env)
-            if v and str(v).lower() != "off":
+            if v and str(v).lower() not in off:
                 raise NotImplementedError(
                     f"{key} / {env} is not ported to nds_tpu_torch yet: "
                     f"ROADMAP.md {item}"
@@ -218,7 +369,14 @@ class Session:
                 "(cardinality feedback)"
             )
         self.device = resolve_device(device)
+        # arm the fault-injection points (conf engine.fault_spec, else
+        # NDS_FAULT_SPEC); idempotent for an unchanged spec, so the sessions
+        # of one run share one fire budget
+        faults.install_from_env(self.conf)
         self.catalog = Catalog(self)
+        # task-failure observers (report.BenchReport registers one per
+        # query)
+        self._listeners = []
         # kernel promotion memo (engine.pallas_*=auto): per (kernel, shape)
         # the measured plain-vs-kernel A/B and the winning route
         self.pallas_promotions = {}
@@ -282,6 +440,29 @@ class Session:
     def register_arrow(self, name, arrow, schema=None):
         self.catalog.entries[name.lower()] = _Entry(schema=schema, arrow=arrow)
 
+    def register_parquet(self, name, path, schema=None):
+        """A parquet dataset directory (hive-partitioned or not), read
+        lazily: each column is read and uploaded on first use."""
+        self.catalog.entries[name.lower()] = _Entry(
+            schema=schema, path=local_path(path), fmt="parquet"
+        )
+
+    def register_nds_tables(self, data_root, fmt="parquet"):
+        """Register every source table found under a warehouse
+        directory."""
+        if fmt != "parquet":
+            raise NotImplementedError(
+                f"input format {fmt!r} is not ported to nds_tpu_torch yet "
+                f"(parquet is): {_ITEM9}"
+            )
+        root = local_path(data_root)
+        for tname, schema in get_schemas(self.use_decimal).items():
+            path = os.path.join(root, tname)
+            if os.path.exists(path):
+                self.catalog.entries[tname] = _Entry(
+                    schema=schema, path=path, fmt=fmt
+                )
+
     def register_table(self, name, table: Table):
         """Register a device Table (e.g. from `table_from_numpy`); its
         buffers must live on this session's device."""
@@ -296,12 +477,57 @@ class Session:
     def drop(self, name):
         self.catalog.entries.pop(name.lower(), None)
 
+    # ---- memory recovery -------------------------------------------------
+    def recover_memory(self, reason: str = "device OOM"):
+        """Drop every recoverable device allocation: the cached columns of
+        every catalog entry with a host source (parquet, Arrow), which the
+        next scan reloads. A `register_table` entry has no host source and
+        keeps its columns: dropping them would lose the table. Then collect
+        garbage (a failed attempt's cycles), return the caching allocator's
+        free blocks to the device on a CUDA session (with expandable
+        segments a retry would otherwise still see the old reservation),
+        and notify the listeners. The report ladder calls it after a device
+        OOM mid-execution, and the catalog after one while loading."""
+        for e in self.catalog.entries.values():
+            if e.table is None:
+                e.device_cols = {}
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.notify_failure(f"task retry: {reason}; dropped device caches")
+
+    # ---- listeners (reference: python_listener/PythonListener.py) --------
+    def register_listener(self, cb):
+        with self.cache_lock:
+            self._listeners.append(cb)
+
+    def unregister_listener(self, cb):
+        with self.cache_lock:
+            try:
+                self._listeners.remove(cb)
+            except ValueError:
+                pass
+
+    def notify_failure(self, reason: str):
+        """Fan a recoverable task-failure event out to the listeners."""
+        with self.cache_lock:
+            listeners = list(self._listeners)
+        for cb in listeners:
+            cb(reason)
+
     # ---- SQL -------------------------------------------------------------
     def _executor(self):
         return Executor(self.catalog, self.device)
 
     def sql(self, text: str) -> Result:
         return self.run_stmt(parse_sql(text))
+
+    def run_script(self, text: str) -> Optional[Result]:
+        """Run every statement of a script; the last one's result."""
+        out = None
+        for stmt in parse_script(text):
+            out = self.run_stmt(stmt)
+        return out
 
     def run_stmt(self, stmt) -> Optional[Result]:
         if isinstance(stmt, A.SelectStmt):
@@ -312,8 +538,9 @@ class Session:
             return Result(self, plan)
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported to nds_tpu_torch yet: "
-            f"ROADMAP.md queue 1 item 9 (harness entry points)"
+            f"{_ITEM9}"
         )
+
 
 
 def _pk_holds(t, pk) -> bool:

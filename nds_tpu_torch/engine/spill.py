@@ -20,9 +20,12 @@ fingerprint-guarded) before its first disk segment. `sweep_orphans`
 removes segment and temp files whose owning process is dead; a Session
 runs it once per process and directory.
 
-Disk errors wrap into SpillIOError. Its classification for the report
-ladder, and the `spill:<site>` fault-injection points, are ROADMAP.md
-queue 1 item 9 (`engine.fault_spec` is refused by the port's Session).
+Failure domain: segment eviction, write and read are the `spill:evict`,
+`spill:write` and `spill:read` fault-injection points (io and crash rules
+only; an injected fault keeps its own classifiable identity, as in the
+reference). Real disk errors wrap into SpillIOError, which faults.classify
+maps to `io_transient`, so the report ladder's io_backoff_retry rung owns
+them.
 This module imports no pyarrow: only re-unifying differing string
 dictionaries in `assemble_segments` does, inside that branch.
 """
@@ -40,6 +43,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from .. import faults
 
 #: default host-RAM budget for spilled segments; beyond it segments tier
 #: down to spill_dir
@@ -279,6 +284,7 @@ class SpillPool:
         """Evict one segment; on any failure the segment is re-registered
         in RAM before the error propagates, so no data is dropped."""
         try:
+            faults.maybe_fire("spill:evict", kinds=("io", "crash"))
             dest = self._write_segment_file(seg)
         except BaseException:
             with self._lock:
@@ -315,6 +321,7 @@ class SpillPool:
         mid-write leaves only a `.tmp-*` file the orphan sweep removes.
         Returns the committed path; the caller publishes the tier change
         under the pool lock."""
+        faults.maybe_fire("spill:write", kinds=("io", "crash"))
         dest = self._seg_path(seg)
         tmp = f"{dest}.tmp-{uuid.uuid4().hex[:8]}"
         arrays = {}
@@ -327,6 +334,8 @@ class SpillPool:
             with open(tmp, "wb") as f:
                 np.savez(f, **arrays)
             os.replace(tmp, dest)
+        except faults.FaultError:
+            raise  # injected faults keep their own (classifiable) identity
         except OSError as exc:
             try:
                 os.unlink(tmp)
@@ -338,6 +347,7 @@ class SpillPool:
         return dest
 
     def _read_segment_file(self, seg: SpillSegment):
+        faults.maybe_fire("spill:read", kinds=("io", "crash"))
         try:
             with np.load(seg.path) as z:
                 datas = [z[f"d{i}"] for i in range(len(seg.names))]
@@ -345,6 +355,8 @@ class SpillPool:
                     z[f"v{i}"] if f"v{i}" in z.files else None
                     for i in range(len(seg.names))
                 ]
+        except faults.FaultError:
+            raise
         except (OSError, KeyError, ValueError) as exc:
             raise SpillIOError(
                 f"spill segment read failed ({seg.path}): {exc}"

@@ -120,9 +120,16 @@ def _launch_args(t: torch.Tensor):
     return n_sm, torch._C._cuda_getCurrentRawStream(dev.index)
 
 
+#: cudaError_t of an allocation the CUDA runtime refused; named in the
+#: launch check's text, so that faults.classify calls it a device OOM
+_CUDA_ERROR_MEMORY_ALLOCATION = 2
+
+
 def _raise_if(rc: int, what: str):
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+        name = (" (cudaErrorMemoryAllocation: out of memory)"
+                if rc == _CUDA_ERROR_MEMORY_ALLOCATION else "")
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}{name}")
 
 
 # ---------------------------------------------------------------------------

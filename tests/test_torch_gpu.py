@@ -656,3 +656,157 @@ def test_spilled_path_on_card_matches_cpu(cuda, tmp_path, case, parts):
               "engine.spill_dir": str(tmp_path)})
     if op is not None:
         assert f"spilled {op}, {parts} partitions" in events, events
+
+
+# ---------------------------------------------------------------------------
+# The Power Run's failure domain on the card: a real CUDA OOM is a device
+# OOM and walks the device ladder, recover_memory returns the catalog's
+# bytes to the allocator, and a stream over a parquet warehouse runs on the
+# card as on the CPU (results as in torch_join_cases).
+# ---------------------------------------------------------------------------
+
+
+def _wide_tables(n):
+    import pyarrow as pa
+
+    rng = np.random.default_rng(3)
+    return {"big": pa.table({"k": rng.integers(0, 1 << 20, n),
+                             "v": rng.random(n)})}
+
+
+def _free_bytes(cuda):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(cuda)
+    return (free + torch.cuda.memory_reserved(cuda)
+            - torch.cuda.memory_allocated(cuda))
+
+
+@pytest.mark.gpu
+def test_real_cuda_oom_is_a_device_oom(cuda):
+    from nds_tpu_torch import faults, report
+
+    total = torch.cuda.get_device_properties(cuda).total_memory
+
+    def alloc():
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+
+    with pytest.raises(torch.OutOfMemoryError) as err:
+        alloc()
+    assert faults.classify(err.value) == faults.DEVICE_OOM
+    text = report.BenchReport(None)._attempt(alloc, (), 0)
+    assert text.startswith("OutOfMemoryError: CUDA out of memory")
+    assert faults.classify(text) == faults.DEVICE_OOM
+
+
+@pytest.mark.gpu
+def test_bench_report_walks_the_device_ladder_under_a_ballast(cuda):
+    """A query whose columns cannot load beside a ballast dies of a real
+    CUDA OOM on every attempt: the ladder walks only device_oom rungs, in
+    the reference's order for its budget record, and the query runs (and
+    matches the CPU) once the ballast goes."""
+    from nds_tpu_torch import faults, report
+
+    C = _join_cases()
+    tables = _wide_tables(1 << 24)  # 256 MiB of columns on the card
+    sql = "select k, v from big where k < 4096 order by v"
+    s = _port_sessions(cuda, tables, "on")
+    ballast = torch.empty(_free_bytes(cuda) - (64 << 20), dtype=torch.uint8,
+                          device=cuda)
+    try:
+        summary = report.BenchReport(s).report_on(
+            lambda: s.sql(sql).collect(), retry_oom=True)
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    rungs = [r["rung"] for r in summary["ladder"]]
+    assert summary["queryStatus"] == ["Failed"]
+    assert summary["failureKind"] == faults.DEVICE_OOM
+    assert {r["kind"] for r in summary["ladder"]} == {faults.DEVICE_OOM}
+    assert rungs == C.CS.expected_device_ladder(s.last_plan_budget, {})
+    assert rungs[-1] == "spill_retry"
+    assert all(faults.classify(e) == faults.DEVICE_OOM
+               for e in summary["exceptions"])
+    assert summary["exceptions"][0].startswith("OutOfMemoryError")
+    C.assert_same(s.sql(sql).collect(),
+                  _port_sessions("cpu", tables, "on").sql(sql).collect(),
+                  sql, ordered=True)
+
+
+@pytest.mark.gpu
+def test_recover_memory_returns_the_catalog_bytes(cuda):
+    s = _port_sessions(cuda, _wide_tables(1 << 22), "on")
+    _free_bytes(cuda)  # earlier tests' garbage goes first
+    before = torch.cuda.memory_allocated(cuda)
+    s.catalog.load("big", ["k", "v"])
+    resident = s.catalog.resident_bytes()
+    assert resident == (1 << 22) * 16
+    assert torch.cuda.memory_allocated(cuda) - before == resident
+    reserved = torch.cuda.memory_reserved(cuda)
+    s.recover_memory("device memory exhausted")
+    assert s.catalog.resident_bytes() == 0
+    assert torch.cuda.memory_allocated(cuda) <= before
+    assert torch.cuda.memory_reserved(cuda) <= reserved - resident
+
+
+@pytest.mark.gpu
+def test_watchdog_worker_runs_the_kernels_on_card(cuda):
+    """With engine.query_timeout set the attempt runs on a worker thread:
+    its kernels launch there and its result equals the CPU's."""
+    from nds_tpu_torch import report
+
+    C = _join_cases()
+    sql, _ = C.CASES[sorted(C.CASES)[0]]
+    s = _port_sessions(cuda, C.tables(), "on", {"engine.query_timeout": 60})
+    box = {}
+    GK.reset_launches()
+    summary = report.BenchReport(s).report_on(
+        lambda: box.setdefault("res", s.sql(sql).collect()), retry_oom=True)
+    assert summary["queryStatus"] == ["Completed"]
+    C.assert_same(box["res"], _port_sessions("cpu", C.tables(), "on")
+                  .sql(sql).collect(), sql)
+
+
+@pytest.mark.gpu
+def test_power_stream_on_card_matches_cpu(cuda, tmp_path):
+    """chip_smoke's power stream (its slice and joins queries) over a
+    parquet warehouse of the star at a cut scale, through
+    power.run_query_stream on the card and on the CPU: the same time-log
+    rows, statuses and results, and the kernels launched on the card."""
+    import pyarrow.parquet as pq
+
+    from nds_tpu_torch import power as TP
+
+    C = _join_cases()
+    CS = C.CS
+    star = CS.make_star(0, 1e-4)
+    wh = str(tmp_path / "warehouse")
+    CS.write_warehouse(star, wh)
+    entries = [(tag, qs) for tag, qs in CS.POWER_STREAM
+               if all(q in CS.QUERIES or q in CS.JOIN_QUERIES for q in qs)]
+    stream = CS.stream_file(str(tmp_path / "query_0.sql"), [
+        (tag, [CS.phase_sql(q) for q in qs]) for tag, qs in entries])
+    on = {f"engine.pallas_{k}": "on" for k in ("agg", "join", "sort")}
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        out = tmp_path / f"run{len(runs)}"
+        GK.reset_launches()
+        TP.run_query_stream(
+            wh, CS.property_file(str(tmp_path / "p.properties"), on),
+            TP.gen_sql_from_stream(stream), str(out / "time.csv"),
+            use_decimal=False, output_path=str(out / "results"),
+            json_summary_folder=str(out / "json"), device=dev)
+        runs.append((CS.read_summaries(str(out / "json")),
+                     [r for r, _ in CS.read_time_log(str(out / "time.csv"))],
+                     dict(GK.LAUNCHES)))
+    (s_gpu, log_gpu, launches), (s_cpu, log_cpu, _) = runs
+    assert log_gpu == log_cpu
+    assert all(n > 0 for n in launches.values()), launches
+    for name in CS.stream_names(entries):
+        assert s_gpu[name]["queryStatus"] == ["Completed"], s_gpu[name]
+        assert s_cpu[name]["queryStatus"] == ["Completed"], s_cpu[name]
+        a, b = (pq.read_table(tmp_path / d / "results" / name
+                              / "part-0.parquet") for d in ("run0", "run1"))
+        C.assert_same(a, b, name)

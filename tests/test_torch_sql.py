@@ -255,9 +255,6 @@ UNPORTED = {
     "create_view": ("create view v as select ss_store_sk from store_sales",
                     {}),
     "insert": ("insert into store_sales select * from store_sales", {}),
-    # forced spill is ported; the spill fault-injection points are not
-    "spill_force": (None, {"engine.spill": "force",
-                           "engine.fault_spec": "io:spill:write:1"}),
     "plan_feedback_on": (None, {"engine.plan_feedback": "on"}),
     "trace_dir": (None, {"engine.trace_dir": "traces"}),
 }
@@ -415,10 +412,18 @@ def test_unported_conf_knobs_raise():
         TorchSession(conf={"engine.verify_plans": "all"}, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         TorchSession(conf={"engine.plan_feedback": "on"}, device="cpu")
-    # ported (forced spill), or accepted with nothing recorded (feedback)
-    for conf in ({"engine.spill": "force"}, {"engine.plan_feedback": "record"},
-                 {"engine.plan_feedback": "off"}):
-        assert TorchSession(conf=conf, device="cpu").conf == conf
+    # ported (forced spill, fault injection), or accepted with nothing
+    # recorded (feedback)
+    from nds_tpu_torch import faults
+
+    try:
+        for conf in ({"engine.spill": "force"},
+                     {"engine.plan_feedback": "record"},
+                     {"engine.plan_feedback": "off"},
+                     {"engine.fault_spec": "io:nowhere:1"}):
+            assert TorchSession(conf=conf, device="cpu").conf == conf
+    finally:
+        faults.reset()
 
 
 def test_cuda_session_makes_expandable_segments_hold(monkeypatch):
@@ -467,7 +472,13 @@ def test_port_imports_neither_jax_nor_nds_tpu():
     rel = {os.path.relpath(f, ROOT) for f in files}
     assert {"nds_tpu_torch/analysis/budget.py",
             "nds_tpu_torch/analysis/verifier.py",
-            "nds_tpu_torch/engine/spill.py"} <= rel
+            "nds_tpu_torch/engine/spill.py",
+            "nds_tpu_torch/faults.py",
+            "nds_tpu_torch/report.py",
+            "nds_tpu_torch/power.py",
+            "nds_tpu_torch/check.py",
+            "nds_tpu_torch/io/fs.py",
+            "nds_tpu_torch/cli/power.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch
