@@ -101,6 +101,32 @@ Phases, each printing one JSON line:
            store_sales, io on a spill write, and a hang under a 2 s
            watchdog, each against the summaries the reference's tests
            expect. The directory goes at the end.
+  stream   the whole NDS chain over a generated stream 0 (103 statements),
+           each step a CLI of the port, in a temporary directory removed
+           at the end. Leg A at SF STREAM_SF_A, decimals: gen_data with one
+           process per core (`stream_data`: rows per table, the fixed
+           tables against rowcounts.hpp), transcode to parquet, the .dat
+           files then deleted (`stream_load`: seconds, rows/s, parquet
+           bytes, RNGSEED, store_sales' partition directories),
+           gen_query_stream from the Load Test's RNGSEED, then
+           nds_tpu_torch.cli.power on the card with the kernels on and
+           again with them off (a property file each, with a
+           STREAM_QUERY_TIMEOUT watchdog; launch counts zeroed just before
+           each stream and read just after), then the port's validate of
+           on against off and update_summary on the `on` summaries. Leg B
+           at SF STREAM_SF_B with --floats, while leg A's Load Test runs:
+           the same steps, the stream on the card with the kernels on and
+           on the CPU (a process of its own, beside leg A's card runs),
+           validated with the floats carve-out. Both SFs are cut from the
+           SF10 / SF1 the phase was made for (`reduced` says so). Every
+           statement must be Completed or CompletedWithTaskFailures but
+           those STREAM_EXPECTED_FAILURES names (with their failureKind),
+           the time logs must hold the reference's rows, validate must
+           find no unmatched query, and leg A must launch dense_build and
+           sort_perm, leg B all four kernels. One `stream_query` line per
+           statement and run (status, failureKind, retries and rungs, cold
+           ms, catalog load ms, peak GiB, verdict, launches) and a
+           `stream` line per run
   kernel_sweep  the kernels redesigned for Hopper against their plain
            versions at shapes beyond the main path's: segment_extreme's
            global-atomic path, sorted ids and one group; 2^21-row builds
@@ -1063,20 +1089,12 @@ def f32_sum_rtol(max_group_rows: int) -> float:
     return max(1e-5, (max_group_rows + 1) * 2.0**-24)
 
 
-#: the sweep's bound on segment_sums' relative error against an f64 sum, for
-#: non-negative values: a row's value reaches its group's f32 sum through
-#: at most 9 roundings in its warp (four rows a lane, five shuffle steps),
-#: one per add into its block's shared table before it, and one per block
-#: flushed into the output before its own; each rounds by at most 2^-24 of
-#: a partial sum no larger than the whole. The sweep's shapes make at most
-#: ~800 (one group of 2^24 rows on 264 blocks: 9 + 497 + 264), ~4.8e-5;
-#: the cap leaves twice that. Without it f32_sum_rtol's count-based bound
-#: reaches ~1.0 at 2^24 rows of one group, where a zero sum would pass.
-SWEEP_SUM_RTOL_CAP = 1e-4
-
-
-def sweep_sum_rtol(max_group_rows: int) -> float:
-    return min(f32_sum_rtol(max_group_rows), SWEEP_SUM_RTOL_CAP)
+#: segment_sums' relative tolerance against another f64 sum of the same
+#: f32 values (its plain version, an f64 index_add_): the kernel adds in f64
+#: in some order and rounds once to f32, so its sum is within one f32 ulp
+#: (2^-23 of the value) of the other sum rounded or not; the f64 orders
+#: differ by far less
+ROUNDED_SUM_RTOL = 2.0**-23
 
 
 def q3_groups(res):
@@ -1226,18 +1244,19 @@ def kernel_rows(torch, GK, captured, launches):
             ps, pc = GK.segment_sums_plain(vals, gid, g)
             torch.cuda.synchronize()
             exact = bool(torch.equal(kc, pc))
-            # f32 sums in two orders: bounded by the largest group's count
-            rtol = f32_sum_rtol(int(pc.max().item()))
+            rtol = ROUNDED_SUM_RTOL
             err = float((ks - ps).abs().max().item())
             ok = exact and bool(
                 ((ks - ps).abs() <= rtol * ps.abs().clamp(min=1.0)).all()
             )
             slot = torch.where((gid >= 0) & (gid < g), gid, g).long()
 
-            def lib():
-                return torch.zeros(g + 1, dtype=torch.float32,
-                                   device=vals.device).index_add_(0, slot,
-                                                                  vals)
+            vals64 = vals.double()
+
+            def lib():  # f64 adds, one rounding to f32
+                return torch.zeros(g + 1, dtype=torch.float64,
+                                   device=vals.device).index_add_(
+                    0, slot, vals64)[:g].float()
             nbytes = n * 8 + g * 8
             extra = {"n": n, "groups": g, "counts_exact": exact,
                      "rtol": rtol}
@@ -1334,7 +1353,7 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
     cooperative paths on both sides of the plan's threshold; sort_perm's
     and segment_sums' cases (module docstring). Each case must equal the
     plain version exactly (segment_sums: counts exactly, sums within
-    sweep_sum_rtol of an f64 sum); kernel ms (CUDA events), device ms and
+    ROUNDED_SUM_RTOL of an f64 index_add_); kernel ms (CUDA events), device ms and
     operations, by operation (profiler), plain ms and the byte bound. These
     launches are not the main path's and are not counted there. `scale` < 1
     cuts the row counts."""
@@ -1458,8 +1477,8 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
     del v, live
 
     # -- segment_sums ------------------------------------------------------
-    # non-negative values, so each sum is held against an f64 one within
-    # sweep_sum_rtol; counts exact against the plain version
+    # each sum is held against an f64 index_add_ of the same values within
+    # ROUNDED_SUM_RTOL; counts exact against the plain version
     # q3's 4,096 groups with one row (launch, zeroing and the grid barrier
     # alone) and with 2^18 dead rows (the loads too, no folding): what the
     # main path's 2^18 rows cost beyond them is the folding
@@ -1486,7 +1505,7 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         def check(vals=vals, gid=gid, g=g, exact=exact, rec=rec):
             ks, kc = GK.segment_sums(vals, gid, g)
             _, pc = GK.segment_sums_plain(vals, gid, g)
-            rec["rtol"] = sweep_sum_rtol(int(pc.max().item()))
+            rec["rtol"] = ROUNDED_SUM_RTOL
             rel = ((ks.double() - exact).abs()
                    / exact.abs().clamp(min=1e-300))[pc > 0]
             rec["max_rel_vs_f64"] = (float(rel.max().item()) if rel.numel()
@@ -1516,9 +1535,8 @@ def kernel_sweep(torch, GK, dev, seed, scale=1.0):
         def check(plan=plan):
             ks, kc = GK._segment_sums_launch(vals, gid, g, plan)
             ps, pc = GK.segment_sums_plain(vals, gid, g)
-            rtol = f32_sum_rtol(int(pc.max().item()))
             return bool(torch.equal(kc, pc)) and bool(
-                ((ks - ps).abs() <= 2 * rtol * ps.abs()).all())
+                ((ks - ps).abs() <= ROUNDED_SUM_RTOL * ps.abs()).all())
         timed({"name": "segment_sums", "case": "q3_shape", "n": n,
                "groups": g, "tables": plan.tables, "blocks": blocks,
                "plan_picks": blocks == chosen.blocks},
@@ -2698,23 +2716,39 @@ def expected_device_ladder(rec, conf):
 def instrument_stream(torch, GK, TP, dev, per_query):
     """Wrap power.run_one_query (the callable each BenchReport attempt
     runs) to record, per query name, its attempts, its kernel launches, its
-    peak device memory and the budget record of its last statement.
-    Returns the function that restores it."""
+    peak device memory, the budget record of its last statement and
+    `load_ms`, the wall ms inside the catalog's Catalog.load (the parquet
+    read, the upload and the column statistics). Returns the function that
+    restores both."""
+    from nds_tpu_torch.engine import session as TS
+
     orig = TP.run_one_query
+    orig_load = TS.Catalog.load
+    current = []  # the record of the query running now
+
+    def load(self, name, columns=None):
+        t0 = time.perf_counter()
+        try:
+            return orig_load(self, name, columns)
+        finally:
+            if current:
+                current[0]["load_ms"] += (time.perf_counter() - t0) * 1e3
 
     def run_one_query(session, query, query_name, output_path,
                       output_format):
         rec = per_query.setdefault(query_name, {
             "attempts": 0, "launches": {k: 0 for k in GK.LAUNCHES},
-            "peak_gib": 0.0})
+            "peak_gib": 0.0, "load_ms": 0.0})
         rec["attempts"] += 1
         prev = dict(GK.LAUNCHES)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        current[:] = [rec]
         try:
             return orig(session, query, query_name, output_path,
                         output_format)
         finally:
+            current.clear()
             torch.cuda.synchronize(dev)
             for k in GK.LAUNCHES:
                 rec["launches"][k] += GK.LAUNCHES[k] - prev[k]
@@ -2723,9 +2757,11 @@ def instrument_stream(torch, GK, TP, dev, per_query):
             rec["budget"] = dict(session.last_plan_budget or {})
 
     TP.run_one_query = run_one_query
+    TS.Catalog.load = load
 
     def restore():
         TP.run_one_query = orig
+        TS.Catalog.load = orig_load
     return restore
 
 
@@ -2783,7 +2819,7 @@ def power_phase(torch, GK, dev, root, wh, checks, earlier, on, reduced):
                    "status": s["queryStatus"][0],
                    "verdict": pq_["budget"].get("verdict"),
                    "retries": s["retries"], "launches": pq_["launches"],
-                   "peak_gib": pq_["peak_gib"]}
+                   "load_ms": pq_["load_ms"], "peak_gib": pq_["peak_gib"]}
             if earlier[q]["refusal"]:
                 # refused at the card's lines: a deterministic planner
                 # failure, as in the reference
@@ -3007,6 +3043,405 @@ def run_drill(TP, faults, dev, root, wh, on, name, spec, conf, sqls):
           "second": second["queryStatus"], "seconds": seconds})
     if not ok:
         fail(f"drill {name}: {brief(first)} / {brief(second)}")
+
+
+# ---------------------------------------------------------------------------
+# the stream phase: the whole NDS chain, gen_data -> transcode ->
+# gen_query_stream -> power -> validate, over a generated stream 0
+# ---------------------------------------------------------------------------
+
+#: leg A's scale factor (decimals, the NDS default: kernels on against off)
+#: and leg B's (--floats: the card against the CPU); --scale F < 1 cuts both.
+#: Both are cut from the SF10 / SF1 the phase was made for, so that the
+#: script stays inside its 1200 s: on an H100 the whole phase took 1,016 s
+#: at SF10 / SF1 alone (the SF10 transcode 304 s, each SF10 stream ~234 s)
+STREAM_SF_A = 3
+STREAM_SF_B = 0.3
+STREAM_SF_MADE_FOR = {"A": 10, "B": 1}
+#: statements of a generated stream: 99 templates, 14 / 23 / 24 / 39 in two
+STREAM_STATEMENTS = 103
+#: the per-query watchdog of every stream run (engine.query_timeout, s)
+STREAM_QUERY_TIMEOUT = 300
+#: the threads of leg B's CPU run, which runs beside leg A on the host
+STREAM_CPU_THREADS = 4
+#: the statements a run may leave not completed: run -> {query name:
+#: failureKind}. Only a budget refusal (planner), a device_oom after the
+#: whole device ladder or a timeout may stand here, each with its entry in
+#: ROADMAP.md queue 3; the observed set must equal this in both directions
+STREAM_EXPECTED_FAILURES = {"A_on": {}, "A_off": {}, "B_card": {},
+                            "B_cpu": {}}
+STREAM_ALLOWED_KINDS = ("planner", "device_oom", "timeout")
+#: the kernels each leg's card runs must launch: leg A's decimal
+#: aggregates never reach the f32 segment kernels
+STREAM_KERNELS = {"A_on": ("dense_build", "sort_perm"),
+                  "B_card": ("segment_sums", "segment_extreme",
+                             "dense_build", "sort_perm")}
+
+
+def spec_dim_rows(sf):
+    """Row counts of the generator's dimension tables at `sf`, read from the
+    port's rowcounts.hpp: the fixed-size tables at any SF, and the tables of
+    the spec's scale points where `sf` is one of them (1, 10, 100, ...) or
+    below 1."""
+    native = os.path.join(ROOT, "nds_tpu_torch", "datagen", "native")
+    with open(os.path.join(native, "rowcounts.hpp")) as f:
+        text = f.read()
+    with open(os.path.join(native, "ndsgen.hpp")) as f:
+        date_rows = int(re.search(r"kDateDimRows = (\d+);", f.read()).group(1))
+    out = {}
+    for name, value in re.findall(
+            r'if \(table == "(\w+)"\) return (\w+);', text):
+        out[name] = date_rows if value == "kDateDimRows" else int(value)
+    knots = (1, 10, 100, 1000, 3000, 10000, 100000)
+    for name, at in re.findall(r'\{"(\w+)", \{\{([\d, ]+)\}\}\}', text):
+        at = [int(v) for v in at.split(",")]
+        if sf in knots:
+            out[name] = at[knots.index(sf)]
+        elif sf < 1:
+            out[name] = max(int(np.ceil(at[0] * sf)), min(at[0], 2))
+    return out
+
+
+def count_dat_rows(raw):
+    """Rows per table of a generated data directory (lines of its .dat
+    files), counted by 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    files = [(t, os.path.join(raw, t, f)) for t in sorted(os.listdir(raw))
+             for f in os.listdir(os.path.join(raw, t))]
+
+    def lines(job):
+        n = 0
+        with open(job[1], "rb") as fh:
+            while True:
+                b = fh.read(1 << 24)
+                if not b:
+                    return job[0], n
+                n += b.count(b"\n")
+
+    rows = {}
+    with ThreadPoolExecutor(8) as ex:
+        for t, n in ex.map(lines, files):
+            rows[t] = rows.get(t, 0) + n
+    return rows
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(path) for f in names)
+
+
+def run_cli(log, module, *args, env=None, background=False):
+    """Run `python -m <module> <args>` from the repo's root with its output
+    in `log`; a failure fails the phase with the log's tail. With
+    `background`, returns the process (the caller waits for it)."""
+    cmd = [sys.executable, "-m", module, *[str(a) for a in args]]
+    fh = open(log, "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT,
+                            env={**os.environ, **(env or {})})
+    fh.close()
+    if background:
+        return proc
+    return wait_cli(proc, log)
+
+
+def wait_cli(proc, log):
+    if proc.wait() != 0:
+        with open(log) as fh:
+            tail = fh.read()[-3000:]
+        fail(f"{' '.join(proc.args[2:4])} exited {proc.returncode}:\n{tail}")
+    return proc
+
+
+def generate(leg, root, sf):
+    """Step 1 of a leg: generate SF `sf` with one process per core; check
+    the tables whose row counts rowcounts.hpp fixes at `sf`. Emits
+    `stream_data`. Returns the data directory and its rows per table."""
+    raw = os.path.join(root, "raw")
+    os.makedirs(root)
+    cores = os.cpu_count()
+    t0 = time.perf_counter()
+    run_cli(os.path.join(root, "gen_data.log"), "nds_tpu_torch.cli.gen_data",
+            "--scale", sf, "--parallel", max(2, cores), "--data_dir", raw)
+    gen_s = time.perf_counter() - t0
+    rows = count_dat_rows(raw)
+    spec = spec_dim_rows(sf)
+    wrong = {t: (rows.get(t), n) for t, n in spec.items() if rows.get(t) != n}
+    emit({"phase": "stream_data", "leg": leg, "sf": sf, "rows": rows,
+          "total_rows": sum(rows.values()), "seconds": gen_s,
+          "dat_bytes": dir_bytes(raw), "cores": cores,
+          "spec_checked": sorted(spec), "spec_mismatch": wrong})
+    if wrong:
+        fail(f"stream leg {leg}: row counts against rowcounts.hpp: {wrong}")
+    return raw, rows
+
+
+def start_load(root, raw, floats):
+    """Step 2 of a leg, started: the Load Test (transcode to parquet) in a
+    process of its own. Returns what finish_load takes."""
+    report = os.path.join(root, "load.report")
+    return (run_cli(os.path.join(root, "transcode.log"),
+                    "nds_tpu_torch.cli.transcode", raw,
+                    os.path.join(root, "warehouse"), report,
+                    *(["--floats"] if floats else []), background=True),
+            time.perf_counter())
+
+
+def finish_load(leg, root, sf, raw, rows, load):
+    """Steps 2-3 of a leg, ended: wait for the Load Test, delete the .dat
+    files, emit `stream_load`, generate stream 0 from the Load Test's
+    RNGSEED. Returns (warehouse, stream file, query names)."""
+    from nds_tpu_torch import power as TP
+
+    proc, t0 = load
+    wait_cli(proc, os.path.join(root, "transcode.log"))
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(raw)
+    wh = os.path.join(root, "warehouse")
+    with open(os.path.join(root, "load.report")) as fh:
+        text = fh.read()
+    seed = re.search(r"^RNGSEED used: (\d{11})$", text, re.M).group(1)
+    converted = int(re.search(r"^Total rows converted: (\d+)$", text,
+                              re.M).group(1))
+    if converted != sum(rows.values()):
+        fail(f"stream leg {leg}: transcode converted {converted} rows of "
+             f"{sum(rows.values())}")
+    parts = os.listdir(os.path.join(wh, "store_sales"))
+    per_table = {t: float(x) for t, x in re.findall(
+        r"^Time to convert '(\w+)' was ([\d.]+)s$", text, re.M)}
+    emit({"phase": "stream_load", "leg": leg, "seconds": load_s,
+          "per_table_s": per_table,
+          "load_test_s": float(re.search(r"^Load Test Time: ([\d.]+)",
+                                         text, re.M).group(1)),
+          "rows_per_s": converted / load_s, "parquet_bytes": dir_bytes(wh),
+          "rngseed": seed, "store_sales_partitions": len(parts),
+          "null_partition": "ss_sold_date_sk=__HIVE_DEFAULT_PARTITION__"
+          in parts})
+
+    streams = os.path.join(root, "streams")
+    run_cli(os.path.join(root, "gen_query_stream.log"),
+            "nds_tpu_torch.cli.gen_query_stream", "--streams", 1, "--scale",
+            sf, "--rngseed", seed, "--output_dir", streams)
+    stream = os.path.join(streams, "query_0.sql")
+    names = list(TP.gen_sql_from_stream(stream))
+    if len(names) != STREAM_STATEMENTS:
+        fail(f"stream leg {leg}: {len(names)} statements, not "
+             f"{STREAM_STATEMENTS}")
+    return wh, stream, names
+
+
+def check_stream_run(run, names, summaries, log, tables):
+    """The gates of one stream run: every statement Completed or
+    CompletedWithTaskFailures but those STREAM_EXPECTED_FAILURES names for
+    the run, with their failureKind; the time log's rows. Returns the names
+    of the completed statements."""
+    if sorted(summaries) != sorted(names):
+        fail(f"stream {run}: summaries for {sorted(set(names) ^ set(summaries))}")
+    failed = {q: s.get("failureKind") for q, s in summaries.items()
+              if s["queryStatus"][0] not in ("Completed",
+                                              "CompletedWithTaskFailures")}
+    if failed != STREAM_EXPECTED_FAILURES[run]:
+        fail(f"stream {run}: failed {failed}, expected "
+             f"{STREAM_EXPECTED_FAILURES[run]}: " + "; ".join(
+                 f"{q}: {summaries[q]['exceptions'][-1][:300]}"
+                 for q in failed))
+    bad = {q: k for q, k in failed.items() if k not in STREAM_ALLOWED_KINDS}
+    if bad:
+        fail(f"stream {run}: failures of a kind that may not be listed: {bad}")
+    want_rows = ([f"CreateTempView {t}" for t in tables] + names
+                 + ["Power Start Time", "Power End Time", "Power Test Time",
+                    "Total Time"])
+    if [r for r, _ in log] != want_rows:
+        fail(f"stream {run}: time log rows {[r for r, _ in log]}")
+    return [q for q in names if q not in failed]
+
+
+def stream_queries(run, summaries, per_query):
+    """One `stream_query` line per statement of a run."""
+    for name, s in summaries.items():
+        pq_ = per_query.get(name, {})
+        emit({"phase": "stream_query", "run": run, "query": name,
+              "status": s["queryStatus"][0],
+              "failure_kind": s.get("failureKind"), "retries": s["retries"],
+              "rungs": [r["rung"] for r in s.get("ladder", [])],
+              "cold_ms": s["queryTimes"][0],
+              "load_ms": pq_.get("load_ms"), "peak_gib": pq_.get("peak_gib"),
+              "verdict": (pq_.get("budget") or {}).get("verdict"),
+              "launches": pq_.get("launches")})
+
+
+def stream_card_run(torch, GK, TP, dev, run, root, wh, stream, names, conf,
+                    floats):
+    """A Power Run of the stream on the card through the port's CLI
+    (nds_tpu_torch.cli.power), with `conf` in its property file. Launch
+    counts are zeroed just before the stream and read just after. Returns
+    (summaries, time log, per-query records, launches, seconds)."""
+    from nds_tpu_torch.cli import power as TCLI
+    from nds_tpu_torch.schema import get_schemas
+
+    d = os.path.join(root, run)
+    os.makedirs(d)
+    prop = property_file(os.path.join(d, "power.properties"), {
+        **conf, "engine.query_timeout": STREAM_QUERY_TIMEOUT})
+    per_query = {}
+    restore = instrument_stream(torch, GK, TP, dev, per_query)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        GK.reset_launches()
+        t0 = time.perf_counter()
+        TCLI.main([wh, stream, os.path.join(d, "time.csv"),
+                   "--property_file", prop,
+                   "--output_prefix", os.path.join(d, "out"),
+                   "--json_summary_folder", os.path.join(d, "json")]
+                  + (["--floats"] if floats else []))
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = dict(GK.LAUNCHES)
+    finally:
+        restore()
+    gc.collect()
+    torch.cuda.empty_cache()
+    summaries = read_summaries(os.path.join(d, "json"))
+    log = read_time_log(os.path.join(d, "time.csv"))
+    check_stream_run(run, names, summaries, log, get_schemas(not floats))
+    for k in STREAM_KERNELS.get(run, ()):
+        if launches[k] == 0:
+            fail(f"stream {run}: kernel {k} was not launched")
+    return summaries, log, per_query, launches, seconds
+
+
+def stream_validate(run, left, right, names, completed, floats,
+                    summary_folder):
+    """The port's validate (nds_tpu_torch.validate, the reference's
+    epsilon and carve-outs) of the completed statements' outputs, then
+    update_summary of queryValidationStatus in `summary_folder` (a
+    statement that did not complete counts as unmatched: NotAttempted).
+    Fails the phase on an unmatched query. Returns the seconds."""
+    from nds_tpu_torch import validate as TV
+
+    t0 = time.perf_counter()
+    unmatched = TV.iterate_queries(
+        os.path.join(left, "out"), os.path.join(right, "out"), completed,
+        is_float=floats)
+    TV.update_summary(summary_folder, unmatched + [
+        q for q in names if q not in completed], names)
+    seconds = time.perf_counter() - t0
+    if unmatched:
+        fail(f"stream {run}: validate found unmatched queries {unmatched}")
+    return seconds
+
+
+def stream_line(leg, run, log, summaries, per_query, launches, seconds,
+                validated, validate_s, reduced):
+    timings = dict(log)
+    statuses = [s["queryStatus"][0] for s in summaries.values()]
+    emit({"phase": "stream", "leg": leg, "run": run,
+          "power_test_ms": timings["Power Test Time"],
+          "total_ms": timings["Total Time"],
+          "completed": statuses.count("Completed"),
+          "completed_with_task_failures":
+              statuses.count("CompletedWithTaskFailures"),
+          "failed": statuses.count("Failed"),
+          "peak_gib": max((r.get("peak_gib", 0.0) for r in
+                           per_query.values()), default=None),
+          "load_ms": sum(r.get("load_ms", 0.0) for r in per_query.values()),
+          "launches": launches, "validated_against": validated,
+          "unmatched": [], "validate_s": validate_s, "seconds": seconds,
+          "reduced": reduced})
+
+
+def stream_phase(torch, GK, dev, on, off, scale):
+    """The whole NDS chain on the card over a generated stream 0, in a
+    temporary directory removed at the end. Leg A at SF STREAM_SF_A,
+    decimals: kernels on, then off, validated against each other. Leg B at
+    SF STREAM_SF_B, --floats: the card with the kernels on against the CPU
+    (power with --device cpu, a process of its own). Leg B runs while leg
+    A's Load Test does, and its CPU run beside leg A's card runs. Returns
+    the launches of leg A's `on` run and of leg B's card run."""
+    from nds_tpu_torch import power as TP
+    from nds_tpu_torch.schema import get_schemas
+
+    t_phase = time.perf_counter()
+    sf_a = STREAM_SF_A * min(1.0, scale)
+    sf_b = STREAM_SF_B * min(1.0, scale)
+    reduced = [f"leg {leg} at SF{sf:g} of SF{STREAM_SF_MADE_FOR[leg]:g}"
+               + (" (--scale)" if scale < 1.0 else " (the time limit)")
+               for leg, sf in (("A", sf_a), ("B", sf_b))
+               if sf < STREAM_SF_MADE_FOR[leg]]
+    root = tempfile.mkdtemp(prefix="nds_stream_")
+    ra, rb = os.path.join(root, "A"), os.path.join(root, "B")
+    procs = []
+    try:
+        raw_a, rows_a = generate("A", ra, sf_a)
+        load_a = start_load(ra, raw_a, False)
+        procs.append(load_a[0])
+
+        raw_b, rows_b = generate("B", rb, sf_b)
+        wh_b, stream_b, names_b = finish_load(
+            "B", rb, sf_b, raw_b, rows_b, start_load(rb, raw_b, True))
+        cpu_dir = os.path.join(rb, "B_cpu")
+        t_cpu = time.perf_counter()
+        cpu = run_cli(
+            os.path.join(rb, "B_cpu.log"), "nds_tpu_torch.cli.power", wh_b,
+            stream_b, os.path.join(cpu_dir, "time.csv"), "--floats",
+            "--device", "cpu", "--property_file", property_file(
+                os.path.join(rb, "cpu.properties"),
+                {**on, "engine.query_timeout": STREAM_QUERY_TIMEOUT}),
+            "--output_prefix", os.path.join(cpu_dir, "out"),
+            "--json_summary_folder", os.path.join(cpu_dir, "json"),
+            env={"OMP_NUM_THREADS": str(STREAM_CPU_THREADS)},
+            background=True)
+        procs.append(cpu)
+        card_b = stream_card_run(torch, GK, TP, dev, "B_card", rb, wh_b,
+                                 stream_b, names_b, on, True)
+        stream_queries("B_card", card_b[0], card_b[2])
+
+        wh_a, stream_a, names_a = finish_load("A", ra, sf_a, raw_a, rows_a,
+                                              load_a)
+        runs = {}
+        for run, conf in (("A_on", on), ("A_off", off)):
+            runs[run] = stream_card_run(torch, GK, TP, dev, run, ra, wh_a,
+                                        stream_a, names_a, conf, False)
+            stream_queries(run, runs[run][0], runs[run][2])
+        completed = [q for q in names_a
+                     if q not in STREAM_EXPECTED_FAILURES["A_on"]
+                     and q not in STREAM_EXPECTED_FAILURES["A_off"]]
+        v_s = stream_validate("A", os.path.join(ra, "A_on"),
+                              os.path.join(ra, "A_off"), names_a,
+                              completed, False,
+                              os.path.join(ra, "A_on", "json"))
+        for run in ("A_on", "A_off"):
+            s, log, pq_, launches, secs = runs[run]
+            stream_line("A", run, log, s, pq_, launches, secs,
+                        "A_off" if run == "A_on" else "A_on", v_s, reduced)
+
+        wait_cli(cpu, os.path.join(rb, "B_cpu.log"))
+        cpu_s = time.perf_counter() - t_cpu
+        cpu_sum = read_summaries(os.path.join(cpu_dir, "json"))
+        cpu_log = read_time_log(os.path.join(cpu_dir, "time.csv"))
+        check_stream_run("B_cpu", names_b, cpu_sum, cpu_log,
+                         get_schemas(False))
+        stream_queries("B_cpu", cpu_sum, {})
+        completed = [q for q in names_b
+                     if q not in STREAM_EXPECTED_FAILURES["B_card"]
+                     and q not in STREAM_EXPECTED_FAILURES["B_cpu"]]
+        v_s = stream_validate("B", os.path.join(rb, "B_card"), cpu_dir,
+                              names_b, completed, True,
+                              os.path.join(rb, "B_card", "json"))
+        s, log, pq_, launches_b, secs = card_b
+        stream_line("B", "B_card", log, s, pq_, launches_b, secs, "B_cpu",
+                    v_s, reduced)
+        stream_line("B", "B_cpu", cpu_log, cpu_sum, {}, None, cpu_s,
+                    "B_card", v_s, reduced)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "stream_done", "seconds": time.perf_counter() - t_phase})
+    return runs["A_on"][3], launches_b
 
 
 #: whether torch.profiler has traced the card once in this process
@@ -3324,6 +3759,14 @@ def main(argv=None):
         shutil.rmtree(root, ignore_errors=True)
     for rec in kernels:
         rec["power_launches"] = power_launches[rec["name"]]
+
+    # -- stream ------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_a, stream_b = stream_phase(torch, GK, dev, on, off, args.scale)
+    for rec in kernels:
+        rec["stream_a_launches"] = stream_a[rec["name"]]
+        rec["stream_b_launches"] = stream_b[rec["name"]]
 
     # -- kernel_sweep ------------------------------------------------------
     torch.cuda.empty_cache()

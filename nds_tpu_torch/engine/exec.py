@@ -1814,8 +1814,8 @@ class Executor:
     def _pallas_segment_route(self, fn, c, sdata, gid, weight, gcap):
         """Kernel promotion for float64 sum/min/max (`engine.pallas_agg`):
         `off` (default) — the torch scatter path; `on` — always the
-        segment kernels of ops/gpu_kernels.py (f32 accumulation, the
-        reference's --floats tolerance); `auto` — a measured per-shape A/B,
+        segment kernels of ops/gpu_kernels.py (the values as f32: sums
+        added in f64 and rounded once to f32, extremes exact in f32); `auto` — a measured per-shape A/B,
         memoized on the session."""
         mode = self._pallas_mode()
         if mode not in ("on", "auto") or c.dtype.kind != "float64":

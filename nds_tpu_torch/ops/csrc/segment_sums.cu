@@ -1,4 +1,5 @@
-// Per-group (sum, count) of float32 values by int32 group id.
+// Per-group (sum, count) of float32 values by int32 group id, each sum
+// accumulated in float64 and rounded once to float32.
 //
 // Replaces the Pallas TPU kernel `_seg_kernel` / `segment_sums_pallas`
 // (nds_tpu/ops/pallas_kernels.py:36, :67). The TPU folds each row tile into
@@ -37,16 +38,25 @@
 //     warp at that shape folds only 256 rows and waits on their latency;
 //     ids in no order: each live row goes straight to an atomicAdd on its
 //     group's sum and count (no peer sweep);
-//   * tables: while 8 bytes per group fit, each block keeps one private
+//   * tables: while 12 bytes per group fit, each block keeps one private
 //     table in dynamic shared memory (four per block, one per group of
 //     warps, measured no faster: 227.8 vs 232.0 us random, 185.4 vs 176.8
 //     us sorted, at 2^26 ids x 1,024 groups on an H100), and flushes only
 //     the groups between the smallest and largest id it saw, one global
 //     atomic per touched group. Beyond shared memory the same code adds
 //     straight into the global arrays.
-// Numerics: f32 accumulation, the TPU kernel's stated contract; counts
-// exact. A gid outside [0, n_groups) is a dead row and contributes nothing
-// (its value is never read into a sum, NaN or not).
+// Numerics: every add is an f64 add (the warp's shuffles, the shared table,
+// a global f64 accumulator); after a last grid barrier each sum is rounded
+// once to f32, so two orders of the same rows give the same f32 sum but
+// where the f64 sums straddle a rounding boundary (one f32 ulp), and a
+// group of one child sums to its child's value (a ROLLUP's levels tie as
+// the exact sums do). Counts exact. The TPU kernel accumulated in f32,
+// whose error at TPC-DS SF1 group sizes (~1e5 rows) passed the NDS
+// validator's 1e-5 epsilon neither against a second order of the same f32
+// adds nor under cancellation: in a generated SF1 stream of 103
+// statements, 3 failed validate between an H100 and the CPU. A gid outside
+// [0, n_groups) is a dead row and contributes nothing (its value is never
+// read into a sum, NaN or not).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,10 +70,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kStaticSmem = 16;  // s_lo, s_hi (gpu_kernels._SUMS_STATIC_SMEM)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Tables {
-  float* sum;
+  double* sum;
   int32_t* cnt;
 };
 
@@ -89,7 +100,7 @@ __device__ __forceinline__ void fold4(const float4 v4, const int4 g4,
   lo = min(lo, wl);
   hi = max(hi, wh);
   if (wl == wh) {
-    float s = 0.f;
+    double s = 0.0;
     unsigned c = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -141,18 +152,18 @@ __device__ __forceinline__ void fold4(const float4 v4, const int4 g4,
 #pragma unroll
     for (int j = 0; j < 4; ++j) sorted = sorted && (!live[j] || key[j] == g[j]);
     if (__all_sync(kFull, sorted)) {
-      float s[4];
+      double s[4];
       int c[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[j] = live[j] ? v[j] : 0.f;
+        s[j] = live[j] ? static_cast<double>(v[j]) : 0.0;
         c[j] = live[j] ? 1 : 0;
       }
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float ts = __shfl_down_sync(kFull, s[j], off);
+          const double ts = __shfl_down_sync(kFull, s[j], off);
           const int tc = __shfl_down_sync(kFull, c[j], off);
           const int tk = __shfl_down_sync(kFull, key[j], off);
           if (lane + off < 32 && tk == key[j]) {
@@ -175,7 +186,7 @@ __device__ __forceinline__ void fold4(const float4 v4, const int4 g4,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     if (live[j]) {
-      atomicAdd(&t.sum[g[j]], v[j]);
+      atomicAdd(&t.sum[g[j]], static_cast<double>(v[j]));
       atomicAdd(&t.cnt[g[j]], 1);
     }
   }
@@ -186,25 +197,26 @@ __global__ void __launch_bounds__(kThreads, 2)
     seg_sums_kernel(const float* __restrict__ vals,
                     const int32_t* __restrict__ gid, int64_t n, int n_groups,
                     float* __restrict__ sums,
-                    int32_t* __restrict__ counts) {
+                    int32_t* __restrict__ counts,
+                    double* __restrict__ acc) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_lo, s_hi;
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31;
-  float* tsum = reinterpret_cast<float*>(smem);
+  double* tsum = reinterpret_cast<double*>(smem);
   int32_t* tcnt = reinterpret_cast<int32_t*>(tsum + n_groups);
 
-  // this block's slice of the outputs
+  // this block's slice of the accumulator and the counts
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t g = tid; g < n_groups; g += stride) {
-    sums[g] = 0.f;
+    acc[g] = 0.0;
     counts[g] = 0;
   }
-  Tables t{sums, counts};
+  Tables t{acc, counts};
   if (kShared) {
     for (int i = threadIdx.x; i < n_groups; i += kThreads) {
-      tsum[i] = 0.f;
+      tsum[i] = 0.0;
       tcnt[i] = 0;
     }
     if (threadIdx.x == 0) {
@@ -214,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     t = Tables{tsum, tcnt};
     __syncthreads();
   } else {
-    grid.sync();  // every output zeroed before the first global atomic
+    grid.sync();  // every entry zeroed before the first global atomic
   }
 
   int lo = INT_MAX, hi = -1;
@@ -229,23 +241,28 @@ __global__ void __launch_bounds__(kThreads, 2)
       atomicMax(&s_hi, hi);
     }
     __syncthreads();
-    grid.sync();  // every output zeroed before the first global atomic
+    grid.sync();  // every entry zeroed before the first global atomic
     const int g_lo = s_hi >= 0 ? s_lo : 0, g_hi = s_hi;  // none: no flush
     for (int g = g_lo + threadIdx.x; g <= g_hi; g += kThreads) {
       if (tcnt[g]) {
-        atomicAdd(&sums[g], tsum[g]);
+        atomicAdd(&acc[g], tsum[g]);
         atomicAdd(&counts[g], tcnt[g]);
       }
     }
   }
+  grid.sync();  // every add in: round each sum once
+  for (int64_t g = tid; g < n_groups; g += stride)
+    sums[g] = static_cast<float>(acc[g]);
 }
 
 template <bool kShared>
 int launch(const float* vals, const int32_t* gid, int64_t n, int n_groups,
-           float* sums, int32_t* counts, int blocks, int smem,
-           cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    static int granted = 48 * 1024;  // per instantiation; raise only
+           float* sums, int32_t* counts, double* acc, int blocks,
+           int smem, cudaStream_t s) {
+  // the 48 KB a block gets without the opt-in holds the static s_lo / s_hi
+  // too: a 4,096-group table (48 KB of 12-byte entries) needs the opt-in
+  if (smem + kStaticSmem > 48 * 1024) {
+    static int granted = 48 * 1024 - kStaticSmem;  // per instantiation
     if (smem > granted) {
       const cudaError_t e = cudaFuncSetAttribute(
           seg_sums_kernel<kShared>,
@@ -254,7 +271,7 @@ int launch(const float* vals, const int32_t* gid, int64_t n, int n_groups,
       granted = smem;
     }
   }
-  void* args[] = {&vals, &gid, &n, &n_groups, &sums, &counts};
+  void* args[] = {&vals, &gid, &n, &n_groups, &sums, &counts, &acc};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(seg_sums_kernel<kShared>), dim3(blocks),
       dim3(kThreads), args, static_cast<size_t>(smem), s);
@@ -264,22 +281,24 @@ int launch(const float* vals, const int32_t* gid, int64_t n, int n_groups,
 
 }  // namespace
 
-// sums/counts: any contents, every entry written. shared = 1 selects the
-// shared-memory table (8 * n_groups bytes per block, beside 16 bytes of
+// sums/counts: any contents, every entry written; acc: n_groups doubles of
+// scratch, any contents (the f64 sums before rounding). shared = 1 selects the
+// shared-memory table (12 * n_groups bytes per block, beside 16 bytes of
 // static shared memory), 0 the global path. `blocks` must be co-resident
 // (the plan's grid); a grid that is not is refused by the runtime and its
 // error returned. Returns cudaGetLastError() or the refused call's error.
 extern "C" int seg_sums_launch(const float* vals, const int32_t* gid,
                                int64_t n, int n_groups, float* sums,
-                               int32_t* counts, int shared, int blocks,
-                               void* stream) {
+                               int32_t* counts, double* acc, int shared,
+                               int blocks, void* stream) {
   if (n_groups <= 0 || blocks <= 0 || (shared != 0 && shared != 1) || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t smem64 = static_cast<int64_t>(shared) * 8 * n_groups;
+  const int64_t smem64 = static_cast<int64_t>(shared) * 12 * n_groups;
   if (smem64 > 232448 - 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shared)
-    return launch<true>(vals, gid, n, n_groups, sums, counts, blocks,
+    return launch<true>(vals, gid, n, n_groups, sums, counts, acc, blocks,
                         static_cast<int>(smem64), s);
-  return launch<false>(vals, gid, n, n_groups, sums, counts, blocks, 0, s);
+  return launch<false>(vals, gid, n, n_groups, sums, counts, acc, blocks, 0,
+                       s);
 }

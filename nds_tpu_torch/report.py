@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from typing import Callable
@@ -97,6 +98,22 @@ def engine_conf(session) -> dict:
         conf["torch.cuda.device_name"] = torch.cuda.get_device_name(dev)
     conf.update(getattr(session, "conf", {}) or {})
     return {k: str(v) for k, v in conf.items()}
+
+
+def use_system_arrow_pool() -> None:
+    """Make Arrow allocate from the system allocator unless the user chose a
+    pool (ARROW_DEFAULT_MEMORY_POOL). With Arrow's default mimalloc pool,
+    the watchdog's thread per attempt crashed the process (SIGSEGV inside
+    Arrow's dataset discovery and compute kernels, after a few queries of
+    a parquet stream); the system and jemalloc pools did not. Buffers keep
+    the pool that allocated them, so switching mid-process is safe."""
+    if os.environ.get("ARROW_DEFAULT_MEMORY_POOL"):
+        return
+    pa = sys.modules.get("pyarrow")
+    if pa is None:
+        os.environ["ARROW_DEFAULT_MEMORY_POOL"] = "system"
+    elif pa.default_memory_pool().backend_name == "mimalloc":
+        pa.set_memory_pool(pa.system_memory_pool())
 
 
 def query_timeout(session) -> float:
@@ -163,6 +180,7 @@ class BenchReport:
 
         if timeout <= 0:
             return _call()
+        use_system_arrow_pool()
         box = {}
         done = threading.Event()
 

@@ -547,6 +547,29 @@ def test_watchdog_ignores_beats_of_another_thread():
     assert s["failureKind"] == TF.TIMEOUT
 
 
+def test_watchdog_moves_arrow_off_mimalloc(monkeypatch):
+    """An armed watchdog makes Arrow allocate from the system allocator
+    (Arrow's mimalloc pool crashed under the watchdog's thread per attempt),
+    unless the user chose a pool."""
+    import pyarrow as pa
+
+    _, ts = _pair({"engine.query_timeout": "5"})
+    monkeypatch.delenv("ARROW_DEFAULT_MEMORY_POOL", raising=False)
+    pools = []
+    monkeypatch.setattr(pa, "set_memory_pool", pools.append)
+    monkeypatch.setattr(pa, "default_memory_pool",
+                        lambda: pa.mimalloc_memory_pool())
+    TR.BenchReport(ts).report_on(lambda: None)
+    assert [p.backend_name for p in pools] == ["system"]
+    monkeypatch.setenv("ARROW_DEFAULT_MEMORY_POOL", "mimalloc")
+    TR.BenchReport(ts).report_on(lambda: None)
+    assert len(pools) == 1  # the user's choice stands
+    monkeypatch.delenv("ARROW_DEFAULT_MEMORY_POOL")
+    _, off = _pair({})
+    TR.BenchReport(off).report_on(lambda: None)
+    assert len(pools) == 1  # no watchdog, no worker threads
+
+
 def test_watchdog_reraises_an_injected_crash():
     _, ts = _pair({"engine.query_timeout": "5"})
 

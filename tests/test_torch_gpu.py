@@ -10,6 +10,7 @@ exact in any accumulation order; counts, extremes, dense tables, ranks,
 histograms and permutations are integers or exact selections.
 """
 
+import json
 import os
 
 import numpy as np
@@ -810,3 +811,58 @@ def test_power_stream_on_card_matches_cpu(cuda, tmp_path):
         a, b = (pq.read_table(tmp_path / d / "results" / name
                               / "part-0.parquet") for d in ("run0", "run1"))
         C.assert_same(a, b, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("floats", [False, True])
+def test_generated_stream_on_card_validates_against_cpu(cuda, tmp_path,
+                                                        floats):
+    """The port's whole chain at SF0.1: gen_data, transcode (decimals, or
+    --floats), gen_query_stream from the Load Test's RNGSEED, the Power Run
+    of all 103 statements on the card (kernels on) and on the CPU, and the
+    port's validate of the card's outputs against the CPU's: every
+    statement completes in both, and no query is unmatched."""
+    import re
+
+    from nds_tpu_torch import power as TP
+    from nds_tpu_torch import validate as TV
+    from nds_tpu_torch.cli import gen_data, gen_query_stream
+    from nds_tpu_torch.cli import power as power_cli
+    from nds_tpu_torch.cli import transcode
+
+    flag = ["--floats"] if floats else []
+    gen_data.main(["--scale", "0.1", "--parallel", str(max(2, os.cpu_count())),
+                   "--data_dir", str(tmp_path / "raw")])
+    transcode.main([str(tmp_path / "raw"), str(tmp_path / "wh"),
+                    str(tmp_path / "load.report")] + flag)
+    seed = re.search(r"^RNGSEED used: (\d{11})$",
+                     (tmp_path / "load.report").read_text(), re.M).group(1)
+    gen_query_stream.main(["--scale", "0.1", "--rngseed", seed,
+                           "--output_dir", str(tmp_path / "streams")])
+    stream = str(tmp_path / "streams" / "query_0.sql")
+    names = list(TP.gen_sql_from_stream(stream))
+    assert len(names) == 103
+    prop = tmp_path / "p.properties"
+    prop.write_text("".join(f"engine.pallas_{k}=on\n"
+                            for k in ("agg", "join", "sort"))
+                    + "engine.query_timeout=300\n")
+    for run, dev in (("card", []), ("cpu", ["--device", "cpu"])):
+        GK.reset_launches()
+        power_cli.main([str(tmp_path / "wh"), stream,
+                        str(tmp_path / run / "time.csv"), "--property_file",
+                        str(prop), "--output_prefix", str(tmp_path / run / "out"),
+                        "--json_summary_folder", str(tmp_path / run / "json")]
+                       + flag + dev)
+        if run == "card":
+            launches = dict(GK.LAUNCHES)
+        for f in os.listdir(tmp_path / run / "json"):
+            s = json.load(open(tmp_path / run / "json" / f))
+            assert s["queryStatus"][0] in (
+                "Completed", "CompletedWithTaskFailures"), (run, s["query"],
+                                                             s["exceptions"])
+    assert launches["dense_build"] > 0 and launches["sort_perm"] > 0, launches
+    if floats:
+        assert launches["segment_sums"] > 0, launches
+    assert TV.iterate_queries(str(tmp_path / "card" / "out"),
+                              str(tmp_path / "cpu" / "out"), names,
+                              is_float=floats) == []

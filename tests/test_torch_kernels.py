@@ -41,6 +41,30 @@ def test_segment_sums_plain_matches_pallas(n, g):
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc).astype(np.int32))
 
 
+def test_segment_sums_accumulate_in_f64():
+    """The port's sums add the f32 values in f64 and round each sum once to
+    f32; the Pallas kernel adds in f32. Past f32's 2^24 integer range the
+    f32 adds drop the units, and 10^5 rows of 0.1 drift from the exact sum
+    of the f32 values by more than the validator's 1e-5; the port's sums
+    are the exact ones rounded once."""
+    vals = np.array([2.0**24, 1.0, 1.0, 0.5], np.float32)
+    gid = np.zeros(4, np.int32)
+    js, _ = PK.segment_sums_pallas(jnp.asarray(vals), jnp.asarray(gid), 1,
+                                   interpret=True)
+    ts, tc = GK.segment_sums(torch.from_numpy(vals), torch.from_numpy(gid), 1)
+    assert ts.dtype == torch.float32 and tc.dtype == torch.int32
+    assert ts.item() == np.float32(2.0**24 + 2.5) == 2.0**24 + 2
+    assert float(np.asarray(js)[0]) == 2.0**24  # f32 adds lost the units
+    tenth = np.full(100_000, 0.1, np.float32)
+    exact = float(np.float32(0.1)) * 100_000
+    got, _ = GK.segment_sums(torch.from_numpy(tenth),
+                             torch.zeros(100_000, dtype=torch.int32), 1)
+    assert got.item() == np.float32(exact)
+    f32 = torch.zeros(1).index_add_(0, torch.zeros(100_000, dtype=torch.long),
+                                    torch.from_numpy(tenth)).item()
+    assert abs(f32 - exact) > 1e-5 * exact
+
+
 @pytest.mark.parametrize("is_max", [False, True])
 @pytest.mark.parametrize("n,g", SEG_CASES)
 def test_segment_extreme_plain_matches_pallas(n, g, is_max):
@@ -456,7 +480,8 @@ def test_sort_perm_plan_order_shape_takes_grid_path():
 def test_segment_sums_plan_fits_hopper(g, n, n_sm):
     plan = GK.segment_sums_plan(n, g, n_sm)
     assert plan.threads == GK.SUMS_THREADS
-    assert plan.smem == 8 * g * plan.tables
+    assert plan.smem == GK._SUMS_GROUP_BYTES * g * plan.tables
+    assert GK._SUMS_GROUP_BYTES == 12  # an f64 sum and an int32 count
     assert plan.smem + 16 <= GK.SMEM_PER_BLOCK
     assert plan.tables in (0, 1)
     # every n_groups has a path: shared tables while one fits a block

@@ -478,10 +478,52 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/power.py",
             "nds_tpu_torch/check.py",
             "nds_tpu_torch/io/fs.py",
-            "nds_tpu_torch/cli/power.py"} <= rel
+            "nds_tpu_torch/cli/power.py",
+            "nds_tpu_torch/datagen/build.py",
+            "nds_tpu_torch/datagen/query_streams.py",
+            "nds_tpu_torch/datagen/substitutions.py",
+            "nds_tpu_torch/cli/gen_data.py",
+            "nds_tpu_torch/cli/gen_query_stream.py",
+            "nds_tpu_torch/io/csv.py",
+            "nds_tpu_torch/transcode.py",
+            "nds_tpu_torch/cli/transcode.py",
+            "nds_tpu_torch/validate.py",
+            "nds_tpu_torch/cli/validate.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch
                 continue
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "nds_tpu"), (path, mod)
+        # nor does any call name a path into the JAX package (its generator,
+        # templates or sources)
+        for arg in _call_strings(path):
+            parts = arg.replace("\\", "/").split("/")
+            assert "nds_tpu" not in parts, (path, arg)
+
+
+def _call_strings(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            for a in list(node.args) + [k.value for k in node.keywords]:
+                if isinstance(a, ast.Constant) and isinstance(a.value, str):
+                    yield a.value
+
+
+def test_pyarrow_is_imported_inside_functions_only():
+    """The new host modules of the port import pyarrow only inside the
+    functions that read or write Arrow, CSV and parquet."""
+    for rel in ("io/csv.py", "transcode.py", "validate.py",
+                "datagen/query_streams.py", "cli/transcode.py",
+                "cli/validate.py", "cli/gen_data.py",
+                "cli/gen_query_stream.py", "datagen/build.py"):
+        tree = ast.parse(open(os.path.join(ROOT, "nds_tpu_torch", rel)).read())
+        for node in tree.body:
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            assert not [n for n in names if n.split(".")[0] == "pyarrow"], (
+                rel, names)

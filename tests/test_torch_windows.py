@@ -122,10 +122,17 @@ def test_chip_window_query_matches_jax(chip_data, q, mode):
 
     star, pairs_ = chip_data
     j, t = pairs_[mode]
-    a, b, ev_j, ev_t = run_both(j, t, chip_window_sql(q, star))
+    sql = chip_window_sql(q, star)
+    a, b, ev_j, ev_t = run_both(j, t, sql)
     assert structural(ev_t) == structural(ev_j), (ev_j, ev_t)
     assert not CS.missing_branches(ev_t, CS.WINDOW_BRANCHES[q]), ev_t
     assert a.num_rows > 0
+    if mode == "on":
+        # the port's segment_sums adds the f32 values in f64 and rounds
+        # once; the JAX kernel adds in f32, whose error can tie two groups'
+        # sums and so their ranks (q67). The values are held to JAX's f64
+        # route (kernels off), the branches to its kernel route above.
+        a = pairs_["off"][0].sql(sql).collect()
     assert_same(a, b, (q, mode))
 
 
