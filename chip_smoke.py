@@ -127,6 +127,31 @@ Phases, each printing one JSON line:
            statement and run (status, failureKind, retries and rungs, cold
            ms, catalog load ms, peak GiB, verdict, launches) and a
            `stream` line per run
+  throughput  the Throughput Run over leg A's warehouse, before it goes:
+           streams 1 and 2 (THROUGHPUT_STREAMS, the first Throughput Test
+           of a 5-stream NDS run) generated from the Load Test's RNGSEED,
+           all 103 statements each, at once through cli/throughput.py in
+           thread mode with the kernels on, the stream watchdog and
+           engine.verify_plans=final, each session with half the card's
+           catalog and working-set lines. Launch counts are zeroed and the
+           peak reset just before the run and read just after, for the
+           phase as a whole; catalog load ms per stream. One
+           `throughput_query` line per statement and stream, a
+           `throughput` line (Ttt, each stream's Power Test Time, load ms
+           and window, against leg A's single-stream A_on run; peak GiB;
+           launches). Gates: every statement Completed but those
+           THROUGHPUT_EXPECTED_FAILURES names, the reference's time-log
+           rows, the printed Ttt equal to _ttt_from_logs of the logs, the
+           windows overlapping, dense_build and sort_perm launched, no
+           PlanVerifyError; then the THROUGHPUT_VALIDATE statements that
+           read the most fact rows, run again stream after stream in one
+           session with the kernels off, validated (`throughput_validate`:
+           no unmatched query). Made for SF10 with 4 streams: `reduced` says so, and
+           tools/torch_throughput_phase.py runs that
+  explain  cli/explain.py --budget --scale 100 over the 99 templates on the
+           card's lines with NDS_VERIFY_PLANS=all: each statement's
+           verdict and modeled peak and the count per verdict; a verifier
+           violation fails the run, the verdicts are not gated
   kernel_sweep  the kernels redesigned for Hopper against their plain
            versions at shapes beyond the main path's: segment_extreme's
            global-atomic path, sorted ids and one group; 2^21-row builds
@@ -150,6 +175,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import io
 import json
 import os
 import re
@@ -513,6 +539,7 @@ KERNEL_META = {
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+    return obj
 
 
 def fail(msg):
@@ -1714,7 +1741,7 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        steady = [run(s_on, q)[1] for _ in range(5)]
+        steady = [run(s_on, q)[1] for _ in range(STEADY_RUNS)]
         peaks[q] = torch.cuda.max_memory_allocated(dev) / 2**30
         budget = budget_record(B, s_on, peaks[q] * 2**30 - before, dev,
                                refused[q])
@@ -1782,6 +1809,7 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     emit({"phase": "joins", "launches": launches, "pk_check_ms": pk_ms,
           "peak_gib": peak_all, "reserved_peak_gib": reserved_all,
           "resident_gib": torch.cuda.memory_allocated(dev) / 2**30,
+          "steady_runs": STEADY_RUNS, "reduced": STEADY_CUT,
           "seconds": time.perf_counter() - t_phase})
     return out, launches
 
@@ -1807,8 +1835,11 @@ WINDOW_FACTS = {"q98": ("store_sales",), "q36": ("store_sales",),
 #: the kernels every windows-phase query must launch: the group-by float
 #: sums under its windows and rollups, and its dimension joins' builds
 WINDOW_KERNELS = ("segment_sums", "dense_build")
-#: steady runs per windows-phase query (the joins phase takes five)
-WINDOW_STEADY_RUNS = 5
+#: steady runs per query of the slice, joins and windows phases: three
+#: of the five they took until the throughput phase joined the script
+#: (STEADY_CUT lists the cut in their lines' `reduced`)
+STEADY_RUNS = 3
+STEADY_CUT = [f"{STEADY_RUNS} steady runs a query of 5 (the time limit)"]
 
 
 def _julian(day: str) -> int:
@@ -2039,7 +2070,7 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        steady = [run(s_on, q)[1] for _ in range(WINDOW_STEADY_RUNS)]
+        steady = [run(s_on, q)[1] for _ in range(STEADY_RUNS)]
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         budget = budget_record(B, s_on, peak * 2**30 - before, dev,
                                refused[q])
@@ -2110,7 +2141,7 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     emit({"phase": "windows", "launches": launches, "peak_gib": peak_all,
           "reserved_peak_gib": reserved_all,
           "resident_gib": resident, "numpy_reference_s": ref_s,
-          "steady_runs": WINDOW_STEADY_RUNS,
+          "steady_runs": STEADY_RUNS, "reduced": STEADY_CUT,
           "seconds": time.perf_counter() - t_phase})
     return out, launches
 
@@ -3054,9 +3085,13 @@ def run_drill(TP, faults, dev, root, wh, on, name, spec, conf, sqls):
 #: and leg B's (--floats: the card against the CPU); --scale F < 1 cuts both.
 #: Both are cut from the SF10 / SF1 the phase was made for, so that the
 #: script stays inside its 1200 s: on an H100 the whole phase took 1,016 s
-#: at SF10 / SF1 alone (the SF10 transcode 304 s, each SF10 stream ~234 s)
-STREAM_SF_A = 3
-STREAM_SF_B = 0.3
+#: at SF10 / SF1 alone (the SF10 transcode 304 s, each SF10 stream ~234 s).
+#: With the throughput phase over leg A's warehouse the script took 1,243 s
+#: at SF3 / SF0.3 and 1,196 s at SF2 / SF0.3 on an H100, so the legs run
+#: SF1 / SF0.2 (a stream's time is mostly per-file catalog loads, which
+#: every SF has: 1,829 date partitions a fact table)
+STREAM_SF_A = 1
+STREAM_SF_B = 0.2
 STREAM_SF_MADE_FOR = {"A": 10, "B": 1}
 #: statements of a generated stream: 99 templates, 14 / 23 / 24 / 39 in two
 STREAM_STATEMENTS = 103
@@ -3230,19 +3265,21 @@ def finish_load(leg, root, sf, raw, rows, load):
     return wh, stream, names
 
 
-def check_stream_run(run, names, summaries, log, tables):
+def check_stream_run(run, names, summaries, log, tables, expected=None):
     """The gates of one stream run: every statement Completed or
-    CompletedWithTaskFailures but those STREAM_EXPECTED_FAILURES names for
-    the run, with their failureKind; the time log's rows. Returns the names
-    of the completed statements."""
+    CompletedWithTaskFailures but those `expected` names (by default
+    STREAM_EXPECTED_FAILURES' entry for the run), with their failureKind;
+    the time log's rows. Returns the names of the completed statements."""
+    if expected is None:
+        expected = STREAM_EXPECTED_FAILURES[run]
     if sorted(summaries) != sorted(names):
         fail(f"stream {run}: summaries for {sorted(set(names) ^ set(summaries))}")
     failed = {q: s.get("failureKind") for q, s in summaries.items()
               if s["queryStatus"][0] not in ("Completed",
                                               "CompletedWithTaskFailures")}
-    if failed != STREAM_EXPECTED_FAILURES[run]:
+    if failed != expected:
         fail(f"stream {run}: failed {failed}, expected "
-             f"{STREAM_EXPECTED_FAILURES[run]}: " + "; ".join(
+             f"{expected}: " + "; ".join(
                  f"{q}: {summaries[q]['exceptions'][-1][:300]}"
                  for q in failed))
     bad = {q: k for q, k in failed.items() if k not in STREAM_ALLOWED_KINDS}
@@ -3336,7 +3373,7 @@ def stream_line(leg, run, log, summaries, per_query, launches, seconds,
                 validated, validate_s, reduced):
     timings = dict(log)
     statuses = [s["queryStatus"][0] for s in summaries.values()]
-    emit({"phase": "stream", "leg": leg, "run": run,
+    return emit({"phase": "stream", "leg": leg, "run": run,
           "power_test_ms": timings["Power Test Time"],
           "total_ms": timings["Total Time"],
           "completed": statuses.count("Completed"),
@@ -3351,14 +3388,17 @@ def stream_line(leg, run, log, summaries, per_query, launches, seconds,
           "reduced": reduced})
 
 
-def stream_phase(torch, GK, dev, on, off, scale):
+def stream_phase(torch, GK, dev, on, off, scale, then=None):
     """The whole NDS chain on the card over a generated stream 0, in a
     temporary directory removed at the end. Leg A at SF STREAM_SF_A,
     decimals: kernels on, then off, validated against each other. Leg B at
     SF STREAM_SF_B, --floats: the card with the kernels on against the CPU
     (power with --device cpu, a process of its own). Leg B runs while leg
-    A's Load Test does, and its CPU run beside leg A's card runs. Returns
-    the launches of leg A's `on` run and of leg B's card run."""
+    A's Load Test does, and its CPU run beside leg A's card runs. `then`,
+    where given, is called last with leg A's directory, warehouse, SF and
+    its `A_on` stream line, before the directory goes (the throughput
+    phase). Returns the launches of leg A's `on` run and of leg B's card
+    run."""
     from nds_tpu_torch import power as TP
     from nds_tpu_torch.schema import get_schemas
 
@@ -3411,10 +3451,13 @@ def stream_phase(torch, GK, dev, on, off, scale):
                               os.path.join(ra, "A_off"), names_a,
                               completed, False,
                               os.path.join(ra, "A_on", "json"))
+        a_on = None
         for run in ("A_on", "A_off"):
             s, log, pq_, launches, secs = runs[run]
-            stream_line("A", run, log, s, pq_, launches, secs,
-                        "A_off" if run == "A_on" else "A_on", v_s, reduced)
+            line = stream_line("A", run, log, s, pq_, launches, secs,
+                               "A_off" if run == "A_on" else "A_on", v_s,
+                               reduced)
+            a_on = a_on or line
 
         wait_cli(cpu, os.path.join(rb, "B_cpu.log"))
         cpu_s = time.perf_counter() - t_cpu
@@ -3434,6 +3477,10 @@ def stream_phase(torch, GK, dev, on, off, scale):
                     v_s, reduced)
         stream_line("B", "B_cpu", cpu_log, cpu_sum, {}, None, cpu_s,
                     "B_card", v_s, reduced)
+        if then is not None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            then(ra, wh_a, sf_a, a_on)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -3442,6 +3489,342 @@ def stream_phase(torch, GK, dev, on, off, scale):
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "stream_done", "seconds": time.perf_counter() - t_phase})
     return runs["A_on"][3], launches_b
+
+
+#: the first Throughput Test of nds_tpu/bench.yml's `num_streams: 5`
+#: (full_bench.get_stream_range(5, 1)); stream 0 is the Power Run's
+THROUGHPUT_STREAMS = (1, 2)
+#: the scale and stream count the phase was made for (Spec 4.3.2: S >= 4);
+#: tools/torch_throughput_phase.py runs them
+THROUGHPUT_MADE_FOR = {"sf": 10, "streams": 4}
+#: statements of a concurrent run that may end not completed: stream ->
+#: {query name: failureKind}, each with its ROADMAP.md queue 3 entry (as
+#: for STREAM_EXPECTED_FAILURES)
+THROUGHPUT_EXPECTED_FAILURES = {}
+THROUGHPUT_KERNELS = ("dense_build", "sort_perm")
+#: the statements of each stream that a run without concurrency (kernels
+#: off, one session for both streams) re-runs for validate: those reading
+#: the most fact rows (the whole re-run of both streams does not fit the
+#: script's time limit)
+THROUGHPUT_VALIDATE = 3
+
+
+def throughput_conf(B, dev, n_streams, conf):
+    """The property-file conf of a throughput run on one card, and the
+    catalog line each stream's session gets (NDS_CATALOG_BUDGET_BYTES,
+    process-wide): the card's catalog and working-set lines divided
+    between the streams (budget.budget_lines)."""
+    lines = B.budget_lines(dev)
+    return ({**conf, "engine.query_timeout": STREAM_QUERY_TIMEOUT,
+             "engine.verify_plans": "final",
+             "engine.plan_budget_bytes": lines.working_set // n_streams},
+            lines.catalog // n_streams)
+
+
+def fact_rows_read(dev, sf, queries):
+    """Per statement of `queries` ({name: SQL}), the fact-table rows its
+    scans read at `sf` under the budgeter's scaling model
+    (budget.spec_table_rows), planned on a schema-only session."""
+    from nds_tpu_torch.analysis import budget as B
+    from nds_tpu_torch.engine import plan as P
+    from nds_tpu_torch.engine.session import Session, _Entry
+    from nds_tpu_torch.schema import TABLE_PARTITIONING, get_schemas
+
+    s = Session(conf={"engine.plan_budget": "off"}, device=dev)
+    for name, schema in get_schemas(True).items():
+        s.catalog.entries[name] = _Entry(schema=schema)
+    out = {}
+    for q, sql in queries.items():
+        plan = s.run_script(sql).plan
+        out[q] = sum(B.spec_table_rows(v.table, sf) for v in
+                     P.walk_plan(plan) if isinstance(v, P.Scan)
+                     and v.table in TABLE_PARTITIONING)
+    return out
+
+
+def stream_loads(TP, TS):
+    """Wrap Catalog.load to add its wall ms to the stream whose session
+    loads (the session's setup_tables ran in the stream's thread, named
+    `stream-<n>`): the watchdog runs each query in a worker thread of its
+    own, so the session, not the thread, names the stream. Returns
+    ({stream name: load ms}, restore)."""
+    orig_load, orig_setup = TS.Catalog.load, TP.setup_tables
+    owner, ms = {}, {}
+    lock = threading.Lock()
+
+    def setup_tables(session, *a, **k):
+        with lock:
+            owner[id(session)] = threading.current_thread().name
+            ms.setdefault(owner[id(session)], 0.0)
+        return orig_setup(session, *a, **k)
+
+    def load(self, name, columns=None):
+        t0 = time.perf_counter()
+        try:
+            return orig_load(self, name, columns)
+        finally:
+            who = owner.get(id(self.session))
+            if who is not None:
+                with lock:
+                    ms[who] += (time.perf_counter() - t0) * 1e3
+
+    TP.setup_tables, TS.Catalog.load = setup_tables, load
+
+    def restore():
+        TP.setup_tables, TS.Catalog.load = orig_setup, orig_load
+    return ms, restore
+
+
+def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
+                     streams=THROUGHPUT_STREAMS, log_dir=None):
+    """The Throughput Run on the card: `streams`, generated with the port's
+    cli/gen_query_stream from the Load Test's RNGSEED, all 103 statements
+    each, run at once through cli/throughput.py in thread mode over the
+    warehouse `wh`, with the kernels on, the stream phase's watchdog and
+    engine.verify_plans=final, the card's catalog and working-set lines
+    divided between the streams (throughput_conf). Launch counts are
+    zeroed and the peak reset just before the run and read just after
+    (for the phase as a whole: the streams share the card and its
+    counters); catalog-load ms per stream. Gates: every statement
+    Completed but those THROUGHPUT_EXPECTED_FAILURES lists, the reference's
+    time-log rows in each log, the printed Ttt equal to _ttt_from_logs of
+    those logs, the streams' [start, end] windows overlapping,
+    THROUGHPUT_KERNELS launched, no PlanVerifyError; then each stream's
+    THROUGHPUT_VALIDATE statements that read the most fact rows, run again
+    stream after stream in one session with the kernels off, and validate
+    finding no unmatched query. Emits `throughput_query` lines and a
+    `throughput` line; returns the launches. The run's log
+    (line-buffered), time logs and JSON summaries go to `log_dir` where
+    given, else beside the outputs under `root`."""
+    from nds_tpu_torch import power as TP
+    from nds_tpu_torch import throughput as TT
+    from nds_tpu_torch import validate as TV
+    from nds_tpu_torch.analysis import budget as B
+    from nds_tpu_torch.cli import throughput as TTCLI
+    from nds_tpu_torch.engine import session as TS
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.schema import get_schemas
+
+    t_phase = time.perf_counter()
+    d = os.path.join(root, "throughput")
+    os.makedirs(d)
+    with open(os.path.join(root, "load.report")) as fh:
+        seed = re.search(r"^RNGSEED used: (\d{11})$", fh.read(),
+                         re.M).group(1)
+    sdir = os.path.join(d, "streams")
+    run_cli(os.path.join(d, "gen_query_stream.log"),
+            "nds_tpu_torch.cli.gen_query_stream", "--streams",
+            max(streams) + 1, "--scale", sf, "--rngseed", seed,
+            "--output_dir", sdir)
+    names = {}
+    for n in streams:
+        names[n] = list(TP.gen_sql_from_stream(
+            os.path.join(sdir, f"query_{n}.sql")))
+        if len(names[n]) != STREAM_STATEMENTS:
+            fail(f"throughput stream {n}: {len(names[n])} statements")
+    conf, catalog_bytes = throughput_conf(B, dev, len(streams), on)
+    prop = property_file(os.path.join(d, "throughput.properties"), conf)
+    log_root = log_dir or d
+    os.makedirs(log_root, exist_ok=True)
+    base = os.path.join(log_root, "time")
+    log_path = os.path.join(log_root, "throughput.log")
+    old_env = os.environ.get("NDS_CATALOG_BUDGET_BYTES")
+    os.environ["NDS_CATALOG_BUDGET_BYTES"] = str(catalog_bytes)
+    load_ms, restore = stream_loads(TP, TS)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        GK.reset_launches()
+        t0 = time.perf_counter()
+        with open(log_path, "w", buffering=1) as fh, \
+                contextlib.redirect_stdout(fh):
+            TTCLI.main([wh, sdir, ",".join(map(str, streams)), base,
+                        "--property_file", prop,
+                        "--output_prefix", os.path.join(d, "out"),
+                        "--json_summary_folder", os.path.join(log_root, "json")])
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = dict(GK.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    finally:
+        restore()
+        if old_env is None:
+            os.environ.pop("NDS_CATALOG_BUDGET_BYTES", None)
+        else:
+            os.environ["NDS_CATALOG_BUDGET_BYTES"] = old_env
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(log_path) as fh:
+        printed = re.findall(
+            r"^====== Throughput Test Time: ([\d.]+) seconds ======$",
+            fh.read(), re.M)
+    ttt = TT._ttt_from_logs(streams, base)
+    windows = {n: TT._read_start_end(f"{base}_{n}.csv") for n in streams}
+    per_stream, summaries, logs = {}, {}, {}
+    for n in streams:
+        summaries[n] = read_summaries(os.path.join(log_root, "json",
+                                                   f"stream_{n}"))
+        logs[n] = read_time_log(f"{base}_{n}.csv")
+        for name, s in summaries[n].items():
+            emit({"phase": "throughput_query", "stream": n, "query": name,
+                  "status": s["queryStatus"][0],
+                  "failure_kind": s.get("failureKind"),
+                  "retries": s["retries"],
+                  "rungs": [r["rung"] for r in s.get("ladder", [])],
+                  "cold_ms": s["queryTimes"][0]})
+        statuses = [s["queryStatus"][0] for s in summaries[n].values()]
+        per_stream[n] = {
+            "power_test_ms": dict(logs[n]).get("Power Test Time"),
+            "load_ms": load_ms.get(f"stream-{n}"),
+            "start": windows[n][0], "end": windows[n][1],
+            "completed": statuses.count("Completed"),
+            "completed_with_task_failures":
+                statuses.count("CompletedWithTaskFailures"),
+            "failed": statuses.count("Failed")}
+    single = a_on["power_test_ms"]
+    made_for = THROUGHPUT_MADE_FOR
+    cut = [f"SF{sf:g} and {len(streams)} streams of SF{made_for['sf']} and "
+           f"{made_for['streams']} (the time limit; "
+           f"tools/torch_throughput_phase.py runs them)"
+           ] if (sf < made_for["sf"]
+                 or len(streams) < made_for["streams"]) else []
+    emit({"phase": "throughput", "sf": sf, "streams": list(streams),
+          "ttt_s": ttt, "printed_ttt_s": printed, "per_stream": per_stream,
+          "single_stream_power_test_ms": single,
+          "single_stream_load_ms": a_on["load_ms"],
+          "ttt_over_single": ttt * 1e3 / single,
+          "ttt_over_sum_of_singles": ttt * 1e3 / (single * len(streams)),
+          "peak_gib": peak, "catalog_line_bytes": catalog_bytes,
+          "working_set_line_bytes": conf["engine.plan_budget_bytes"],
+          "completed": sum(p["completed"] for p in per_stream.values()),
+          "failed": sum(p["failed"] for p in per_stream.values()),
+          "launches": launches, "run_s": seconds,
+          "reduced": reduced + cut})
+
+    if printed != [str(ttt)]:
+        fail(f"throughput: printed Ttt {printed}, the time logs give {ttt}")
+    if max(s for s, _ in windows.values()) > min(
+            e for _, e in windows.values()):
+        fail(f"throughput: the streams' windows do not overlap: {windows}")
+    for k in THROUGHPUT_KERNELS:
+        if launches[k] == 0:
+            fail(f"throughput: kernel {k} was not launched")
+    tables = get_schemas(True)
+    for n in streams:
+        check_stream_run(f"T{n}", names[n], summaries[n], logs[n], tables,
+                         expected=THROUGHPUT_EXPECTED_FAILURES.get(n, {}))
+        bad = {q: s["exceptions"][-1][:300] for q, s in summaries[n].items()
+               if any("PlanVerifyError" in x for x in s["exceptions"])}
+        if bad:
+            fail(f"throughput stream {n}: plan verification failed: {bad}")
+
+    # validate: the statements reading the most fact rows, re-run without
+    # concurrency and with the kernels off
+    t_val = time.perf_counter()
+    first = TP.gen_sql_from_stream(os.path.join(sdir,
+                                                f"query_{streams[0]}.sql"))
+    rows = fact_rows_read(dev, sf, first)
+    failed = {q for n in streams for q in THROUGHPUT_EXPECTED_FAILURES.get(
+        n, {})}
+    subset = sorted((q for q in rows if q not in failed),
+                    key=lambda q: (-rows[q], names[streams[0]].index(q))
+                    )[:THROUGHPUT_VALIDATE]
+    # one session for both streams: the second reads the columns the
+    # first loaded
+    ref = Session(conf=dict(off), device=dev)
+    ref.register_nds_tables(wh)
+    unmatched = {}
+    for n in streams:
+        queries = TP.gen_sql_from_stream(os.path.join(sdir,
+                                                      f"query_{n}.sql"))
+        out = os.path.join(d, f"reference_{n}")
+        with open(os.path.join(d, f"reference_{n}.log"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            for q in subset:
+                TP.run_one_query(ref, queries[q], q, out, "parquet")
+        unmatched[n] = TV.iterate_queries(
+            os.path.join(d, f"out_{n}"), out, subset, is_float=False)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "throughput_validate", "validated": subset,
+          "fact_rows": {q: rows[q] for q in subset}, "unmatched": unmatched,
+          "seconds": time.perf_counter() - t_val,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "reduced": [f"{len(subset)} statements of {STREAM_STATEMENTS} a "
+                      f"stream, those reading the most fact rows (the time "
+                      f"limit)"]})
+    if any(unmatched.values()):
+        fail(f"throughput: validate found unmatched queries {unmatched}")
+    return launches
+
+
+#: the explain phase's scale: the SF100 the earlier phases model
+EXPLAIN_SF = 100
+#: the statements the card's lines refused at SF100 in the earlier phases
+#: (PERF.md §5, ROADMAP.md queue 3 item 1)
+KNOWN_REFUSALS = ("query93", "query16", "query36", "query67")
+
+
+def explain_phase(dev):
+    """cli/explain.py --budget --scale EXPLAIN_SF over all 99 templates
+    (each instantiated from stream 0's seed sequence, explain's own), on
+    the card's lines, with NDS_VERIFY_PLANS=all: the plan verifier after
+    binding and after each rewrite pass of every statement. Gate: no
+    verifier violation. The verdicts are printed, not gated: one
+    `explain` line with each statement's verdict and modeled peak and the
+    count per verdict."""
+    from nds_tpu_torch.analysis import budget as B
+    from nds_tpu_torch.analysis.verifier import PlanVerifyError
+    from nds_tpu_torch.cli import explain as TE
+    from nds_tpu_torch.datagen.query_streams import available_templates
+
+    t0 = time.perf_counter()
+    old = os.environ.get("NDS_VERIFY_PLANS")
+    os.environ["NDS_VERIFY_PLANS"] = "all"
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = TE.main(["--query", ",".join(
+                str(q) for q in available_templates()), "--budget",
+                "--scale", str(EXPLAIN_SF), "--device", str(dev)])
+    except PlanVerifyError as exc:
+        fail(f"explain: plan verification failed: {exc}")
+    finally:
+        if old is None:
+            os.environ.pop("NDS_VERIFY_PLANS", None)
+        else:
+            os.environ["NDS_VERIFY_PLANS"] = old
+    found, label = [], None
+    for line in out.getvalue().splitlines():
+        m = re.match(r"^== (query\d+)#\d+$", line)
+        if m:
+            label = m.group(1)
+            continue
+        m = re.match(r"^verdict: (\w+)  peak=(\S+)", line)
+        if m:
+            found.append((label, [m.group(1), m.group(2)]))
+    # two-statement templates (14, 23, 24, 39) as the stream names them
+    parts = {q: sum(1 for k, _ in found if k == q) for q, _ in found}
+    verdicts, seen = {}, {}
+    for q, v in found:
+        seen[q] = seen.get(q, 0) + 1
+        verdicts[q if parts[q] == 1 else f"{q}_part{seen[q]}"] = v
+    counts = {}
+    for v, _ in verdicts.values():
+        counts[v] = counts.get(v, 0) + 1
+    lines = B.budget_lines(dev)
+    emit({"phase": "explain", "sf": EXPLAIN_SF, "verify_plans": "all",
+          "statements": len(verdicts), "counts": counts, "rc": rc,
+          "lines_gib": {k: v / 2**30 for k, v in vars(lines).items()},
+          "known_refusals": {q: [v for k, v in verdicts.items()
+                                 if k.split("_")[0] == q]
+                             for q in KNOWN_REFUSALS},
+          "verdicts": verdicts, "seconds": time.perf_counter() - t0})
+    if len(verdicts) != STREAM_STATEMENTS:
+        fail(f"explain: {len(verdicts)} verdicts, not {STREAM_STATEMENTS}")
 
 
 #: whether torch.profiler has traced the card once in this process
@@ -3650,7 +4033,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        steady = [run(s_on, q)[1] for _ in range(5)]
+        steady = [run(s_on, q)[1] for _ in range(STEADY_RUNS)]
         budget = budget_record(
             B, s_on, torch.cuda.max_memory_allocated(dev) - before, dev,
             refused[q])
@@ -3685,7 +4068,8 @@ def main(argv=None):
             fail("the ORDER BY query returned no rows")
         results[q] = rec
         emit(rec)
-    emit({"phase": "slice", "launches": launches, "peak_gib": peak})
+    emit({"phase": "slice", "launches": launches, "peak_gib": peak,
+          "steady_runs": STEADY_RUNS, "reduced": STEADY_CUT})
 
     # -- profile ---------------------------------------------------------
     for q in QUERIES:
@@ -3763,10 +4147,22 @@ def main(argv=None):
     # -- stream ------------------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    stream_a, stream_b = stream_phase(torch, GK, dev, on, off, args.scale)
+    # -- throughput (over leg A's warehouse, before it goes) --------------
+    throughput = {}
+
+    def then(root_a, wh_a, sf_a, a_on):
+        throughput.update(throughput_phase(torch, GK, dev, root_a, wh_a,
+                                           sf_a, on, off, a_on, reduced))
+
+    stream_a, stream_b = stream_phase(torch, GK, dev, on, off, args.scale,
+                                      then=then)
     for rec in kernels:
         rec["stream_a_launches"] = stream_a[rec["name"]]
         rec["stream_b_launches"] = stream_b[rec["name"]]
+        rec["throughput_launches"] = throughput[rec["name"]]
+
+    # -- explain -----------------------------------------------------------
+    explain_phase(dev)
 
     # -- kernel_sweep ------------------------------------------------------
     torch.cuda.empty_cache()

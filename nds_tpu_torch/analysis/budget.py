@@ -536,6 +536,50 @@ class PlanBudget:
     spillable: bool = False
     spill_partitions: Optional[int] = None  # set when verdict == spill
 
+    def table(self, limit: int = 0) -> str:
+        """The per-node estimate table and the verdict line, as the
+        reference prints them (explain --budget); the single-device model
+        has no sharded node and no per-device verdict."""
+        rows = self.nodes if not limit else self.nodes[-limit:]
+        out = [
+            f"{'rows':>12}  {'width':>6}  {'cap':>12}  {'alloc':>10}  "
+            f"{'peak':>10}  node"
+        ]
+        for n in rows:
+            out.append(
+                f"{n.rows:>12}  {n.width:>6}  {n.cap:>12}  "
+                f"{_fmt_bytes(n.alloc_bytes):>10}  "
+                f"{_fmt_bytes(n.peak_bytes):>10}  "
+                f"{'[blocked] ' if n.blocked else ''}{n.desc[:72]}"
+            )
+        out.append(
+            f"verdict: {self.verdict}  peak={_fmt_bytes(self.peak_bytes)}"
+            f" (windowed={_fmt_bytes(self.peak_blocked_bytes)})"
+            f" budget={_fmt_bytes(self.budget_bytes)}"
+            + (f" window_rows={self.window_rows}" if self.window_rows else "")
+            + (
+                f" spill_partitions={self.spill_partitions}"
+                if self.spill_partitions
+                else ""
+            )
+            + (
+                f" unknown_tables={sorted(set(self.unknown_tables))}"
+                if self.unknown_tables
+                else ""
+            )
+        )
+        return "\n".join(out)
+
+
+def _fmt_bytes(b: int) -> str:
+    if b >= 1 << 30:
+        return f"{b / (1 << 30):.2f}G"
+    if b >= 1 << 20:
+        return f"{b / (1 << 20):.1f}M"
+    if b >= 1 << 10:
+        return f"{b / (1 << 10):.1f}K"
+    return str(int(b))
+
 
 
 class PlanBudgeter:

@@ -19,10 +19,12 @@ domain of the Power Run's harness is the reference's: fault injection
 (`engine.fault_spec` / NDS_FAULT_SPEC, faults.py), `recover_memory` and
 the task-failure listeners that report.py's degradation ladder drives,
 and the catalog's load-time retry after a device OOM (a CUDA OOM as well
-as an XLA RESOURCE_EXHAUSTED text). Conf keys and environment knobs of
-layers not ported yet (tracing, metrics, plan verification, the host-RSS
-watermark, cardinality feedback) raise NotImplementedError rather than
-being ignored.
+as an XLA RESOURCE_EXHAUSTED text). With `engine.verify_plans` the plan
+verifier (analysis/verifier.py) re-checks each plan. Conf keys and
+environment knobs of layers not ported yet (tracing, metrics, the flight
+recorder, kernel spans, the host-RSS watermark, the mesh, lock debugging,
+cardinality feedback) raise NotImplementedError rather than being
+ignored.
 
 A CUDA session needs the caching allocator's expandable segments (the
 SF100 working sets leave little room for fragmentation): the first one
@@ -59,20 +61,79 @@ from .exec import Executor
 from .sql import ast as A
 from .sql.parser import parse_script, parse_sql
 
-#: (conf key, environment knob, values that leave the layer off) of layers
-#: the port has not ported, with the ROADMAP.md item that ports them. "0" is
-#: off only for the watermark: a metrics port of 0 binds an ephemeral port,
-#: and a trace_dir of 0 names a directory.
+
+def _on_unless(key, env, off):
+    """A knob's resolver: conf `key`, else the environment knob `env`, is on
+    unless empty or one of `off` (the trace, metrics and watermark knobs)."""
+
+    def on(conf):
+        v = conf.get(key) or os.environ.get(env)
+        return bool(v) and str(v).lower() not in off
+    return on
+
+
+def _conf_else_env(conf, key, env):
+    """The value of conf `key`, else of the environment knob `env` (None
+    when neither is set), as the reference's resolvers read it."""
+    v = conf.get(key)
+    return os.environ.get(env) if v is None else v
+
+
+def _lock_debug_on(conf):
+    # nds_tpu/engine/lockdebug.py resolve_lock_debug
+    v = _conf_else_env(conf, "engine.lock_debug", "NDS_LOCK_DEBUG")
+    return v is not None and str(v).strip().lower() in (
+        "1", "true", "yes", "on")
+
+
+def _flight_recorder_on(conf):
+    # nds_tpu/obs/flight.py resolve_enabled turns the recorder on when the
+    # knob is unset; the port has none, so only an explicit "on" raises
+    v = _conf_else_env(conf, "engine.flight_recorder",
+                       "NDS_FLIGHT_RECORDER")
+    return v is not None and str(v).strip().lower() not in (
+        "0", "off", "false", "no")
+
+
+def _trace_kernels_on(conf):
+    # nds_tpu/obs/trace.py resolve_kernel_trace
+    v = _conf_else_env(conf, "engine.trace_kernels", "NDS_TRACE_KERNELS")
+    return v is not None and str(v).lower() in ("1", "on", "true")
+
+
+def _mesh_devices_on(conf):
+    # read from conf only (nds_tpu/analysis/budget.py session_mesh_devices)
+    try:
+        return int(conf.get("engine.mesh_devices") or 0) > 0
+    except (TypeError, ValueError):
+        return False
+
+
+#: (conf key, environment knob, resolver of conf -> on, the ROADMAP.md item
+#: that ports the layer) of layers the port has not ported: a knob that
+#: turns its layer on, by the reference's own resolver, raises. "0" is off
+#: only for the watermark: a metrics port of 0 binds an ephemeral port, and
+#: a trace_dir of 0 names a directory.
 _UNPORTED_KNOBS = (
-    ("engine.trace_dir", "NDS_TRACE_DIR", ("off",),
+    ("engine.trace_dir", "NDS_TRACE_DIR",
+     _on_unless("engine.trace_dir", "NDS_TRACE_DIR", ("off",)),
      "queue 1 item 12 (serve/obs)"),
-    ("engine.metrics_port", "NDS_METRICS_PORT", ("off",),
+    ("engine.metrics_port", "NDS_METRICS_PORT",
+     _on_unless("engine.metrics_port", "NDS_METRICS_PORT", ("off",)),
      "queue 1 item 12 (serve/obs)"),
     # the watermark's sampler is obs/memwatch
-    ("engine.host_rss_watermark", "NDS_HOST_RSS_WATERMARK", ("off", "0"),
+    ("engine.host_rss_watermark", "NDS_HOST_RSS_WATERMARK",
+     _on_unless("engine.host_rss_watermark", "NDS_HOST_RSS_WATERMARK",
+                ("off", "0")),
      "queue 1 item 12 (serve/obs)"),
-    ("engine.verify_plans", "NDS_VERIFY_PLANS", ("off",),
-     "queue 1 item 9 (harness entry points)"),
+    ("engine.flight_recorder", "NDS_FLIGHT_RECORDER", _flight_recorder_on,
+     "queue 1 item 12 (serve/obs)"),
+    ("engine.trace_kernels", "NDS_TRACE_KERNELS", _trace_kernels_on,
+     "queue 1 item 12 (serve/obs)"),
+    ("engine.mesh_devices", None, _mesh_devices_on,
+     "queue 1 item 13 (parallel/)"),
+    ("engine.lock_debug", "NDS_LOCK_DEBUG", _lock_debug_on,
+     "queue 1 item 15 (the engine's own checks)"),
 )
 
 _ITEM9 = "ROADMAP.md queue 1 item 9 (harness entry points)"
@@ -352,12 +413,11 @@ class Session:
                  device=None):
         self.use_decimal = use_decimal
         self.conf = dict(conf or {})
-        for key, env, off, item in _UNPORTED_KNOBS:
-            v = self.conf.get(key) or os.environ.get(env)
-            if v and str(v).lower() not in off:
+        for key, env, on, item in _UNPORTED_KNOBS:
+            if on(self.conf):
                 raise NotImplementedError(
-                    f"{key} / {env} is not ported to nds_tpu_torch yet: "
-                    f"ROADMAP.md {item}"
+                    f"{key}{f' / {env}' if env else ''} is not ported to "
+                    f"nds_tpu_torch yet: ROADMAP.md {item}"
                 )
         fb = self.conf.get("engine.plan_feedback") or os.environ.get(
             "NDS_PLAN_FEEDBACK")
@@ -519,6 +579,45 @@ class Session:
     def _executor(self):
         return Executor(self.catalog, self.device)
 
+    def _finish_plan(self, plan, promotions=()):
+        """The post-bind rewrites: prune scans, annotate blocked union
+        aggregates, then the static plan budgeter (no fusion pass: the
+        port runs unfused, ROADMAP.md queue 1 item 11).
+
+        With `engine.verify_plans` / NDS_VERIFY_PLANS set (off by default,
+        one dict lookup when off) the PlanVerifier re-checks the plan's
+        invariants, at the reference's stages: `final` verifies the
+        finished plan once, `all` after binding and after each rewrite
+        pass. A violation raises PlanVerifyError, which faults.classify
+        makes a `planner` failure."""
+        level = self.conf.get("engine.verify_plans") or os.environ.get(
+            "NDS_VERIFY_PLANS")
+        verify = None
+        if level and str(level).lower() != "off":
+            from ..analysis import verifier as _verifier
+
+            level = _verifier.resolve_level(self.conf)
+
+            def verify(p, stage):
+                _verifier.verify_plan(p, self.catalog, stage=stage,
+                                      promotions=promotions)
+
+        every = verify is not None and level == "all"
+        if every:
+            verify(plan, "bind")
+        plan = prune_columns(plan, self.catalog)
+        if every:
+            verify(plan, "prune_columns")
+        P.mark_blocked_union_aggs(plan)
+        if every:
+            verify(plan, "mark_blocked_union_aggs")
+        B.budget_plan(plan, self)
+        if every:
+            verify(plan, "plan_budget")
+        if verify is not None and level == "final":
+            verify(plan, "final")
+        return plan
+
     def sql(self, text: str) -> Result:
         return self.run_stmt(parse_sql(text))
 
@@ -532,9 +631,7 @@ class Session:
     def run_stmt(self, stmt) -> Optional[Result]:
         if isinstance(stmt, A.SelectStmt):
             binder = Binder(self.catalog)
-            plan = prune_columns(binder.bind(stmt), self.catalog)
-            P.mark_blocked_union_aggs(plan)
-            B.budget_plan(plan, self)
+            plan = self._finish_plan(binder.bind(stmt), binder.promotions)
             return Result(self, plan)
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported to nds_tpu_torch yet: "

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -51,9 +52,19 @@ LAUNCHES = {
 }
 
 
+#: guards LAUNCHES: concurrent streams launch from several threads
+_LAUNCHES_LOCK = threading.Lock()
+
+
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _launched(name: str):
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 _P = ctypes.c_void_p
@@ -218,7 +229,7 @@ def _segment_sums_launch(vals, gid, n_groups: int, plan=None):
         counts.data_ptr(), acc.data_ptr(), plan.tables, plan.blocks, stream,
     )
     _raise_if(rc, "segment_sums")
-    LAUNCHES["segment_sums"] += 1
+    _launched("segment_sums")
     return sums, counts
 
 
@@ -315,7 +326,7 @@ def segment_extreme(vals, gid, n_groups: int, is_max: bool):
             plan.tables, plan.threads, plan.blocks, stream,
         )
         _raise_if(rc, "segment_extreme")
-        LAUNCHES["segment_extreme"] += 1
+        _launched("segment_extreme")
     bits = torch.where(keys >= 0, keys, keys ^ 0x7FFFFFFF)
     ext = torch.where(nan_flag != 0, float("nan"), bits.view(torch.float32))
     return ext, counts
@@ -411,7 +422,7 @@ def dense_build(rkey, rlive, rmin: int, table_cap: int, plan=None):
         _DENSE_PATHS[plan.path], plan.slots, n_sm, stream,
     )
     _raise_if(rc, "dense_build")
-    LAUNCHES["dense_build"] += 1
+    _launched("dense_build")
     if cap_pad != table_cap:
         return presence[:table_cap], rows[:table_cap]
     return presence, rows
@@ -505,7 +516,7 @@ def _sort_pipeline(keys, domain: int, want_rank: bool):
         rank.data_ptr() if want_rank else None, perm.data_ptr(), stream,
     )
     _raise_if(rc, "sort_perm")
-    LAUNCHES["sort_perm"] += 1
+    _launched("sort_perm")
     return rank, hist[scratch:], perm
 
 

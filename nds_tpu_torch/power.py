@@ -159,14 +159,18 @@ def run_query_stream(
     mesh_devices=None,
     query_timeout=None,
     device=None,
+    start_gate=None,
 ):
     """Run the stream sequentially with per-query timing and reports.
 
     Mirrors the reference loop (nds/nds_power.py:184-299): a session built
     with the property file's conf, table setup, a BenchReport per query
     with Failed-and-continue semantics, the CSV time log and its optional
-    copy. `device` is the session's (None: the card). Returns the session
-    when `keep_session`, else None."""
+    copy. `device` is the session's (None: the card). `start_gate` (the
+    Throughput Run's rendezvous, throughput._StartGate.wait) is called
+    after table setup; the epoch time it returns becomes the stream's
+    `Power Start Time`. Returns the session when `keep_session`, else
+    None."""
     if mesh_devices:
         raise NotImplementedError(
             "mesh_devices is not ported to nds_tpu_torch yet: ROADMAP.md "
@@ -194,7 +198,15 @@ def run_query_stream(
     )
     if sub_queries:
         query_dict = get_query_subset(query_dict, sub_queries)
-    power_start = int(time.time())
+    if start_gate is not None:
+        # concurrent streams: every stream finishes setup before any
+        # stream's Power clock starts, and the gate's shared release time
+        # is each stream's start, so the [start, end] windows overlap by
+        # construction
+        gate_t = start_gate()
+        power_start = int(gate_t) if gate_t is not None else int(time.time())
+    else:
+        power_start = int(time.time())
     # the epoch Power Start/End rows are the time log's contract; elapsed
     # figures are monotonic
     power_start_mono = time.perf_counter()

@@ -644,6 +644,19 @@ _REPORT_KNOBS = {
 
 @pytest.mark.parametrize("knob", sorted(_REPORT_KNOBS))
 def test_unported_report_knobs_raise(knob, monkeypatch):
+    if knob == "engine.verify_plans":
+        # ported: the session starts, and its plans check the level as the
+        # reference's do (off | final | all)
+        for conf in ({knob: "1"}, {knob: "off"}, {}):
+            TorchSession(conf=conf, device="cpu")
+        monkeypatch.setenv(_REPORT_KNOBS[knob], "0")
+        for conf in ({}, {knob: "1"}):
+            with pytest.raises(ValueError, match="engine.verify_plans"):
+                TorchSession(conf=conf, device="cpu").sql("select 1 as a")
+        for level in ("off", "final", "all"):
+            assert TorchSession(conf={knob: level}, device="cpu").sql(
+                "select 1 as a").to_pylist() == [{"a": 1}]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         TorchSession(conf={knob: "1"}, device="cpu")
     TorchSession(conf={knob: "off"}, device="cpu")

@@ -407,20 +407,67 @@ def test_session_defaults_to_cuda_and_never_falls_back(monkeypatch):
     assert TS.resolve_device("cpu").type == "cpu"
 
 
-def test_unported_conf_knobs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchSession(conf={"engine.verify_plans": "all"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TorchSession(conf={"engine.plan_feedback": "on"}, device="cpu")
-    # ported (forced spill, fault injection), or accepted with nothing
-    # recorded (feedback)
+#: knobs of layers the port has not ported: (conf key, environment knob or
+#: None, values that turn the layer on, values that leave it off, the
+#: ROADMAP.md item), each on and off by the reference's own resolver
+UNPORTED_LAYER_KNOBS = [
+    ("engine.plan_feedback", "NDS_PLAN_FEEDBACK", ("on",),
+     ("off", "record"), "item 14"),
+    ("engine.lock_debug", "NDS_LOCK_DEBUG", ("1", "true", "yes", "on", "ON"),
+     ("0", "off", "no", "false", "2"), "item 15"),
+    # the reference turns the recorder on when unset: the port has none,
+    # so an explicit setting raises unless it is off
+    ("engine.flight_recorder", "NDS_FLIGHT_RECORDER", ("on", "1", "true"),
+     ("off", "0", "false", "no", "OFF"), "item 12"),
+    ("engine.trace_kernels", "NDS_TRACE_KERNELS", ("1", "on", "true"),
+     ("0", "off", "yes"), "item 12"),
+    ("engine.mesh_devices", None, ("1", "2", 8), ("0", "", "x", None),
+     "item 13"),
+]
+
+
+@pytest.mark.parametrize("key,env,on,off,item", UNPORTED_LAYER_KNOBS,
+                         ids=[k[0] for k in UNPORTED_LAYER_KNOBS])
+def test_unported_conf_knobs_raise(key, env, on, off, item, monkeypatch):
+    for var in ("NDS_PLAN_FEEDBACK", "NDS_LOCK_DEBUG", "NDS_FLIGHT_RECORDER",
+                "NDS_TRACE_KERNELS"):
+        monkeypatch.delenv(var, raising=False)
+    TorchSession(device="cpu")  # unset: every layer stays off
+    for v in on:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 "
+                           f"{item}"):
+            TorchSession(conf={key: v}, device="cpu")
+    for v in off:
+        TorchSession(conf={key: v}, device="cpu")
+    if env is None:
+        return
+    for v in on:
+        monkeypatch.setenv(env, str(v))
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 "
+                           f"{item}"):
+            TorchSession(device="cpu")
+        # the conf tier wins over the environment
+        TorchSession(conf={key: off[0]}, device="cpu")
+    for v in off:
+        monkeypatch.setenv(env, str(v))
+        TorchSession(device="cpu")
+
+
+def test_ported_conf_knobs_are_accepted():
+    """Forced spill, fault injection, plan verification, and feedback
+    accepted with nothing recorded; fusion, the plan cache and the AOT
+    cache keys change no answer and are accepted (the port runs
+    unfused)."""
     from nds_tpu_torch import faults
 
     try:
         for conf in ({"engine.spill": "force"},
                      {"engine.plan_feedback": "record"},
                      {"engine.plan_feedback": "off"},
-                     {"engine.fault_spec": "io:nowhere:1"}):
+                     {"engine.fault_spec": "io:nowhere:1"},
+                     {"engine.verify_plans": "all"},
+                     {"engine.fuse": "on"}, {"engine.plan_cache": "on"},
+                     {"engine.aot_cache_dir": ""}):
             assert TorchSession(conf=conf, device="cpu").conf == conf
     finally:
         faults.reset()
@@ -465,7 +512,10 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_nds_tpu():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "tools", n)
+        for n in os.listdir(os.path.join(ROOT, "tools"))
+        if n.startswith("torch_") and n.endswith(".py")]
     for d, _, names in os.walk(os.path.join(ROOT, "nds_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
@@ -488,7 +538,11 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/transcode.py",
             "nds_tpu_torch/cli/transcode.py",
             "nds_tpu_torch/validate.py",
-            "nds_tpu_torch/cli/validate.py"} <= rel
+            "nds_tpu_torch/cli/validate.py",
+            "nds_tpu_torch/throughput.py",
+            "nds_tpu_torch/cli/throughput.py",
+            "nds_tpu_torch/cli/explain.py",
+            "tools/torch_throughput_phase.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch
