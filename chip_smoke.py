@@ -130,7 +130,8 @@ Phases, each printing one JSON line:
   throughput  the Throughput Run over leg A's warehouse, before it goes:
            streams 1 and 2 (THROUGHPUT_STREAMS, the first Throughput Test
            of a 5-stream NDS run) generated from the Load Test's RNGSEED,
-           all 103 statements each, at once through cli/throughput.py in
+           each cut to its first THROUGHPUT_TEMPLATES templates in its own
+           order (the time limit), at once through cli/throughput.py in
            thread mode with the kernels on, the stream watchdog and
            engine.verify_plans=final, each session with half the card's
            catalog and working-set lines. Launch counts are zeroed and the
@@ -148,6 +149,32 @@ Phases, each printing one JSON line:
            session with the kernels off, validated (`throughput_validate`:
            no unmatched query). Made for SF10 with 4 streams: `reduced` says so, and
            tools/torch_throughput_phase.py runs that
+  lakehouse  the lakehouse, csv and orc entries, over the stream phase's
+           legs (their .dat files kept for it) before their directory
+           goes: leg A's data through cli/transcode.py --output_format
+           lakehouse --workers 4 (`lakehouse_load`: Load Test seconds,
+           rows/s, data files and manifest versions per fact table), then
+           again with --resume, which must convert 0 rows; stream 0's 103
+           statements cold through cli/power.py --input_format lakehouse
+           with the kernels on and the watchdog (run `L_on`, its
+           `stream_query` lines and a `lakehouse_stream` line: Power Test
+           Time, catalog load ms and peak beside A_on's), every statement
+           Completed, validate against A_on finding no unmatched query,
+           dense_build and sort_perm launched; `lakehouse_prune`: a
+           date-range aggregate over store_sales must prune to a strict
+           subset of its files, the budgeter must model the clamped rows,
+           and the answer must equal engine.lake_prune=off's and the
+           parquet warehouse's; `lakehouse_isolation`: a session pins
+           store_sales and re-reads its snapshot from disk while another
+           thread compacts the table and vacuums it (retain_last=1): the
+           answer must not change, vacuum must delete no pinned file, and
+           a fresh statement must read the compacted head with the same
+           answer; `lakehouse_formats`: leg B's data to a csv and an orc
+           warehouse (Load Test seconds), a statement per sales channel
+           through --input_format csv and orc, validated against leg B's
+           parquet answers (a host pyarrow without ORC fails it). Made for
+           SF10 / SF1 at leg A's and leg B's scale: `reduced` says so, and
+           tools/torch_lakehouse_phase.py runs that
   explain  cli/explain.py --budget --scale 100 over the 99 templates on the
            card's lines with NDS_VERIFY_PLANS=all: each statement's
            verdict and modeled peak and the count per verdict; a verifier
@@ -2757,10 +2784,10 @@ def instrument_stream(torch, GK, TP, dev, per_query):
     orig_load = TS.Catalog.load
     current = []  # the record of the query running now
 
-    def load(self, name, columns=None):
+    def load(self, name, columns=None, **lake):
         t0 = time.perf_counter()
         try:
-            return orig_load(self, name, columns)
+            return orig_load(self, name, columns, **lake)
         finally:
             if current:
                 current[0]["load_ms"] += (time.perf_counter() - t0) * 1e3
@@ -3087,11 +3114,14 @@ def run_drill(TP, faults, dev, root, wh, on, name, spec, conf, sqls):
 #: script stays inside its 1200 s: on an H100 the whole phase took 1,016 s
 #: at SF10 / SF1 alone (the SF10 transcode 304 s, each SF10 stream ~234 s).
 #: With the throughput phase over leg A's warehouse the script took 1,243 s
-#: at SF3 / SF0.3 and 1,196 s at SF2 / SF0.3 on an H100, so the legs run
+#: at SF3 / SF0.3 and 1,196 s at SF2 / SF0.3 on an H100, so the legs ran
 #: SF1 / SF0.2 (a stream's time is mostly per-file catalog loads, which
-#: every SF has: 1,829 date partitions a fact table)
+#: every SF has: 1,829 date partitions a fact table), and the lakehouse
+#: phase (153 s alone at SF1 / SF0.2 on an H100) cuts leg B to SF0.1. Leg
+#: A stays at SF1: below ~SF0.8 a generator chunk of store_sales fits one
+#: 64 MiB lakehouse file, and zone maps have nothing to prune
 STREAM_SF_A = 1
-STREAM_SF_B = 0.2
+STREAM_SF_B = 0.1
 STREAM_SF_MADE_FOR = {"A": 10, "B": 1}
 #: statements of a generated stream: 99 templates, 14 / 23 / 24 / 39 in two
 STREAM_STATEMENTS = 103
@@ -3104,13 +3134,14 @@ STREAM_CPU_THREADS = 4
 #: whole device ladder or a timeout may stand here, each with its entry in
 #: ROADMAP.md queue 3; the observed set must equal this in both directions
 STREAM_EXPECTED_FAILURES = {"A_on": {}, "A_off": {}, "B_card": {},
-                            "B_cpu": {}}
+                            "B_cpu": {}, "L_on": {}}
 STREAM_ALLOWED_KINDS = ("planner", "device_oom", "timeout")
 #: the kernels each leg's card runs must launch: leg A's decimal
 #: aggregates never reach the f32 segment kernels
 STREAM_KERNELS = {"A_on": ("dense_build", "sort_perm"),
                   "B_card": ("segment_sums", "segment_extreme",
-                             "dense_build", "sort_perm")}
+                             "dense_build", "sort_perm"),
+                  "L_on": ("dense_build", "sort_perm")}
 
 
 def spec_dim_rows(sf):
@@ -3222,16 +3253,18 @@ def start_load(root, raw, floats):
             time.perf_counter())
 
 
-def finish_load(leg, root, sf, raw, rows, load):
+def finish_load(leg, root, sf, raw, rows, load, keep_raw=False):
     """Steps 2-3 of a leg, ended: wait for the Load Test, delete the .dat
-    files, emit `stream_load`, generate stream 0 from the Load Test's
-    RNGSEED. Returns (warehouse, stream file, query names)."""
+    files (unless `keep_raw`: the lakehouse phase loads them again), emit
+    `stream_load`, generate stream 0 from the Load Test's RNGSEED. Returns
+    (warehouse, stream file, query names)."""
     from nds_tpu_torch import power as TP
 
     proc, t0 = load
     wait_cli(proc, os.path.join(root, "transcode.log"))
     load_s = time.perf_counter() - t0
-    shutil.rmtree(raw)
+    if not keep_raw:
+        shutil.rmtree(raw)
     wh = os.path.join(root, "warehouse")
     with open(os.path.join(root, "load.report")) as fh:
         text = fh.read()
@@ -3308,16 +3341,19 @@ def stream_queries(run, summaries, per_query):
 
 
 def stream_card_run(torch, GK, TP, dev, run, root, wh, stream, names, conf,
-                    floats):
+                    floats, input_format="parquet", json_dir=None):
     """A Power Run of the stream on the card through the port's CLI
-    (nds_tpu_torch.cli.power), with `conf` in its property file. Launch
-    counts are zeroed just before the stream and read just after. Returns
-    (summaries, time log, per-query records, launches, seconds)."""
+    (nds_tpu_torch.cli.power) over `wh` in `input_format`, with `conf` in
+    its property file. Launch counts are zeroed just before the stream and
+    read just after. The JSON summaries go to `json_dir` as they are
+    written where given, else beside the outputs. Returns (summaries, time
+    log, per-query records, launches, seconds)."""
     from nds_tpu_torch.cli import power as TCLI
     from nds_tpu_torch.schema import get_schemas
 
     d = os.path.join(root, run)
     os.makedirs(d)
+    json_dir = json_dir or os.path.join(d, "json")
     prop = property_file(os.path.join(d, "power.properties"), {
         **conf, "engine.query_timeout": STREAM_QUERY_TIMEOUT})
     per_query = {}
@@ -3328,9 +3364,9 @@ def stream_card_run(torch, GK, TP, dev, run, root, wh, stream, names, conf,
         GK.reset_launches()
         t0 = time.perf_counter()
         TCLI.main([wh, stream, os.path.join(d, "time.csv"),
-                   "--property_file", prop,
+                   "--property_file", prop, "--input_format", input_format,
                    "--output_prefix", os.path.join(d, "out"),
-                   "--json_summary_folder", os.path.join(d, "json")]
+                   "--json_summary_folder", json_dir]
                   + (["--floats"] if floats else []))
         torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
@@ -3339,7 +3375,7 @@ def stream_card_run(torch, GK, TP, dev, run, root, wh, stream, names, conf,
         restore()
     gc.collect()
     torch.cuda.empty_cache()
-    summaries = read_summaries(os.path.join(d, "json"))
+    summaries = read_summaries(json_dir)
     log = read_time_log(os.path.join(d, "time.csv"))
     check_stream_run(run, names, summaries, log, get_schemas(not floats))
     for k in STREAM_KERNELS.get(run, ()):
@@ -3388,17 +3424,18 @@ def stream_line(leg, run, log, summaries, per_query, launches, seconds,
           "reduced": reduced})
 
 
-def stream_phase(torch, GK, dev, on, off, scale, then=None):
+def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None):
     """The whole NDS chain on the card over a generated stream 0, in a
     temporary directory removed at the end. Leg A at SF STREAM_SF_A,
     decimals: kernels on, then off, validated against each other. Leg B at
     SF STREAM_SF_B, --floats: the card with the kernels on against the CPU
     (power with --device cpu, a process of its own). Leg B runs while leg
     A's Load Test does, and its CPU run beside leg A's card runs. `then`,
-    where given, is called last with leg A's directory, warehouse, SF and
-    its `A_on` stream line, before the directory goes (the throughput
-    phase). Returns the launches of leg A's `on` run and of leg B's card
-    run."""
+    where given, is called with leg A's directory, warehouse, SF and its
+    `A_on` stream line, before the directory goes (the throughput phase);
+    `lake`, where given, last with a dict of both legs (their .dat files
+    kept for it: the lakehouse phase). Returns the launches of leg A's `on`
+    run and of leg B's card run."""
     from nds_tpu_torch import power as TP
     from nds_tpu_torch.schema import get_schemas
 
@@ -3419,7 +3456,8 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None):
 
         raw_b, rows_b = generate("B", rb, sf_b)
         wh_b, stream_b, names_b = finish_load(
-            "B", rb, sf_b, raw_b, rows_b, start_load(rb, raw_b, True))
+            "B", rb, sf_b, raw_b, rows_b, start_load(rb, raw_b, True),
+            keep_raw=lake is not None)
         cpu_dir = os.path.join(rb, "B_cpu")
         t_cpu = time.perf_counter()
         cpu = run_cli(
@@ -3438,7 +3476,7 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None):
         stream_queries("B_card", card_b[0], card_b[2])
 
         wh_a, stream_a, names_a = finish_load("A", ra, sf_a, raw_a, rows_a,
-                                              load_a)
+                                              load_a, keep_raw=lake is not None)
         runs = {}
         for run, conf in (("A_on", on), ("A_off", off)):
             runs[run] = stream_card_run(torch, GK, TP, dev, run, ra, wh_a,
@@ -3481,6 +3519,16 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None):
             gc.collect()
             torch.cuda.empty_cache()
             then(ra, wh_a, sf_a, a_on)
+        if lake is not None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            lake({"root_a": ra, "raw_a": raw_a, "sf_a": sf_a, "wh_a": wh_a,
+                  "stream_a": stream_a, "names_a": names_a,
+                  "a_on_dir": os.path.join(ra, "A_on"), "a_on": a_on,
+                  "rows_a": rows_a, "root_b": rb, "raw_b": raw_b,
+                  "sf_b": sf_b, "stream_b": stream_b, "names_b": names_b,
+                  "b_card_dir": os.path.join(rb, "B_card"),
+                  "reduced": reduced})
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -3506,7 +3554,25 @@ THROUGHPUT_KERNELS = ("dense_build", "sort_perm")
 #: off, one session for both streams) re-runs for validate: those reading
 #: the most fact rows (the whole re-run of both streams does not fit the
 #: script's time limit)
-THROUGHPUT_VALIDATE = 3
+THROUGHPUT_VALIDATE = 2
+#: the templates of each stream the script's throughput phase runs: the
+#: first THROUGHPUT_TEMPLATES entries of each generated stream, in its own
+#: order (the time limit; None runs all 99, as tools/
+#: torch_throughput_phase.py does)
+THROUGHPUT_TEMPLATES = 40
+
+
+def truncate_stream(path, templates):
+    """Keep the first `templates` entries of a generated stream file, in
+    place. Returns its statement names before and after."""
+    from nds_tpu_torch import power as TP
+
+    before = list(TP.gen_sql_from_stream(path))
+    with open(path) as fh:
+        pieces = fh.read().split("-- start")
+    with open(path, "w") as fh:
+        fh.write("-- start".join(pieces[:templates + 1]))
+    return before, list(TP.gen_sql_from_stream(path))
 
 
 def throughput_conf(B, dev, n_streams, conf):
@@ -3558,10 +3624,10 @@ def stream_loads(TP, TS):
             ms.setdefault(owner[id(session)], 0.0)
         return orig_setup(session, *a, **k)
 
-    def load(self, name, columns=None):
+    def load(self, name, columns=None, **lake):
         t0 = time.perf_counter()
         try:
-            return orig_load(self, name, columns)
+            return orig_load(self, name, columns, **lake)
         finally:
             who = owner.get(id(self.session))
             if who is not None:
@@ -3576,7 +3642,8 @@ def stream_loads(TP, TS):
 
 
 def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
-                     streams=THROUGHPUT_STREAMS, log_dir=None):
+                     streams=THROUGHPUT_STREAMS, log_dir=None,
+                     templates=None):
     """The Throughput Run on the card: `streams`, generated with the port's
     cli/gen_query_stream from the Load Test's RNGSEED, all 103 statements
     each, run at once through cli/throughput.py in thread mode over the
@@ -3595,7 +3662,9 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
     finding no unmatched query. Emits `throughput_query` lines and a
     `throughput` line; returns the launches. The run's log
     (line-buffered), time logs and JSON summaries go to `log_dir` where
-    given, else beside the outputs under `root`."""
+    given, else beside the outputs under `root`. With `templates`, each
+    stream runs its first `templates` entries (truncate_stream), and the
+    statements validated are among those every stream ran."""
     from nds_tpu_torch import power as TP
     from nds_tpu_torch import throughput as TT
     from nds_tpu_torch import validate as TV
@@ -3618,10 +3687,12 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
             "--output_dir", sdir)
     names = {}
     for n in streams:
-        names[n] = list(TP.gen_sql_from_stream(
-            os.path.join(sdir, f"query_{n}.sql")))
-        if len(names[n]) != STREAM_STATEMENTS:
-            fail(f"throughput stream {n}: {len(names[n])} statements")
+        path = os.path.join(sdir, f"query_{n}.sql")
+        full = names[n] = list(TP.gen_sql_from_stream(path))
+        if templates is not None:
+            full, names[n] = truncate_stream(path, templates)
+        if len(full) != STREAM_STATEMENTS:
+            fail(f"throughput stream {n}: {len(full)} statements")
     conf, catalog_bytes = throughput_conf(B, dev, len(streams), on)
     prop = property_file(os.path.join(d, "throughput.properties"), conf)
     log_root = log_dir or d
@@ -3690,8 +3761,12 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
            f"tools/torch_throughput_phase.py runs them)"
            ] if (sf < made_for["sf"]
                  or len(streams) < made_for["streams"]) else []
+    if templates is not None:
+        cut.append(f"{len(names[streams[0]])} statements a stream (its first "
+                   f"{templates} templates) of {STREAM_STATEMENTS} (the time "
+                   f"limit)")
     emit({"phase": "throughput", "sf": sf, "streams": list(streams),
-          "ttt_s": ttt, "printed_ttt_s": printed, "per_stream": per_stream,
+          "statements": {n: len(names[n]) for n in streams}, "ttt_s": ttt, "printed_ttt_s": printed, "per_stream": per_stream,
           "single_stream_power_test_ms": single,
           "single_stream_load_ms": a_on["load_ms"],
           "ttt_over_single": ttt * 1e3 / single,
@@ -3728,7 +3803,8 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
     rows = fact_rows_read(dev, sf, first)
     failed = {q for n in streams for q in THROUGHPUT_EXPECTED_FAILURES.get(
         n, {})}
-    subset = sorted((q for q in rows if q not in failed),
+    ran = set.intersection(*(set(names[n]) for n in streams))
+    subset = sorted((q for q in rows if q not in failed and q in ran),
                     key=lambda q: (-rows[q], names[streams[0]].index(q))
                     )[:THROUGHPUT_VALIDATE]
     # one session for both streams: the second reads the columns the
@@ -3754,10 +3830,402 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
           "seconds": time.perf_counter() - t_val,
           "phase_seconds": time.perf_counter() - t_phase,
           "reduced": [f"{len(subset)} statements of {STREAM_STATEMENTS} a "
-                      f"stream, those reading the most fact rows (the time "
-                      f"limit)"]})
+                      f"stream, those reading the most fact rows that every "
+                      f"stream ran (the time limit)"]})
     if any(unmatched.values()):
         fail(f"throughput: validate found unmatched queries {unmatched}")
+    return launches
+
+
+#: the lakehouse phase: the decode workers of its Load Test
+LAKE_WORKERS = 4
+#: the scale the phase was made for (leg A's, at which its stream runs);
+#: tools/torch_lakehouse_phase.py runs it
+LAKE_MADE_FOR = {"A": 10, "B": 1}
+#: the pruning check: a date-range aggregate over store_sales, filtered
+#: directly on its date key (a month of 1999)
+LAKE_PRUNE_SQL = (
+    "select ss_store_sk, count(*) c, sum(ss_ext_sales_price) s, "
+    "sum(ss_quantity) q from store_sales "
+    "where ss_sold_date_sk between 2451180 and 2451210 "
+    "group by ss_store_sk order by ss_store_sk")
+#: the isolation check: an order-insensitive decimal aggregate (exact)
+LAKE_ISO_SQL = (
+    "select ss_sold_date_sk, count(*) c, sum(ss_ext_sales_price) s "
+    "from store_sales group by ss_sold_date_sk")
+#: a statement per sales channel of leg B's stream, over csv and over orc
+LAKE_FORMAT_QUERIES = ("query3", "query15", "query12")
+
+
+def start_lake_load(name, root, raw, *args):
+    """Start a Load Test of the lakehouse phase, a cli/transcode.py process
+    of its own, to `--output_format name` (the lakehouse, csv or orc) in
+    `root`/warehouse_<name>. Returns (process, log, warehouse, report) for
+    finish_lake_load."""
+    wh = os.path.join(root, f"warehouse_{name}")
+    log = os.path.join(root, f"transcode_{name}.log")
+    report = os.path.join(root, f"load_{name}.report")
+    return (run_cli(log, "nds_tpu_torch.cli.transcode", raw, wh, report,
+                    "--output_format", name, *args, background=True),
+            log, wh, report)
+
+
+def finish_lake_load(load):
+    """Wait for a start_lake_load process. Returns (warehouse, the Load
+    Test's own seconds, rows converted), read from its report."""
+    proc, log, wh, report = load
+    wait_cli(proc, log)
+    with open(report) as fh:
+        text = fh.read()
+    return (wh, float(re.search(r"^Load Test Time: ([\d.]+)", text,
+                                re.M).group(1)),
+            int(re.search(r"^Total rows converted: (\d+)$", text,
+                          re.M).group(1)))
+
+
+def lake_files_per_table(wh):
+    """{fact table: (data files at the head, manifest versions)} of a
+    lakehouse warehouse."""
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+    from nds_tpu_torch.schema import TABLE_PARTITIONING
+
+    out = {}
+    for t in sorted(TABLE_PARTITIONING):
+        path = os.path.join(wh, t)
+        if LakehouseTable.is_table(path):
+            lt = LakehouseTable(path)
+            out[t] = (len(lt.snapshot().rel_files), len(lt.versions()))
+    return out
+
+
+def timed_loads(TS):
+    """Wrap Catalog.load to sum its wall ms. Returns (ms box, restore)."""
+    orig = TS.Catalog.load
+    box = [0.0]
+
+    def load(self, name, columns=None, **lake):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, name, columns, **lake)
+        finally:
+            box[0] += (time.perf_counter() - t0) * 1e3
+
+    TS.Catalog.load = load
+
+    def restore():
+        TS.Catalog.load = orig
+    return box, restore
+
+
+def _lake_scan(P, plan):
+    return next(n for n in P.walk_plan(plan)
+                if isinstance(n, P.Scan) and n.table == "store_sales")
+
+
+def lake_prune_check(torch, dev, on, wh_lake, wh_pq):
+    """The zone-map pruning gate on the card: LAKE_PRUNE_SQL through a
+    fresh session with pruning on, one with engine.lake_prune=off, and one
+    over the parquet warehouse. The pruned scan must keep a strict subset
+    of store_sales' files and all three answers must be equal. Returns the
+    `lakehouse_prune` record."""
+    from nds_tpu_torch.analysis import budget as B
+    from nds_tpu_torch.engine import plan as P
+    from nds_tpu_torch.engine import session as TS
+    from nds_tpu_torch.engine.session import Session
+
+    got = {}
+    for tag, wh, fmt, prune in (("pruned", wh_lake, "lakehouse", "on"),
+                                ("unpruned", wh_lake, "lakehouse", "off"),
+                                ("parquet", wh_pq, "parquet", "on")):
+        s = Session(conf={**on, "engine.lake_prune": prune}, device=dev)
+        s.register_nds_tables(wh, fmt)
+        box, restore = timed_loads(TS)
+        try:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = s.sql(LAKE_PRUNE_SQL)
+            out = r.collect()
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            restore()
+        scan = _lake_scan(P, r.plan)
+        pb = B.analyze_plan(r.plan, s.catalog, budget_bytes=1 << 40,
+                            reject_bytes=1 << 41)
+        got[tag] = {"out": out, "ms": ms, "load_ms": box[0],
+                    "lake_files": scan.lake_files,
+                    "prune_rows": scan.prune_rows,
+                    "scan_rows": next(n.rows for n in pb.nodes
+                                      if n.desc.startswith("Scan")
+                                      and "store_sales" in n.desc),
+                    "table_rows": B.CatalogStats(s.catalog).table_rows(
+                        "store_sales")}
+        del s, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    total = len(LakehouseTable(os.path.join(wh_lake, "store_sales"))
+                .snapshot().rel_files)
+    kept = got["pruned"]["lake_files"]
+    rec = {"phase": "lakehouse_prune", "sql": LAKE_PRUNE_SQL,
+           "files_kept": None if kept is None else len(kept),
+           "files_total": total,
+           "rows": got["pruned"]["out"].num_rows,
+           "prune_rows": got["pruned"]["prune_rows"],
+           "table_rows": got["pruned"]["table_rows"],
+           "budget_scan_rows": got["pruned"]["scan_rows"],
+           "budget_scan_rows_unpruned": got["unpruned"]["scan_rows"],
+           **{f"{tag}_ms": g["ms"] for tag, g in got.items()},
+           **{f"{tag}_load_ms": g["load_ms"] for tag, g in got.items()}}
+    emit(rec)
+    if kept is None or not 0 < len(kept) < total:
+        fail(f"lakehouse prune: kept {rec['files_kept']} of {total} files")
+    if got["unpruned"]["lake_files"] is not None:
+        fail("lakehouse prune: engine.lake_prune=off still pruned")
+    if got["pruned"]["scan_rows"] != got["pruned"]["prune_rows"]:
+        fail(f"lakehouse prune: the budgeter modeled "
+             f"{got['pruned']['scan_rows']} scan rows, not the clamp "
+             f"{got['pruned']['prune_rows']}")
+    for tag in ("unpruned", "parquet"):
+        if not got["pruned"]["out"].equals(got[tag]["out"]):
+            fail(f"lakehouse prune: the pruned answer differs from {tag}'s")
+    return rec
+
+
+def lake_isolation_check(torch, dev, on, wh_lake):
+    """Snapshot isolation on the card: session S pins store_sales and runs
+    LAKE_ISO_SQL; a second thread compacts store_sales and then vacuums it
+    with retain_last=1 while S re-executes its pinned plan from disk (its
+    column cache dropped). S's answer must equal the one before, bit for
+    bit; vacuum must remove none of the pinned files; a fresh statement
+    then reads the compacted head and gets the same answer. Returns the
+    `lakehouse_isolation` record."""
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    path = os.path.join(wh_lake, "store_sales")
+    s = Session(conf=dict(on), device=dev)
+    s.register_nds_tables(wh_lake, "lakehouse")
+
+    def answer(res):
+        return res.collect().sort_by("ss_sold_date_sk")
+
+    before = answer(s.sql(LAKE_ISO_SQL))
+    r = s.sql(LAKE_ISO_SQL)  # plans: pins the snapshot S reads
+    pinned = s.catalog.entries["store_sales"].pinned_version
+    pinned_files = LakehouseTable(path).snapshot(pinned).files()
+    compacted = threading.Event()
+    box = {}
+
+    def maintenance():
+        try:
+            lt = LakehouseTable(path)
+            t0 = time.perf_counter()
+            box["compact"] = lt.compact()
+            box["compact_s"] = time.perf_counter() - t0
+            compacted.set()
+            t0 = time.perf_counter()
+            res = lt.vacuum(retain_last=1)
+            box["vacuum_s"] = time.perf_counter() - t0
+            box["vacuum"] = {k: v for k, v in res.items() if k != "removed"}
+            box["removed"] = res["removed"]
+        except BaseException as e:  # surfaced below
+            box["error"] = repr(e)
+            compacted.set()
+
+    th = threading.Thread(target=maintenance, name="lake-maintenance")
+    th.start()
+    compacted.wait()
+    s.recover_memory("lakehouse isolation: re-read the pin from disk")
+    r._table = None
+    t0 = time.perf_counter()
+    during = answer(r)
+    torch.cuda.synchronize(dev)
+    read_s = time.perf_counter() - t0
+    th.join()
+    if "error" in box:
+        fail(f"lakehouse isolation: maintenance failed: {box['error']}")
+    after_res = s.sql(LAKE_ISO_SQL)
+    head = s.catalog.entries["store_sales"].pinned_version
+    after = answer(after_res)
+    lost = [f for f in pinned_files if not os.path.exists(f)]
+    pinned_rel = {os.path.relpath(f, path) for f in pinned_files}
+    rec = emit({"phase": "lakehouse_isolation", "pinned_version": pinned,
+                "head_version": head, "pinned_files": len(pinned_files),
+                "head_files": len(LakehouseTable(path).snapshot()
+                                  .rel_files),
+                "compact": box["compact"], "compact_s": box["compact_s"],
+                "vacuum": box["vacuum"], "vacuum_s": box["vacuum_s"],
+                "pinned_read_s": read_s, "groups": before.num_rows,
+                "pinned_files_removed": len(pinned_rel & set(
+                    box["removed"])), "pinned_files_lost": len(lost)})
+    del s, r, after_res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if box["compact"]["version"] is None:
+        fail("lakehouse isolation: compaction rewrote nothing")
+    if lost or rec["pinned_files_removed"]:
+        fail(f"lakehouse isolation: vacuum deleted pinned files {lost}")
+    if not during.equals(before):
+        fail("lakehouse isolation: the pinned answer changed under "
+             "compaction and vacuum")
+    if head <= pinned or not after.equals(before):
+        fail(f"lakehouse isolation: the fresh statement read v{head} "
+             f"(pinned v{pinned}) and its answer "
+             f"{'matches' if after.equals(before) else 'differs'}")
+    return rec
+
+
+def lake_format_runs(torch, GK, TP, dev, ctx, on, loads):
+    """Leg B's csv and orc warehouses (`loads`: format -> finish_lake_load
+    of its Load Test), then LAKE_FORMAT_QUERIES (a statement per sales
+    channel) of leg B's stream through cli/power.py --input_format csv and
+    orc on the card, validated against leg B's parquet answers. Returns
+    the `lakehouse_formats` record."""
+    from nds_tpu_torch import validate as TV
+    from nds_tpu_torch.cli import power as TCLI
+
+    rb = ctx["root_b"]
+    rec = {"phase": "lakehouse_formats", "queries": list(LAKE_FORMAT_QUERIES)}
+    for fmt in ("csv", "orc"):
+        wh, load_test_s, converted = loads[fmt]
+        d = os.path.join(rb, f"F_{fmt}")
+        prop = property_file(os.path.join(rb, f"{fmt}.properties"), {
+            **on, "engine.query_timeout": STREAM_QUERY_TIMEOUT})
+        GK.reset_launches()
+        t0 = time.perf_counter()
+        with open(os.path.join(rb, f"F_{fmt}.log"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            TCLI.main([wh, ctx["stream_b"], os.path.join(d, "time.csv"),
+                       "--property_file", prop, "--input_format", fmt,
+                       "--floats", "--sub_queries",
+                       ",".join(LAKE_FORMAT_QUERIES),
+                       "--output_prefix", os.path.join(d, "out"),
+                       "--json_summary_folder", os.path.join(d, "json")])
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t0
+        summaries = read_summaries(os.path.join(d, "json"))
+        status = {q: s["queryStatus"][0] for q, s in summaries.items()}
+        unmatched = TV.iterate_queries(
+            os.path.join(ctx["b_card_dir"], "out"), os.path.join(d, "out"),
+            list(LAKE_FORMAT_QUERIES), is_float=True)
+        rec[fmt] = {"load_test_s": load_test_s, "rows": converted,
+                    "bytes": dir_bytes(wh), "run_s": run_s, "status": status,
+                    "launches": dict(GK.LAUNCHES), "unmatched": unmatched}
+        gc.collect()
+        torch.cuda.empty_cache()
+        if sorted(status) != sorted(LAKE_FORMAT_QUERIES) or any(
+                v != "Completed" for v in status.values()):
+            emit(rec)
+            fail(f"lakehouse formats: {fmt} statements {status}")
+        if unmatched:
+            emit(rec)
+            fail(f"lakehouse formats: {fmt} answers differ from parquet's: "
+                 f"{unmatched}")
+    return emit(rec)
+
+
+def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
+    """The lakehouse, csv and orc entries on the card, over the stream
+    phase's legs (`ctx`, stream_phase's `lake` argument; their .dat files
+    kept). (1) Leg A's data through cli/transcode.py --output_format
+    lakehouse --workers LAKE_WORKERS (`lakehouse_load`: the Load Test's
+    seconds and rows/s, data files and manifest versions per fact table),
+    then the same command with --resume, which must convert 0 rows, while
+    leg B's data goes to a csv and an orc warehouse (--floats) in two more
+    processes. (2)
+    Stream 0's 103 statements cold through cli/power.py --input_format
+    lakehouse with the kernels on and the stream watchdog (run `L_on`):
+    every statement Completed, validate against A_on finding no unmatched
+    query, dense_build and sort_perm launched; Power Test Time, catalog
+    load ms and peak beside A_on's. (3) lake_prune_check, (4)
+    lake_isolation_check, (5) lake_format_runs. The JSON summaries of the
+    stream go to `log_dir` as they are written, where given. Returns the
+    stream's launches."""
+    from nds_tpu_torch import power as TP
+
+    from pyarrow import orc  # noqa: F401  (a host without ORC fails here)
+
+    t_phase = time.perf_counter()
+    ra, sf = ctx["root_a"], ctx["sf_a"]
+    reduced = list(ctx["reduced"])
+    wh, load_test_s, converted = finish_lake_load(start_lake_load(
+        "lakehouse", ra, ctx["raw_a"], "--workers", LAKE_WORKERS))
+    started = {fmt: start_lake_load(fmt, ctx["root_b"], ctx["raw_b"],
+                                    "--floats") for fmt in ("csv", "orc")}
+    try:
+        t0 = time.perf_counter()
+        run_cli(os.path.join(ra, "transcode_resume.log"),
+                "nds_tpu_torch.cli.transcode", ctx["raw_a"], wh,
+                os.path.join(ra, "load_resume.report"),
+                "--output_format", "lakehouse", "--workers", LAKE_WORKERS,
+                "--resume")
+        resume_s = time.perf_counter() - t0
+        loads = {fmt: finish_lake_load(load)
+                 for fmt, load in started.items()}
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    with open(os.path.join(ra, "load_resume.report")) as fh:
+        resumed = int(re.search(r"^Total rows converted: (\d+)$", fh.read(),
+                                re.M).group(1))
+    files = lake_files_per_table(wh)
+    emit({"phase": "lakehouse_load", "sf": sf, "workers": LAKE_WORKERS,
+          "load_test_s": load_test_s,
+          "rows": converted, "rows_per_s": converted / load_test_s,
+          "bytes": dir_bytes(wh),
+          "files_per_fact_table": {t: f for t, (f, _) in files.items()},
+          "versions_per_fact_table": {t: v for t, (_, v) in files.items()},
+          "resume_rows": resumed, "resume_s": resume_s})
+    if converted != sum(ctx["rows_a"].values()):
+        fail(f"lakehouse load: converted {converted} rows of "
+             f"{sum(ctx['rows_a'].values())}")
+    if resumed != 0:
+        fail(f"lakehouse load: --resume converted {resumed} rows, not 0")
+
+    json_dir = None
+    if log_dir:
+        json_dir = os.path.join(log_dir, "L_on_json")
+        os.makedirs(json_dir, exist_ok=True)
+    summaries, log, per_query, launches, secs = stream_card_run(
+        torch, GK, TP, dev, "L_on", ra, wh, ctx["stream_a"],
+        ctx["names_a"], on, False, input_format="lakehouse",
+        json_dir=json_dir)
+    stream_queries("L_on", summaries, per_query)
+    names = ctx["names_a"]
+    v_s = stream_validate("L", os.path.join(ra, "L_on"), ctx["a_on_dir"],
+                          names, names, False,
+                          json_dir or os.path.join(ra, "L_on", "json"))
+    line = stream_line("L", "L_on", log, summaries, per_query, launches,
+                       secs, "A_on", v_s, reduced)
+    a_on = ctx["a_on"]
+    emit({"phase": "lakehouse_stream", "sf": sf,
+          "power_test_ms": line["power_test_ms"], "load_ms": line["load_ms"],
+          "peak_gib": line["peak_gib"],
+          "a_on_power_test_ms": a_on["power_test_ms"],
+          "a_on_load_ms": a_on["load_ms"], "a_on_peak_gib": a_on["peak_gib"],
+          "completed": line["completed"], "launches": launches})
+
+    prune = lake_prune_check(torch, dev, on, wh, ctx["wh_a"])
+    iso = lake_isolation_check(torch, dev, on, wh)
+    formats = lake_format_runs(torch, GK, TP, dev, ctx, on, loads)
+    cut = [f"leg {leg} at SF{s:g} of SF{LAKE_MADE_FOR[leg]:g} (the time "
+           f"limit; tools/torch_lakehouse_phase.py runs it)"
+           for leg, s in (("A", sf), ("B", ctx["sf_b"]))
+           if s < LAKE_MADE_FOR[leg]]
+    emit({"phase": "lakehouse", "sf": sf, "load_test_s": load_test_s,
+          "power_test_ms": line["power_test_ms"],
+          "a_on_power_test_ms": a_on["power_test_ms"],
+          "files_kept": prune["files_kept"],
+          "files_total": prune["files_total"],
+          "isolation_groups": iso["groups"],
+          "csv_load_test_s": formats["csv"]["load_test_s"],
+          "orc_load_test_s": formats["orc"]["load_test_s"],
+          "seconds": time.perf_counter() - t_phase,
+          "reduced": cut})
     return launches
 
 
@@ -4151,15 +4619,23 @@ def main(argv=None):
     throughput = {}
 
     def then(root_a, wh_a, sf_a, a_on):
-        throughput.update(throughput_phase(torch, GK, dev, root_a, wh_a,
-                                           sf_a, on, off, a_on, reduced))
+        throughput.update(throughput_phase(
+            torch, GK, dev, root_a, wh_a, sf_a, on, off, a_on, reduced,
+            templates=THROUGHPUT_TEMPLATES))
+
+    # -- lakehouse (over both legs, after the throughput phase) -----------
+    lakehouse = {}
+
+    def lake(ctx):
+        lakehouse.update(lakehouse_phase(torch, GK, dev, ctx, on))
 
     stream_a, stream_b = stream_phase(torch, GK, dev, on, off, args.scale,
-                                      then=then)
+                                      then=then, lake=lake)
     for rec in kernels:
         rec["stream_a_launches"] = stream_a[rec["name"]]
         rec["stream_b_launches"] = stream_b[rec["name"]]
         rec["throughput_launches"] = throughput[rec["name"]]
+        rec["lakehouse_launches"] = lakehouse[rec["name"]]
 
     # -- explain -----------------------------------------------------------
     explain_phase(dev)

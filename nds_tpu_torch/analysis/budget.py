@@ -400,7 +400,8 @@ def column_domain_table(col_name: str) -> Optional[str]:
 class CatalogStats:
     """Base-table row counts for the budgeter, best source first: the rows
     of a table already on the device, of a `table_from_numpy` table, of an
-    in-memory Arrow table, of a parquet dataset's metadata; then the TPC-DS
+    in-memory Arrow table, of a parquet or orc dataset's metadata, of a
+    lakehouse table's manifest; then the TPC-DS
     scale model when a scale factor is declared (conf
     `engine.plan_budget_sf`); else None (unknown)."""
 
@@ -417,13 +418,24 @@ class CatalogStats:
                 return int(e.table.nrows)
             if e.arrow is not None:
                 return int(e.arrow.num_rows)
-            if getattr(e, "fmt", None) == "parquet":
+            if getattr(e, "fmt", None) in ("parquet", "orc", "lakehouse"):
                 # memoized metadata count; a failed probe is memoized as
-                # -1 and falls through to the scale model
+                # -1 and falls through to the scale model. A lakehouse
+                # table answers from its manifest (the pinned snapshot,
+                # else the head), so a cold lakehouse warehouse still gets
+                # enforceable verdicts
                 if e.budget_est_rows is None:
                     try:
-                        e.budget_est_rows = int(
-                            self.catalog._dataset(e).count_rows())
+                        if e.fmt == "lakehouse":
+                            snap = e.pinned_snapshot
+                            if snap is None:
+                                from ..lakehouse.table import LakehouseTable
+
+                                snap = LakehouseTable(e.path).snapshot()
+                            e.budget_est_rows = int(snap.num_rows())
+                        else:
+                            e.budget_est_rows = int(
+                                self.catalog._dataset(e).count_rows())
                     except Exception:
                         e.budget_est_rows = -1
                 if e.budget_est_rows >= 0:
@@ -681,6 +693,12 @@ class PlanBudgeter:
     # -- per-node rules (mirror the executors' materialization) ----------
     def _est_scan(self, node: P.Scan) -> NodeEstimate:
         rows = self.stats.table_rows(node.table)
+        # the zone-map surviving-row bound (Session._prune_lake_scans): a
+        # hard upper bound from the pinned manifest's per-file stats,
+        # tighter than any table-level estimate whenever pruning fired
+        prune_rows = getattr(node, "prune_rows", None)
+        if prune_rows is not None:
+            rows = prune_rows if rows is None else min(rows, prune_rows)
         if rows is None:
             self.unknown_tables.append(node.table)
             rows = 0

@@ -2,8 +2,8 @@
 :309-384; the arguments of nds_tpu/cli/power.py):
 
     python -m nds_tpu_torch.cli.power <input_prefix> <query_stream_file> <time_log>
-        [--input_format parquet] [--output_prefix DIR]
-        [--output_format parquet] [--property_file F] [--floats]
+        [--input_format parquet|csv|orc|lakehouse] [--output_prefix DIR]
+        [--output_format parquet|csv] [--property_file F] [--floats]
         [--json_summary_folder DIR] [--sub_queries q1,q2,...]
         [--extra_time_log F] [--query_timeout S] [--fault_spec SPEC]
         [--device DEV]
@@ -35,10 +35,9 @@ def main(argv=None):
     )
     parser.add_argument(
         "--input_format",
-        choices=["parquet"],
+        choices=["parquet", "csv", "orc", "lakehouse"],
         default="parquet",
-        help="type of the input data source (csv, orc and lakehouse are not "
-        "ported yet)",
+        help="type of the input data source",
     )
     parser.add_argument(
         "--output_prefix",

@@ -2,7 +2,7 @@
 the arguments of nds_tpu/cli/throughput.py):
 
     python -m nds_tpu_torch.cli.throughput <input_prefix> <stream_dir>
-        <streams> <time_log_base> [--input_format parquet] [--floats]
+        <streams> <time_log_base> [--input_format parquet|csv|orc|lakehouse] [--floats]
         [--mode thread|process] [--sub_queries q1,q2] [--query_timeout S]
         [--device DEV] ...
 
@@ -36,8 +36,7 @@ def main(argv=None):
         "--input_format",
         choices=["parquet", "csv", "orc", "lakehouse"],
         default="parquet",
-        help="type of the input data source (csv, orc and lakehouse are not "
-        "ported yet: they raise)",
+        help="type of the input data source",
     )
     parser.add_argument("--property_file")
     parser.add_argument("--json_summary_folder")

@@ -2,12 +2,9 @@
 nds_tpu/cli/transcode.py; reference: nds/nds_transcode.py __main__ :218-290).
 
     python -m nds_tpu_torch.cli.transcode <input_prefix> <output_prefix> <report_file>
-        [--output_format parquet] [--output_mode overwrite|...]
-        [--tables t1,t2] [--floats] [--update] [--compression codec]
-
-Parquet is the output format ported. The reference's other formats (csv,
-orc, json, avro, lakehouse) and the lakehouse's --workers / --resume are
-accepted by the parser and raise NotImplementedError.
+        [--output_format parquet|csv|orc|json|avro|lakehouse]
+        [--output_mode overwrite|...] [--tables t1,t2] [--floats] [--update]
+        [--compression codec] [--workers N] [--resume]
 """
 
 import argparse
@@ -39,8 +36,7 @@ def main(argv=None):
         "--output_format",
         choices=["parquet", "csv", "orc", "json", "avro", "lakehouse"],
         default="parquet",
-        help="output data format when converting CSV data sources "
-        "(parquet; the others are not ported yet and raise)",
+        help="output data format when converting CSV data sources",
     )
     parser.add_argument(
         "--tables",
@@ -66,14 +62,13 @@ def main(argv=None):
         type=int,
         default=int(os.environ.get("NDS_TRANSCODE_WORKERS", "1")),
         help="decode worker processes for lakehouse ingest "
-             "(default NDS_TRANSCODE_WORKERS or 1; not ported yet: a value "
-             "other than 1 raises)",
+             "(default NDS_TRANSCODE_WORKERS or 1; other formats ignore it)",
     )
     parser.add_argument(
         "--resume",
         action="store_true",
-        help="lakehouse only: continue a killed ingest (not ported yet: "
-             "raises)",
+        help="lakehouse only: continue a killed ingest: replay chunks "
+             "missing from the manifest's ingest ledger, skip the rest",
     )
     args = parser.parse_args(argv)
     transcode(args)

@@ -180,6 +180,19 @@ class Table:
         )
 
 
+def table_device_bytes(table: Table) -> int:
+    """Device bytes held by a table's buffers (data + validity masks;
+    capacity-padded shapes are static, so this never syncs the device).
+    The one byte-estimation rule: the catalog's residency budget reads
+    it."""
+    total = 0
+    for c in table.columns.values():
+        total += int(c.data.nbytes)
+        if c.valid is not None:
+            total += int(c.valid.nbytes)
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Bounded row windows (blocked union aggregation)
 # ---------------------------------------------------------------------------
@@ -504,8 +517,13 @@ def table_to_arrow(table: Table):
 
 def _lut_gather(lut: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
     """lut[clip(codes)] on the codes' device (jnp gathers clamp; torch
-    raises on an out-of-range index, so the clamp is explicit)."""
+    raises on an out-of-range index, so the clamp is explicit). An empty
+    lut (the empty dictionary of a column with no value, e.g. a lakehouse
+    scan whose zone maps pruned every file) gives zeros: no row reads
+    them. The JAX package's gather raises there (ROADMAP.md queue 3)."""
     t = torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)
+    if t.numel() == 0:
+        return torch.zeros(codes.shape, dtype=t.dtype, device=codes.device)
     return t[codes.clamp(0, max(len(lut) - 1, 0)).long()]
 
 

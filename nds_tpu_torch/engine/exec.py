@@ -270,7 +270,15 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _exec_scan(self, node: P.Scan) -> Table:
-        t = self.catalog.load(node.table, node.columns)
+        # lake_version: the plan-time snapshot pin (Session._pin_lake_scans),
+        # which keeps the scan on its statement's snapshot even when another
+        # stream sharing the session has re-pinned the entry; lake_files:
+        # the zone-map pruned file subset (Session._prune_lake_scans), so
+        # the load opens only the surviving files
+        t = self.catalog.load(
+            node.table, node.columns, lake_version=node.lake_version,
+            lake_files=node.lake_files,
+        )
         uk = t.unique_key
         if uk is not None:
             uk = frozenset(f"{node.alias}.{n}" for n in uk)

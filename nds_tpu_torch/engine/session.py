@@ -1,11 +1,14 @@
 """Session: the user-facing entry point of the PyTorch/CUDA SQL engine — the
 single-device subset of nds_tpu/engine/session.py.
 
-A Session owns a catalog of named tables (parquet datasets read lazily
-column by column, in-memory Arrow tables, or device tables built with
-`table_from_numpy`), parses + binds + prunes SQL, executes it with the
-unfused operator path (whatever `engine.fuse` says: fusion is not ported),
-and returns Arrow tables.
+A Session owns a catalog of named tables (parquet, orc and transcoded csv
+datasets read lazily column by column, lakehouse tables pinned to one
+snapshot per statement and pruned file by file by their zone maps,
+in-memory Arrow tables, or device tables built with `table_from_numpy`),
+parses + binds + prunes SQL, executes it with the unfused operator path
+(whatever `engine.fuse` says: fusion is not ported), and returns Arrow
+tables. Statements other than SELECT (DML, CREATE VIEW) raise
+NotImplementedError (ROADMAP.md queue 1 item 9.6).
 
 It runs on the card unless the caller asks for the CPU: `device=None`
 resolves to `cuda` and raises when no GPU is present; nothing moves to the
@@ -22,9 +25,9 @@ and the catalog's load-time retry after a device OOM (a CUDA OOM as well
 as an XLA RESOURCE_EXHAUSTED text). With `engine.verify_plans` the plan
 verifier (analysis/verifier.py) re-checks each plan. Conf keys and
 environment knobs of layers not ported yet (tracing, metrics, the flight
-recorder, kernel spans, the host-RSS watermark, the mesh, lock debugging,
-cardinality feedback) raise NotImplementedError rather than being
-ignored.
+recorder, kernel spans, the host-RSS watermark, the tcp lakehouse catalog,
+the mesh, lock debugging, cardinality feedback) raise NotImplementedError
+rather than being ignored.
 
 A CUDA session needs the caching allocator's expandable segments (the
 SF100 working sets leave little room for fragmentation): the first one
@@ -43,8 +46,8 @@ from typing import Optional
 import torch
 
 from .. import faults
-from ..io.fs import local_path
 from ..analysis import budget as B
+from ..lakehouse.catalog import catalog_spec, is_tcp_spec
 from ..schema import (
     Field,
     Schema,
@@ -56,7 +59,13 @@ from . import expr as E
 from . import plan as P
 from . import spill as SP
 from .binder import Binder
-from .columnar import Table, _infer_dtype, table_from_arrow, table_to_arrow
+from .columnar import (
+    Table,
+    _infer_dtype,
+    table_device_bytes,
+    table_from_arrow,
+    table_to_arrow,
+)
 from .exec import Executor
 from .sql import ast as A
 from .sql.parser import parse_script, parse_sql
@@ -101,6 +110,12 @@ def _trace_kernels_on(conf):
     return v is not None and str(v).lower() in ("1", "on", "true")
 
 
+def _tcp_catalog_on(conf):
+    # nds_tpu/lakehouse/catalog.py resolve_catalog: an http(s) coordinator
+    # URL (`fs` is ported)
+    return is_tcp_spec(catalog_spec(conf))
+
+
 def _mesh_devices_on(conf):
     # read from conf only (nds_tpu/analysis/budget.py session_mesh_devices)
     try:
@@ -130,13 +145,15 @@ _UNPORTED_KNOBS = (
      "queue 1 item 12 (serve/obs)"),
     ("engine.trace_kernels", "NDS_TRACE_KERNELS", _trace_kernels_on,
      "queue 1 item 12 (serve/obs)"),
+    ("engine.lake_catalog", "NDS_LAKE_CATALOG", _tcp_catalog_on,
+     "queue 1 item 12 (serve/obs: the tcp catalog)"),
     ("engine.mesh_devices", None, _mesh_devices_on,
      "queue 1 item 13 (parallel/)"),
     ("engine.lock_debug", "NDS_LOCK_DEBUG", _lock_debug_on,
      "queue 1 item 15 (the engine's own checks)"),
 )
 
-_ITEM9 = "ROADMAP.md queue 1 item 9 (harness entry points)"
+_ITEM9_6 = "ROADMAP.md queue 1 item 9.6 (data maintenance: DML, CREATE VIEW)"
 
 
 _ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
@@ -191,9 +208,16 @@ class _Entry:
         self.schema = schema  # Schema or None (infer)
         self.arrow = arrow  # pa.Table (in-memory), or None
         self.table = table  # device Table (register_table), or None
-        self.path = path  # dataset directory (fmt "parquet"), or None
-        self.fmt = fmt
+        self.path = path  # dataset directory or lakehouse table, or None
+        self.fmt = fmt  # parquet | csv | orc | lakehouse
         self.device_cols = {}  # per-column device cache: name -> Column
+        # lakehouse snapshot pin (fmt "lakehouse" only): the manifest
+        # version this entry's reads resolve against, the TableSnapshot
+        # handle, and the reader lease registered for it
+        # (lakehouse/leases.py) so vacuum never deletes pinned files
+        self.pinned_version = None
+        self.pinned_snapshot = None
+        self.lease_id = None
         self.nrows = None
         self.pk_verified = None  # declared-PK verification memo
         # the budgeter's metadata row count of a dataset (-1: probe failed)
@@ -218,12 +242,7 @@ class Catalog:
 
     @staticmethod
     def _cached_bytes(e) -> int:
-        total = 0
-        for c in e.device_cols.values():
-            total += int(c.data.nbytes)
-            if c.valid is not None:
-                total += int(c.valid.nbytes)
-        return total
+        return table_device_bytes(Table(e.device_cols, 0))
 
     def resident_bytes(self) -> int:
         """Device bytes of every entry's cached columns."""
@@ -232,8 +251,10 @@ class Catalog:
     def _evict_to_budget(self, keep_name):
         """Drop the least recently used entries' device columns until the
         resident bytes fit DEVICE_BUDGET_BYTES. Only entries with a host
-        source (parquet, Arrow) can be dropped: a `register_table` table
-        has none and stays resident. Routine budget management, not a task
+        source (a dataset, a lakehouse table, Arrow) can be dropped: a
+        `register_table` table has none and stays resident. A pruned or
+        detached lakehouse read never enters the cache, so it is neither
+        counted nor evicted here. Routine budget management, not a task
         failure: it does not reach the listeners."""
         total = self.resident_bytes()
         if total <= self.DEVICE_BUDGET_BYTES:
@@ -267,15 +288,28 @@ class Catalog:
         at = e.arrow.schema if e.arrow is not None else self._dataset(e).schema
         return Schema(tuple(Field(f.name, _infer_dtype(f.type)) for f in at))
 
-    def _dataset(self, e: _Entry):
-        """The entry's pyarrow dataset, with hive partitioning discovery:
-        a fact table written as <date_sk>=<value>/ directories declares its
-        partition field's type from the table schema, so keys round-trip
-        with the right dtype."""
+    def _dataset(self, e: _Entry, snapshot=None, files=None):
+        """The entry's pyarrow dataset. A lakehouse entry reads its pinned
+        snapshot (or `snapshot`, the handle a load captured, or else the
+        head, resolved once), over `files` where given: a zone-map pruned
+        subset of the snapshot's file list (Scan.lake_files), the point
+        where pruning becomes skipped IO. Other formats get hive
+        partitioning discovery: a fact table written as <date_sk>=<value>/
+        directories declares its partition field's type from the table
+        schema, so keys round-trip with the right dtype; a transcoded csv
+        warehouse parses its columns to the declared types."""
         import pyarrow as pa
         import pyarrow.dataset as pads
 
+        if e.fmt == "lakehouse":
+            from ..lakehouse.table import LakehouseTable
+
+            snap = snapshot if snapshot is not None else e.pinned_snapshot
+            if snap is None:
+                snap = LakehouseTable(e.path).snapshot()
+            return snap.dataset(files=files)
         part = "hive"
+        fmt = e.fmt
         if e.schema is not None:
             use_decimal = self.session.use_decimal
             names = {f.name for f in e.schema}
@@ -288,11 +322,72 @@ class Catalog:
                     ]),
                     flavor="hive",
                 )
-        return pads.dataset(e.path, format=e.fmt, partitioning=part)
+            if e.fmt == "csv":
+                # transcoded csv warehouse (comma-delimited, with header)
+                import pyarrow.csv as pacsv
 
-    def load(self, name, columns=None) -> Table:
+                fmt = pads.CsvFileFormat(
+                    convert_options=pacsv.ConvertOptions(
+                        column_types={
+                            f.name: f.dtype.to_arrow(use_decimal)
+                            for f in e.schema
+                            if f.name not in pcols
+                        },
+                        strings_can_be_null=True,
+                    )
+                )
+        return pads.dataset(e.path, format=fmt, partitioning=part)
+
+    # ---- lakehouse snapshot pins ----------------------------------------
+    def pin_lakehouse(self, name, version=None):
+        """Resolve (or restore) a lakehouse entry's snapshot pin.
+
+        `version=None` resolves the current head once and pins it. When the
+        pin moves (the table advanced, or a plan carries an explicit older
+        pin), every cached device column of the old snapshot is dropped
+        first. The pin is registered in the process-wide reader-lease table
+        (and, with `engine.lake_catalog=fs`, in the table's catalog), so a
+        concurrent vacuum can never delete the pinned snapshot's files.
+        Returns the pinned version, or None for other entries."""
+        e = self.entries.get(name)
+        if e is None or e.fmt != "lakehouse":
+            return None
+        from ..lakehouse.leases import LEASES, resolve_lease_ttl
+        from ..lakehouse.table import LakehouseTable
+
+        lt = LakehouseTable(e.path, conf=self.session.conf)
+        snap = lt.snapshot(version)
+        ttl = resolve_lease_ttl(self.session.conf)
+        if e.pinned_version != snap.version:
+            # the pin moves: the columns cached from the old snapshot are
+            # stale
+            self.invalidate(name)
+            e.pinned_version = snap.version
+            e.pinned_snapshot = snap
+            e.lease_id = lt.acquire_reader_lease(snap, ttl)
+        else:
+            if e.pinned_snapshot is None:
+                e.pinned_snapshot = snap
+            if e.lease_id is None or not LEASES.renew(e.lease_id, ttl):
+                e.lease_id = lt.acquire_reader_lease(snap, ttl)
+        return e.pinned_version
+
+    def load(self, name, columns=None, lake_version=None,
+             lake_files=None) -> Table:
         """Load (a projection of) a table to the device, caching per column
         so repeated queries never re-read or re-upload what is resident.
+
+        `lake_version`: the plan-time snapshot pin this scan reads
+        (Scan.lake_version). A plan ahead of the entry's pin moves the pin
+        forward; a plan behind it (another statement of a shared session
+        advanced the entry) reads its own older snapshot detached, under a
+        lease of its own, and never touches the entry's cache.
+
+        `lake_files`: a zone-map pruned subset of the pinned snapshot's
+        files (Scan.lake_files). A subset read never touches the entry's
+        cache either (cached columns are the full table's): it reads
+        exactly those files and serves the plan directly. A pruned scan
+        with no columns reads the subset's row count.
 
         Injection sites `load:<name>` and `<name>` fire first. A device OOM
         while loading (a CUDA OOM, or an error whose text carries
@@ -302,6 +397,14 @@ class Catalog:
         e = self.entries.get(name)
         if e is None:
             raise KeyError(f"unknown table {name}")
+        if (
+            lake_version is not None
+            and e.fmt == "lakehouse"
+            and e.pinned_version != lake_version
+            # forward-only re-pin (see the docstring)
+            and (e.pinned_version is None or lake_version > e.pinned_version)
+        ):
+            self.pin_lakehouse(name, version=lake_version)
         self._use_tick += 1
         e.last_use = self._use_tick
         if columns is None:
@@ -312,14 +415,45 @@ class Catalog:
         if e.table is not None:
             e.device_cols = e.table.columns
             e.nrows = e.table.nrows
-        missing = [c for c in columns if c not in e.device_cols]
+        # capture this load's snapshot handle: a concurrent stream re-pinning
+        # the shared entry must not swap the manifest (or the column cache)
+        # out from under an in-flight read
+        snap = e.pinned_snapshot
+        subset = e.fmt == "lakehouse" and lake_files is not None
+        detached = (
+            e.fmt == "lakehouse"
+            and lake_version is not None
+            and (snap is None or snap.version != lake_version)
+        )
+        if detached:
+            from ..lakehouse.leases import resolve_lease_ttl
+            from ..lakehouse.table import LakehouseTable
+
+            lt = LakehouseTable(e.path, conf=self.session.conf)
+            snap = lt.snapshot(lake_version)
+            # the entry's lease covers the entry's pin, not this version:
+            # lease this snapshot before reading it (the TTL ends it)
+            lt.acquire_reader_lease(
+                snap, resolve_lease_ttl(self.session.conf))
+        if subset and not columns:
+            # zero-projection pruned scan: the row count of the subset,
+            # never the entry's full-table nrows
+            ds = self._dataset(e, snapshot=snap, files=list(lake_files))
+            return Table({}, ds.count_rows())
+        missing = (
+            list(columns) if detached or subset
+            else [c for c in columns if c not in e.device_cols]
+        )
         if missing:
 
             def _load(cols):
                 if e.arrow is not None:
                     arrow = e.arrow.select(cols)
                 else:
-                    arrow = self._dataset(e).to_table(columns=cols)
+                    arrow = self._dataset(
+                        e, snapshot=snap,
+                        files=list(lake_files) if subset else None,
+                    ).to_table(columns=cols)
                 return self._to_device(arrow, e)
 
             t = None
@@ -340,6 +474,15 @@ class Catalog:
                     f"task retry: device memory exhausted loading {name!r}; "
                     f"dropped cached tables and reloaded"
                 )
+            if detached or subset or (
+                snap is not None and e.pinned_snapshot is not snap
+            ):
+                # detached, pruned, or re-pinned by a concurrent stream
+                # mid-load: serve this plan's snapshot and leave the cache
+                # alone (its columns belong to the entry's pin)
+                if set(missing) != set(columns):
+                    t = _load(columns)
+                return Table({c: t.columns[c] for c in columns}, t.nrows)
             e.nrows = t.nrows
             e.device_cols.update(t.columns)
             self._evict_to_budget(keep_name=name)
@@ -357,6 +500,43 @@ class Catalog:
             if e.pk_verified:
                 out.unique_key = frozenset(pk)
         return out
+
+    def renew_lake_leases(self) -> int:
+        """Renew every lakehouse entry's reader lease (the report's
+        heartbeat calls this while a statement runs), so a statement that
+        outlives `engine.lake_lease_ttl_s` never has its pinned snapshot
+        vacuumed mid-read. Returns the number renewed. Best-effort: an
+        expired lease is left for the next pin_lakehouse to re-acquire."""
+        from ..lakehouse.leases import LEASES, resolve_lease_ttl
+
+        ttl = resolve_lease_ttl(self.session.conf)
+        renewed = 0
+        for e in list(self.entries.values()):
+            if e.fmt == "lakehouse" and e.lease_id is not None:
+                try:
+                    if LEASES.renew(e.lease_id, ttl):
+                        renewed += 1
+                except Exception:
+                    continue  # renewal must never take a query down
+        return renewed
+
+    def invalidate(self, name):
+        """Drop an entry's cached columns, row count, PK memo and snapshot
+        pin, releasing its reader lease: the next statement re-resolves
+        (and re-leases) the head at its own plan time."""
+        e = self.entries.get(name)
+        if e is None:
+            return
+        e.device_cols = {}
+        e.nrows = None
+        e.pk_verified = None
+        e.pinned_version = None
+        e.pinned_snapshot = None
+        if e.lease_id is not None:
+            from ..lakehouse.leases import LEASES
+
+            LEASES.release(e.lease_id)
+            e.lease_id = None
 
     def _to_device(self, arrow, e: _Entry):
         return table_from_arrow(arrow, e.schema, with_stats=True,
@@ -391,21 +571,23 @@ class Result:
 
     def write(self, path, fmt="parquet", transform=None):
         """Write the result as a single-file dataset directory
-        `path/part-0.parquet`, the layout the reference's validator reads
-        back. `transform(arrow) -> arrow` hooks a caller's step in before
-        the write (the Power Run's column-name sanitizer)."""
-        if fmt != "parquet":
-            raise NotImplementedError(
-                f"output format {fmt!r} is not ported to nds_tpu_torch yet "
-                f"(parquet is): {_ITEM9}"
-            )
+        `path/part-0.<fmt>` (parquet or csv), the layout the reference's
+        validator reads back. `transform(arrow) -> arrow` hooks a caller's
+        step in before the write (the Power Run's column-name
+        sanitizer)."""
+        import pyarrow.csv as pacsv
         import pyarrow.parquet as pq
 
         os.makedirs(path, exist_ok=True)
         arrow = self.collect()
         if transform is not None:
             arrow = transform(arrow)
-        pq.write_table(arrow, os.path.join(path, "part-0.parquet"))
+        if fmt == "parquet":
+            pq.write_table(arrow, os.path.join(path, "part-0.parquet"))
+        elif fmt == "csv":
+            pacsv.write_csv(arrow, os.path.join(path, "part-0.csv"))
+        else:
+            raise ValueError(f"unsupported output format {fmt}")
 
 
 class Session:
@@ -504,21 +686,58 @@ class Session:
         """A parquet dataset directory (hive-partitioned or not), read
         lazily: each column is read and uploaded on first use."""
         self.catalog.entries[name.lower()] = _Entry(
-            schema=schema, path=local_path(path), fmt="parquet"
+            schema=schema, path=path, fmt="parquet"
+        )
+
+    def register_orc(self, name, path, schema=None):
+        self.catalog.entries[name.lower()] = _Entry(
+            schema=schema, path=path, fmt="orc"
+        )
+
+    def register_csv_dir(self, name, path, schema):
+        """A raw pipe-delimited .dat directory (the generator's layout),
+        read whole into Arrow at registration."""
+        from ..io.csv import read_dat_dir
+
+        arrow = read_dat_dir(path, schema, self.use_decimal)
+        self.register_arrow(name, arrow, schema)
+
+    def register_csv_warehouse(self, name, path, schema):
+        """A transcoded csv warehouse directory (comma-delimited part files
+        with a header, possibly hive-partitioned), read lazily like
+        parquet."""
+        self.catalog.entries[name.lower()] = _Entry(
+            schema=schema, path=path, fmt="csv"
+        )
+
+    def register_lakehouse(self, name, path, schema=None):
+        """A snapshot-manifest (ACID) table. Registration runs the
+        once-per-process crash-hygiene sweep: a crashed writer's staged but
+        uncommitted data files and torn manifest temps go before any query
+        reads the table."""
+        from ..lakehouse.table import sweep_table_at_session_start
+
+        sweep_table_at_session_start(path)
+        self.catalog.entries[name.lower()] = _Entry(
+            schema=schema, path=path, fmt="lakehouse"
         )
 
     def register_nds_tables(self, data_root, fmt="parquet"):
-        """Register every source table found under a warehouse
-        directory."""
-        if fmt != "parquet":
-            raise NotImplementedError(
-                f"input format {fmt!r} is not ported to nds_tpu_torch yet "
-                f"(parquet is): {_ITEM9}"
-            )
-        root = local_path(data_root)
+        """Register every source table found under a warehouse directory
+        (a local path or an fsspec URL) in format `fmt`: parquet, orc, csv
+        (a transcoded csv warehouse) or lakehouse."""
+        import posixpath
+
+        from ..io.fs import get_fs, join as fs_join
+
+        fs, root = get_fs(data_root)
+        if fmt == "lakehouse":
+            from ..lakehouse.table import sweep_table_at_session_start
         for tname, schema in get_schemas(self.use_decimal).items():
-            path = os.path.join(root, tname)
-            if os.path.exists(path):
+            if fs.exists(posixpath.join(root, tname)):
+                path = fs_join(data_root, tname)
+                if fmt == "lakehouse":
+                    sweep_table_at_session_start(path)
                 self.catalog.entries[tname] = _Entry(
                     schema=schema, path=path, fmt=fmt
                 )
@@ -580,9 +799,12 @@ class Session:
         return Executor(self.catalog, self.device)
 
     def _finish_plan(self, plan, promotions=()):
-        """The post-bind rewrites: prune scans, annotate blocked union
-        aggregates, then the static plan budgeter (no fusion pass: the
-        port runs unfused, ROADMAP.md queue 1 item 11).
+        """The post-bind rewrites: prune scans, pin each lakehouse scan's
+        snapshot and prune its files by zone maps (before the budgeter, so
+        pruning, budgeting and execution see one manifest version),
+        annotate blocked union aggregates, then the static plan budgeter
+        (no fusion pass: the port runs unfused, ROADMAP.md queue 1 item
+        11).
 
         With `engine.verify_plans` / NDS_VERIFY_PLANS set (off by default,
         one dict lookup when off) the PlanVerifier re-checks the plan's
@@ -608,6 +830,8 @@ class Session:
         plan = prune_columns(plan, self.catalog)
         if every:
             verify(plan, "prune_columns")
+        self._pin_lake_scans(plan)
+        self._prune_lake_scans(plan)
         P.mark_blocked_union_aggs(plan)
         if every:
             verify(plan, "mark_blocked_union_aggs")
@@ -616,6 +840,63 @@ class Session:
             verify(plan, "plan_budget")
         if verify is not None and level == "final":
             verify(plan, "final")
+        return plan
+
+    def _pin_lake_scans(self, plan):
+        """Snapshot-isolate this statement: resolve each lakehouse scan's
+        manifest version once at plan time, annotate the Scan nodes with it
+        (the executor threads it into catalog.load), and register the pins
+        as reader leases. A query that scans a table twice, or re-runs
+        after a device-OOM recovery wiped the column cache, reads one
+        snapshot even while a concurrent replace or append commits."""
+        if not any(
+            e.fmt == "lakehouse" for e in self.catalog.entries.values()
+        ):
+            return plan
+        pinned = {}
+        for n in P.walk_plan(plan):
+            if isinstance(n, P.Scan):
+                if n.table not in pinned:
+                    pinned[n.table] = self.catalog.pin_lakehouse(n.table)
+                if pinned[n.table] is not None:
+                    n.lake_version = pinned[n.table]
+        return plan
+
+    def _prune_lake_scans(self, plan):
+        """Zone-map file pruning: for each Filter directly over a pinned
+        lakehouse Scan, evaluate the filter's simple single-column
+        conjuncts against the pinned manifest's per-file stats and annotate
+        the Scan with the surviving files (Scan.lake_files: the load opens
+        only those) and the surviving-row upper bound (Scan.prune_rows:
+        the budgeter clamps its scan estimate with it). The filter still
+        runs over every surviving row, so a conservative zone map costs
+        IO, never correctness. `engine.lake_prune=off` turns it off."""
+        if str(self.conf.get("engine.lake_prune", "on")).lower() == "off":
+            return plan
+        from ..lakehouse.zonemap import prune_files
+
+        for n in P.walk_plan(plan):
+            if not (isinstance(n, P.Filter) and isinstance(n.child, P.Scan)):
+                continue
+            scan = n.child
+            if scan.lake_version is None:
+                continue
+            e = self.catalog.entries.get(scan.table)
+            snap = e.pinned_snapshot if e is not None else None
+            if snap is None or snap.version != scan.lake_version:
+                continue  # detached pin: skip rather than re-resolve
+            stats = snap.file_stats()
+            if not stats:
+                continue  # manifest without stats: nothing known
+            preds = _zone_preds(n.predicate, scan.alias)
+            if not preds:
+                continue
+            keep, pruned_rows = prune_files(snap.rel_files, stats, preds)
+            if len(keep) < len(snap.rel_files):
+                scan.lake_files = tuple(keep)
+                total = snap.num_rows()
+                if total >= 0:
+                    scan.prune_rows = max(total - pruned_rows, 0)
         return plan
 
     def sql(self, text: str) -> Result:
@@ -635,8 +916,73 @@ class Session:
             return Result(self, plan)
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported to nds_tpu_torch yet: "
-            f"{_ITEM9}"
+            f"{_ITEM9_6}"
         )
+
+
+# ---------------------------------------------------------------------------
+# Zone-map pruning: the prunable conjuncts of a scan's filter
+# ---------------------------------------------------------------------------
+
+#: the mirror of each comparison (a literal-on-left comparison flips)
+_ZONE_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
+
+
+def _zone_preds(pred, alias):
+    """Reduce a filter predicate to the conjuncts zone maps can act on, as
+    the plain tuples lakehouse/zonemap.py evaluates: column-vs-literal
+    comparisons, BETWEEN, IN lists and IS NOT NULL over this scan's
+    columns. Anything else (OR trees, expressions over the column, NULL
+    literals, negated forms) is not extracted: less pruning, never wrong
+    pruning."""
+    prefix = alias + "."
+    out = []
+
+    def col(e):
+        if isinstance(e, E.Col) and e.name.startswith(prefix):
+            return e.name.split(".", 1)[1]
+        return None
+
+    def lit(e):
+        if isinstance(e, E.Lit) and e.value is not None:
+            return e.value
+        return None
+
+    def walk(e):
+        if isinstance(e, E.BinOp):
+            if e.op == "and":
+                walk(e.left)
+                walk(e.right)
+                return
+            if e.op in _ZONE_FLIP:
+                c, v = col(e.left), lit(e.right)
+                if c is not None and v is not None:
+                    out.append(("cmp", c, e.op, v))
+                    return
+                c, v = col(e.right), lit(e.left)
+                if c is not None and v is not None:
+                    out.append(("cmp", c, _ZONE_FLIP[e.op], v))
+            return
+        if isinstance(e, E.Between) and not e.negated:
+            c = col(e.operand)
+            lo, hi = lit(e.low), lit(e.high)
+            if c is not None and lo is not None and hi is not None:
+                out.append(("between", c, lo, hi))
+            return
+        if isinstance(e, E.InList) and not e.negated and e.values:
+            c = col(e.operand)
+            if c is not None:
+                vals = tuple(lit(v) for v in e.values)
+                if all(v is not None for v in vals):
+                    out.append(("in", c, vals))
+            return
+        if isinstance(e, E.UnaryOp) and e.op == "isnotnull":
+            c = col(e.operand)
+            if c is not None:
+                out.append(("notnull", c))
+
+    walk(pred)
+    return out
 
 
 

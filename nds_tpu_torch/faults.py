@@ -47,10 +47,9 @@ trace event: the tracer is ROADMAP.md queue 1 item 12.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
-
-import torch
 
 # ---------------------------------------------------------------------------
 # failure taxonomy
@@ -134,7 +133,10 @@ def classify(err) -> str:
     contains "MemoryError"."""
     if isinstance(err, BaseException):
         text = f"{type(err).__name__}: {err}"
-        if isinstance(err, torch.OutOfMemoryError):
+        # torch is not imported here: a process that never imported it (the
+        # Load Test's ingest workers) cannot hold a torch.OutOfMemoryError
+        torch = sys.modules.get("torch")
+        if torch is not None and isinstance(err, torch.OutOfMemoryError):
             return DEVICE_OOM
         if isinstance(err, MemoryError):
             return HOST_OOM

@@ -24,8 +24,6 @@ from .io.fs import fs_open, fs_open_atomic
 from .report import BenchReport
 from .schema import get_schemas
 
-_ITEM9 = "ROADMAP.md queue 1 item 9 (harness entry points)"
-
 
 def split_special_query(q: str):
     """Split a two-statement stream entry (templates 14/23/24/39) into
@@ -75,19 +73,31 @@ def setup_tables(session, input_prefix, input_format, use_decimal,
                  execution_time_list, app_id):
     """Register every source table on the session, timing each
     registration (reference: per-table temp-view creation,
-    nds/nds_power.py:79-106). Parquet is the format ported; csv, orc and
-    lakehouse raise. Durations use the monotonic clock."""
-    if input_format in ("csv", "orc", "lakehouse"):
-        raise NotImplementedError(
-            f"input format {input_format!r} is not ported to nds_tpu_torch "
-            f"yet (parquet is): {_ITEM9}"
-        )
-    if input_format != "parquet":
-        raise ValueError(f"unsupported input format {input_format}")
+    nds/nds_power.py:79-106): parquet, orc, lakehouse, or csv (raw
+    generator output, or a transcoded csv warehouse). Durations use the
+    monotonic clock."""
+    import glob
+
     for table_name, schema in get_schemas(use_decimal).items():
         start = time.perf_counter()
-        session.register_parquet(
-            table_name, os.path.join(input_prefix, table_name), schema)
+        table_path = os.path.join(input_prefix, table_name)
+        if input_format == "csv":
+            # raw generator output (pipe-delimited .dat chunks) or a
+            # transcoded csv warehouse (comma-delimited part files)
+            if (glob.glob(os.path.join(table_path, "*.dat"))
+                    or os.path.isfile(table_path)):
+                session.register_csv_dir(table_name, table_path, schema)
+            else:
+                session.register_csv_warehouse(table_name, table_path,
+                                               schema)
+        elif input_format == "parquet":
+            session.register_parquet(table_name, table_path, schema)
+        elif input_format == "orc":
+            session.register_orc(table_name, table_path, schema)
+        elif input_format == "lakehouse":
+            session.register_lakehouse(table_name, table_path, schema)
+        else:
+            raise ValueError(f"unsupported input format {input_format}")
         dur_ms = int((time.perf_counter() - start) * 1000)
         print(f"====== Creating TempView for table {table_name} ======")
         print(f"Time taken: {dur_ms} millis for table {table_name}")

@@ -28,6 +28,14 @@ and their aliases `env.engineConf` / `env.engineVersion` (always equal),
 (`memoryHighWater`), the host-RSS watermark and the flight recorder are
 ROADMAP.md queue 1 item 12: the summary is what the reference writes with
 NDS_FLIGHT_RECORDER=off.
+
+While a statement runs on a session with lakehouse entries, a heartbeat
+thread renews the session's reader leases every NDS_HEARTBEAT_INTERVAL_MS
+(default 1000; the reference renews them on its memory sampler's
+heartbeat of that knob), so a
+statement that outlives `engine.lake_lease_ttl_s` never has its pinned
+snapshot vacuumed mid-read. A session without lakehouse entries starts no
+thread.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 from . import __version__, faults
 from .engine.spill import DEFAULT_FORCE_PARTITIONS as _SPILL_RETRY_PARTS
 from .io.fs import fs_open_atomic, io_retry_budget
+from .lakehouse.table import commit_backoff_base, resolve_conflict_retries
 
 _REDACTED = ("TOKEN", "SECRET", "PASSWORD", "PASSWD", "CREDENTIAL", "KEY")
 
@@ -60,24 +69,52 @@ _DEGRADED_WINDOW_ROWS = 1 << 18
 _WATCHDOG_POLL_S = 0.25
 
 
-def resolve_conflict_retries() -> int:
-    """How many times an aborted transaction may re-run
-    (NDS_LAKE_CONFLICT_RETRIES, default 2): the reference's knob,
-    parsed as nds_tpu/lakehouse/table.py does."""
-    try:
-        return max(int(os.environ.get("NDS_LAKE_CONFLICT_RETRIES", "2")), 0)
-    except ValueError:
-        return 2
+def heartbeat_seconds() -> float:
+    """Seconds between two heartbeats (NDS_HEARTBEAT_INTERVAL_MS, default
+    1000), read as nds_tpu/obs/memwatch.py reads it."""
+    return max(
+        float(os.environ.get("NDS_HEARTBEAT_INTERVAL_MS", "1000")) / 1000,
+        0.0)
 
 
-def commit_backoff_base() -> float:
-    """Jittered-backoff base seconds of commit-conflict re-runs
-    (NDS_LAKE_COMMIT_BACKOFF, default 0.05)."""
-    try:
-        return max(float(os.environ.get("NDS_LAKE_COMMIT_BACKOFF", "0.05")),
-                   0.0)
-    except ValueError:
-        return 0.05
+class _LeaseHeartbeat:
+    """Renews `catalog`'s lakehouse reader leases on a daemon thread every
+    heartbeat_seconds() while the context is open."""
+
+    def __init__(self, catalog, interval):
+        self.catalog = catalog
+        self.interval = interval
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, name="nds-lease-heartbeat",
+                                   daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            self.catalog.renew_lake_leases()
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        return False
+
+
+def _lease_heartbeat(session):
+    """A _LeaseHeartbeat over the session's catalog when it has lakehouse
+    entries and the heartbeat is on (a 0 interval turns it off), else
+    None."""
+    cat = getattr(session, "catalog", None)
+    interval = heartbeat_seconds()
+    if not interval or cat is None or not hasattr(
+            cat, "renew_lake_leases") or not any(
+        getattr(e, "fmt", None) == "lakehouse"
+        for e in getattr(cat, "entries", {}).values()
+    ):
+        return None
+    return _LeaseHeartbeat(cat, interval)
 
 
 def engine_conf(session) -> dict:
@@ -416,10 +453,13 @@ class BenchReport:
         except AttributeError:
             pass
         timeout = query_timeout(self.session)
+        heartbeat = _lease_heartbeat(self.session)
         start_time = int(time.time() * 1000)
         rungs: list[dict] = []
         attempt_errors: list[str] = []
         try:
+            if heartbeat is not None:
+                heartbeat.__enter__()
             err = self._attempt(fn, args, timeout)
             while err is not None:
                 attempt_errors.append(err)
@@ -440,6 +480,8 @@ class BenchReport:
                 if hasattr(self.session, "recover_memory"):
                     self.session.recover_memory("device memory exhausted")
         finally:
+            if heartbeat is not None:
+                heartbeat.__exit__(None, None, None)
             if registered:
                 self.session.unregister_listener(failures.append)
         end_time = int(time.time() * 1000)

@@ -31,8 +31,6 @@ import time
 from .power import gen_sql_from_stream, get_query_subset, run_query_stream
 from .report import use_system_arrow_pool
 
-_ITEM9_3 = "ROADMAP.md queue 1 item 9.3 (lakehouse, csv, orc, avro)"
-
 
 def round_up_to_nearest_10_percent(num: float) -> float:
     return math.ceil(num * 10) / 10
@@ -108,14 +106,6 @@ def _read_start_end(time_log_path: str):
     return start, end
 
 
-def _check_input_format(input_format):
-    if input_format in ("csv", "orc", "lakehouse"):
-        raise NotImplementedError(
-            f"input format {input_format!r} is not ported to nds_tpu_torch "
-            f"yet (parquet is): {_ITEM9_3}"
-        )
-
-
 def run_throughput(
     input_prefix,
     stream_paths: dict,
@@ -143,7 +133,6 @@ def run_throughput(
     stream (the reference's `xargs -P` shape). `device` is every stream
     session's (None: the card); process mode passes it to each child as
     `--device`."""
-    _check_input_format(input_format)
     if mode == "process":
         return _run_throughput_processes(
             input_prefix, stream_paths, time_log_base, input_format,

@@ -1,5 +1,5 @@
-"""Transcode (Load Test) phase, raw pipe-delimited .dat -> parquet: the port
-of nds_tpu/transcode.py's parquet path.
+"""Transcode (Load Test) phase, raw pipe-delimited .dat -> a columnar
+warehouse: the port of nds_tpu/transcode.py.
 
 Counterpart of the reference load test (reference: nds/nds_transcode.py:45-53
 fact-table partitioning, :56-58 CSV scan with schema, :61-144 store with
@@ -13,47 +13,37 @@ repartition/coalesce, :146-215 timed loop + report):
   * the load report keeps the reference's exact line format, including the
     TPC-DS 4.3.1 RNGSEED = load-end timestamp the stream generator consumes.
 
-The other output formats (csv, orc, json, avro, lakehouse), remote output
-paths and the lakehouse's `workers` / `resume` raise NotImplementedError.
-pyarrow is imported inside the functions that read and write.
+The other outputs are the reference's: csv (hive-partitioned facts),
+orc and json and avro (one file a table), and the lakehouse. Lakehouse
+ingest is parallel and resumable: generator chunk files shard round-robin
+over a spawn pool of decode processes (`--workers`); each worker holds its
+own epoch-fenced writer lease and commits chunk by chunk, recording the
+chunk id in the manifest's ingest ledger. The ledger is the checkpoint: a
+killed run re-invoked with `--resume` replays only unledgered chunks, and
+the commit point skips ids already ledgered (exactly-once even if two
+resumers race). Each worker decodes chunk i+1 on a thread while chunk i
+stages and commits. Fact chunks are sorted by their date surrogate key and
+split into bounded files, so each file covers a narrow key range and its
+zone map (lakehouse/zonemap.py) prunes. The workers decode and write on
+the host; nothing here touches CUDA. Only the lakehouse may go to a remote
+(fsspec) output. The reference's `ingest_chunk` trace events are not
+emitted (the tracer is ROADMAP.md queue 1 item 12). pyarrow is imported
+inside the functions that read and write.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import shutil
+import threading
 import time
 from datetime import datetime
 from types import SimpleNamespace
 
 from .io.csv import iter_dat_batches, iter_dat_chunk_tables
-from .io.fs import fs_open_atomic, is_remote
+from .io.fs import fs_open_atomic
 from .schema import TABLE_PARTITIONING, get_maintenance_schemas, get_schemas
-
-_ITEM9_3 = "ROADMAP.md queue 1 item 9.3 (lakehouse, csv and orc entries)"
-
-#: the output formats of the reference's transcode that the port lacks
-UNPORTED_FORMATS = ("csv", "orc", "json", "avro", "lakehouse")
-
-
-def _refuse_unported(output_prefix, output_format, workers, resume):
-    if output_format in UNPORTED_FORMATS:
-        raise NotImplementedError(
-            f"output format {output_format!r} is not ported to nds_tpu_torch "
-            f"yet (parquet is): {_ITEM9_3}"
-        )
-    if output_format != "parquet":
-        raise ValueError(f"unsupported output format {output_format}")
-    if int(workers or 1) != 1 or resume:
-        raise NotImplementedError(
-            f"--workers and --resume belong to the lakehouse ingest, which is "
-            f"not ported to nds_tpu_torch yet: {_ITEM9_3}"
-        )
-    if is_remote(output_prefix):
-        raise NotImplementedError(
-            f"remote output {output_prefix!r} is not ported to nds_tpu_torch "
-            f"yet: {_ITEM9_3}"
-        )
 
 
 def transcode_table(
@@ -69,26 +59,42 @@ def transcode_table(
     workers: int = 1,
     resume: bool = False,
 ) -> int:
-    """Convert one table; returns rows written."""
+    """Convert one table; returns rows written (for the lakehouse, the rows
+    this run committed)."""
     import pyarrow as pa
     import pyarrow.dataset as pads
 
-    _refuse_unported(output_prefix, output_format, workers, resume)
+    from .io.fs import get_fs, is_remote, join as fs_join
+
     src = os.path.join(input_prefix, table)
-    dst = os.path.join(output_prefix, table)
+    dst = fs_join(output_prefix, table)
     if table == "dbgen_version" and not os.path.isdir(src):
         # audit table only emitted by newer generator runs; a raw dataset
         # generated before it existed must still transcode
         print(f"WARNING: skipping {table!r}: no source directory at {src}")
         return 0
     basename = "part-{i}." + output_format
-    if os.path.exists(dst):
+    if is_remote(dst) and output_format != "lakehouse":
+        # checked before any overwrite branch can delete: only the
+        # lakehouse carries the shared-filesystem seam
+        raise ValueError(
+            f"remote output {dst!r} requires --output_format lakehouse"
+        )
+    dst_fs, dst_path = get_fs(dst)
+    if resume and output_format == "lakehouse":
+        # resuming a killed ingest: the existing table is the checkpoint,
+        # which the output_mode handling below must neither refuse nor wipe
+        pass
+    elif dst_fs.exists(dst_path):
         if output_mode in ("errorifexists", "error"):
             raise FileExistsError(f"{dst} exists (use --output_mode overwrite)")
         if output_mode == "ignore":
             return 0
         if output_mode == "overwrite":
-            shutil.rmtree(dst)
+            if is_remote(dst):
+                dst_fs.rm(dst_path, recursive=True)
+            else:
+                shutil.rmtree(dst)
         elif output_mode == "append":
             # unique file names so new parts never clobber existing ones
             basename = f"part-{int(time.time() * 1000)}-{{i}}.{output_format}"
@@ -96,15 +102,6 @@ def transcode_table(
     arrow_schema = pa.schema(
         [(f.name, f.dtype.to_arrow(use_decimal)) for f in schema]
     )
-    part_col = TABLE_PARTITIONING.get(table) if partition else None
-    if part_col is not None:
-        # hive layout <col>=<value>/, one directory per date key: the
-        # reference's partitionBy(date_sk) warehouse layout
-        return _write_hive_partitioned_parquet(
-            src, dst, schema, arrow_schema, part_col, use_decimal,
-            compression or "snappy", basename,
-        )
-
     rows = 0
 
     def batches():
@@ -113,15 +110,83 @@ def transcode_table(
             rows += b.num_rows
             yield b
 
-    fmt = pads.ParquetFileFormat()
+    if output_format == "lakehouse":
+        return _lakehouse_ingest(
+            src, dst, table, schema, arrow_schema, use_decimal, workers
+        )
+    if output_format not in ("parquet", "csv", "orc", "json", "avro"):
+        raise ValueError(f"unsupported output format {output_format}")
+
+    if output_format == "avro":
+        # the container-file writer of io/avro.py (the reference offers
+        # avro through the external spark-avro plugin:
+        # nds/nds_transcode.py:241-249)
+        from .io.avro import write_avro
+
+        os.makedirs(dst, exist_ok=True)
+        write_avro(batches(), os.path.join(dst, basename.format(i=0)),
+                   schema=arrow_schema, record_name=table)
+        return rows
+
+    if output_format == "json":
+        # line-delimited JSON (nds/nds_transcode.py:61-144); a bulk data
+        # part, re-made by re-running the table's transcode, so written in
+        # place rather than through a temp rename
+        import json as _json
+
+        os.makedirs(dst, exist_ok=True)
+        with open(os.path.join(dst, basename.format(i=0)), "w") as f:
+            for b in batches():
+                for row in b.to_pylist():
+                    f.write(_json.dumps(row, default=str) + "\n")
+        return rows
+
+    if output_format == "orc":
+        # pyarrow's dataset writer has no ORC backend: stream the batches
+        # through an ORCWriter (one file, no hive partitioning:
+        # nds/nds_transcode.py:100-112)
+        from pyarrow import orc as paorc
+
+        os.makedirs(dst, exist_ok=True)
+        writer = paorc.ORCWriter(os.path.join(dst, basename.format(i=0)))
+        try:
+            for b in batches():
+                writer.write(pa.Table.from_batches([b], schema=arrow_schema))
+        finally:
+            writer.close()
+        return rows
+
+    part_col = TABLE_PARTITIONING.get(table) if partition else None
+    if part_col is not None and output_format == "parquet":
+        # hive layout <col>=<value>/, one directory per date key: the
+        # reference's partitionBy(date_sk) warehouse layout
+        return _write_hive_partitioned_parquet(
+            src, dst, schema, arrow_schema, part_col, use_decimal,
+            compression or "snappy", basename,
+        )
+
+    write_opts = None
+    if output_format == "parquet":
+        fmt = pads.ParquetFileFormat()
+        write_opts = fmt.make_write_options(compression=compression or "snappy")
+    else:
+        fmt = pads.CsvFileFormat()
+    kwargs = {}
+    if part_col is not None:
+        kwargs["partitioning"] = pads.partitioning(
+            pa.schema([arrow_schema.field(part_col)]), flavor="hive"
+        )
+        kwargs["max_partitions"] = 1 << 16
+        kwargs["max_open_files"] = 1 << 14
     pads.write_dataset(
         batches(),
         base_dir=dst,
         format=fmt,
-        file_options=fmt.make_write_options(compression=compression or "snappy"),
+        file_options=write_opts,
         schema=arrow_schema,
         basename_template=basename,
         existing_data_behavior="overwrite_or_ignore",
+        **kwargs,
     )
     return rows
 
@@ -210,10 +275,136 @@ def _write_hive_partitioned_parquet(
     return rows
 
 
+# ---------------------------------------------------------------------------
+# parallel resumable lakehouse ingest
+# ---------------------------------------------------------------------------
+
+
+def _ingest_file_bytes() -> int:
+    """Target bytes per committed data file (NDS_INGEST_FILE_BYTES, default
+    64 MiB): clustered chunks split at this size, so each file covers a
+    narrow key range its zone map can prune."""
+    return int(os.environ.get("NDS_INGEST_FILE_BYTES", 64 << 20))
+
+
+def _chunk_id(table: str, path: str) -> str:
+    """Ledger id of one generator chunk file. Basename only, so a dataset
+    moved between hosts (another input_prefix) still resumes."""
+    return f"{table}:{os.path.basename(path)}"
+
+
+def _chunk_files(src: str) -> list:
+    """The generator chunk files of a table in ledger order (the listing
+    io/csv reads, so chunk ids are stable across runs)."""
+    import glob
+
+    if os.path.isfile(src):
+        return [src]
+    return sorted(glob.glob(os.path.join(src, "*.dat")))
+
+
+class _Prefetch:
+    """Depth-1 decode-ahead: a daemon thread parses chunk i+1 while the
+    consumer stages and commits chunk i. Queue depth 1 bounds the buffer
+    to two decoded chunks (one queued, one consumed) plus the one being
+    decoded."""
+
+    _END = object()
+
+    def __init__(self, paths, schema, use_decimal):
+        self._q = queue.Queue(maxsize=1)
+        self._t = threading.Thread(
+            target=self._run, args=(list(paths), schema, use_decimal),
+            daemon=True,
+        )
+        self._t.start()
+
+    def _run(self, paths, schema, use_decimal):
+        from .io.csv import read_dat_file
+
+        try:
+            for p in paths:
+                self._q.put((p, read_dat_file(p, schema, use_decimal)))
+        except BaseException as e:  # surfaced to the consumer thread
+            self._q.put(e)
+        else:
+            self._q.put(self._END)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+
+def _ingest_chunks(dst, table, schema, use_decimal, chunk_files, part_col):
+    """Ingest a shard of chunk files into the table at `dst`, one ledgered
+    commit per chunk, in the calling process (each pool worker calls this
+    over its shard; its LakehouseTable carries the process's own writer
+    lease). Returns (rows_committed, chunks_committed); chunks already in
+    the ledger count toward neither."""
+    from .lakehouse.table import LakehouseTable
+
+    lt = LakehouseTable(dst)
+    rows = committed = 0
+    for path, tbl in _Prefetch(chunk_files, schema, use_decimal):
+        version = lt.ingest_chunk(
+            tbl, _chunk_id(table, path), cluster_by=part_col,
+            max_file_bytes=_ingest_file_bytes(),
+        )
+        if version is not None:
+            rows += tbl.num_rows
+            committed += 1
+    return rows, committed
+
+
+def _ingest_worker(payload):
+    """Top-level (spawn-picklable) pool entry point."""
+    return _ingest_chunks(*payload)
+
+
+def _lakehouse_ingest(src, dst, table, schema, arrow_schema, use_decimal,
+                      workers) -> int:
+    """Parallel resumable ingest of one table: chunk files shard
+    round-robin over a spawn pool of `workers` processes; the manifest's
+    ingest ledger is the only checkpoint. Returns the rows this run
+    committed: a re-run over a complete table returns 0, and the
+    manifest's num_rows is the durable total."""
+    from .lakehouse.table import LakehouseTable
+
+    if not LakehouseTable.is_table(dst):
+        LakehouseTable.create(dst, schema=arrow_schema)
+    done = LakehouseTable(dst).snapshot().ingest_chunks()
+    pending = [p for p in _chunk_files(src)
+               if _chunk_id(table, p) not in done]
+    if not pending:
+        return 0
+    part_col = TABLE_PARTITIONING.get(table)
+    workers = max(1, min(int(workers or 1), len(pending)))
+    if workers == 1:
+        rows, _ = _ingest_chunks(
+            dst, table, schema, use_decimal, pending, part_col
+        )
+        return rows
+    import multiprocessing as mp
+
+    payloads = [
+        (dst, table, schema, use_decimal, pending[i::workers], part_col)
+        for i in range(workers)
+    ]
+    # spawn, not fork: a forked worker would inherit the parent's Arrow and
+    # CUDA state; a spawned one imports the package afresh, decodes on the
+    # host and registers its own catalog writer lease
+    with mp.get_context("spawn").Pool(processes=workers) as pool:
+        results = pool.map(_ingest_worker, payloads)
+    return sum(r for r, _ in results)
+
+
 def transcode(args) -> dict:
     """Run the full load test; writes the report file; returns timing dict."""
-    _refuse_unported(args.output_prefix, args.output_format,
-                     getattr(args, "workers", 1), getattr(args, "resume", False))
     schemas = (
         get_maintenance_schemas(not args.floats)
         if args.update
@@ -242,6 +433,8 @@ def transcode(args) -> dict:
             use_decimal=not args.floats,
             compression=args.compression,
             output_mode=args.output_mode,
+            workers=getattr(args, "workers", 1),
+            resume=getattr(args, "resume", False),
         )
         results[table] = time.perf_counter() - t0
     end_time = datetime.now()
@@ -269,8 +462,8 @@ def transcode(args) -> dict:
             "transcode.update": bool(args.update),
         },
     )
-    # the report module pulls in torch: imported only where the report is
-    # written
+    # the report module pulls in the engine: imported only where the report
+    # is written, so the spawn workers of the lakehouse ingest never load it
     from .report import engine_conf
 
     # atomic: the transcode report is a phase artifact downstream tooling

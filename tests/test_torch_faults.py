@@ -33,6 +33,7 @@ from nds_tpu_torch import report as TR
 from nds_tpu_torch.engine import spill as TSP
 from nds_tpu_torch.engine.session import Session as TorchSession
 from nds_tpu_torch.io import fs as TFS
+from nds_tpu_torch.lakehouse.table import CommitConflictError
 from nds_tpu_torch.ops import gpu_kernels as GK
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -359,12 +360,44 @@ def test_fs_open_fires_path_faults(tmp_path):
 
 @pytest.mark.parametrize("path", ["memory://x/report.csv", "s3://b/k",
                                   "file:///tmp/x"])
-def test_remote_paths_are_not_ported(path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TFS.fs_open(path)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TFS.fs_open_atomic(path, "w")
+def test_remote_paths_are_not_ported(path, monkeypatch):
+    """Remote paths are ported now (the name is older): every scheme goes
+    to fsspec.get_fs_token_paths, as in the JAX package. It is stubbed here
+    onto one memory filesystem, so no store is reached; a write through
+    either package reads back through the other, atomic writes too."""
+    import fsspec
+    from fsspec.implementations.memory import MemoryFileSystem
+
+    from nds_tpu.io import fs as JFS
+
+    mem = MemoryFileSystem()
+    seen = []
+
+    def resolve(url, *a, **kw):
+        seen.append(url)
+        return mem, None, ["/stub-faults/"
+                           + url.split("://", 1)[1].lstrip("/")]
+
+    monkeypatch.setattr(fsspec, "get_fs_token_paths", resolve)
+    try:
+        with TFS.fs_open(path, "w") as f:
+            f.write("port")
+        with JFS.fs_open(path) as f:
+            assert f.read() == "port"
+        with JFS.fs_open_atomic(path, "w") as f:
+            f.write("jax")
+        with TFS.fs_open(path) as f:
+            assert f.read() == "jax"
+        with TFS.fs_open_atomic(path, "w") as f:
+            f.write("atomic")
+        with JFS.fs_open(path) as f:
+            assert f.read() == "atomic"
+        assert mem.ls("/stub-faults", detail=False)
+    finally:
+        mem.rm("/stub-faults", recursive=True)
     assert TFS.is_remote(path)
+    assert seen and all(u.startswith(path) for u in seen)
+    assert TFS.join(path, "a", "b") == JFS.join(path, "a", "b")
 
 
 def test_io_retry_budget(monkeypatch):
@@ -407,10 +440,6 @@ def _host_oom(f):
 
 def _io(f):
     return f.TransientIOError("injected transient io")
-
-
-class CommitConflictError(Exception):
-    """Stands for the lakehouse's lost optimistic commit."""
 
 
 def _conflict(f):

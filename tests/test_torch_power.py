@@ -4,7 +4,8 @@ warehouse.
 
 The repo's generator (nds_tpu.cli.gen_data) writes SF0.01 data into a
 temporary directory of this module, and nds_tpu.transcode writes it to
-parquet there (fact tables hive-partitioned on their date keys). Both
+parquet there (fact tables hive-partitioned on their date keys), and to
+csv, orc and the lakehouse for a short generated stream over each. Both
 packages read that warehouse: JAX on the CPU with NDS_FLIGHT_RECORDER=off
 and no AOT cache, the port with device="cpu".
 
@@ -66,17 +67,39 @@ def _clean(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def warehouse(tmp_path_factory):
+def raw(tmp_path_factory):
     raw = tmp_path_factory.mktemp("nds_raw_sf001")
     subprocess.run(
         [sys.executable, "-m", "nds_tpu.cli.gen_data", "--scale", "0.01",
          "--parallel", "2", "--data_dir", str(raw), "--overwrite_output"],
         check=True, capture_output=True, cwd=ROOT,
     )
+    return raw
+
+
+@pytest.fixture(scope="module")
+def warehouse(raw, tmp_path_factory):
     wh = tmp_path_factory.mktemp("nds_parquet_sf001")
     for name, schema in jax_schemas(True).items():
         transcode_table(str(raw), str(wh), name, schema)
     return str(wh)
+
+
+@pytest.fixture(scope="module")
+def format_warehouses(raw, tmp_path_factory):
+    """{format: warehouse}: the JAX package's Load Test of the same data to
+    csv, orc and the lakehouse (made on first use)."""
+    made = {}
+
+    def get(fmt):
+        if fmt not in made:
+            wh = tmp_path_factory.mktemp(f"nds_{fmt}_sf001")
+            for name, schema in jax_schemas(True).items():
+                transcode_table(str(raw), str(wh), name, schema,
+                                output_format=fmt)
+            made[fmt] = str(wh)
+        return made[fmt]
+    return get
 
 
 # ---------------------------------------------------------------------------
@@ -284,25 +307,65 @@ def test_register_nds_tables_matches_jax(warehouse):
                 == j.catalog.schema(name).names)
 
 
+#: a short generated stream for the Power Run over each other format
+FORMAT_STREAM_QUERIES = (3, 42, 96)
+FORMAT_STREAM = "\n".join(
+    _entry(i + 1, f"query{q}",
+           QS.instantiate(q, np.random.default_rng(2000 + q), 0.01)
+           .strip().rstrip(";"))
+    for i, q in enumerate(FORMAT_STREAM_QUERIES))
+
+
 @pytest.mark.parametrize("fmt", ["csv", "orc", "lakehouse"])
-def test_other_formats_are_not_ported(warehouse, fmt, tmp_path):
+def test_other_formats_are_not_ported(format_warehouses, fmt, tmp_path,
+                                      monkeypatch):
+    """The input formats this test once saw refused, now ported (the name
+    is older): registration, table setup and a Power Run over each equal
+    the JAX package's, results, statuses and time-log rows."""
+    wh = format_warehouses(fmt)
+    j = JaxSession(conf={"engine.aot_cache_dir": ""})
     t = TorchSession(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.register_nds_tables(warehouse, fmt)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TP.setup_tables(t, warehouse, fmt, True, [], "app")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.sql("select 1 as a").write(str(tmp_path / "o"), fmt)
+    j.register_nds_tables(wh, fmt)
+    t.register_nds_tables(wh, fmt)
+    assert sorted(t.catalog.entries) == sorted(j.catalog.entries)
+    assert {e.fmt for e in t.catalog.entries.values()} == {fmt}
+    jl = JP.setup_tables(JaxSession(conf={"engine.aot_cache_dir": ""}), wh,
+                         fmt, True, [], "app")
+    tl = TP.setup_tables(TorchSession(device="cpu"), wh, fmt, True, [], "app")
+    assert [r[1] for r in tl] == [r[1] for r in jl]
+    monkeypatch.setenv("NDS_PLAN_BUDGET_STRICT", "1")
+    runs = {}
+    for tag, mod in (("jax", JP), ("torch", TP)):
+        runs[tag] = _run_stream(mod, wh, tmp_path / tag, FORMAT_STREAM,
+                                input_format=fmt)
+    (js, jlog), (ts, tlog) = runs["jax"], runs["torch"]
+    assert [r[1] for r in tlog] == [r[1] for r in jlog]
+    for q in (f"query{n}" for n in FORMAT_STREAM_QUERIES):
+        assert ts[q]["queryStatus"] == js[q]["queryStatus"] == ["Completed"]
+        a = pq.read_table(tmp_path / "jax" / "results" / q / "part-0.parquet")
+        b = pq.read_table(tmp_path / "torch" / "results" / q /
+                          "part-0.parquet")
+        assert_same(a, b, (fmt, q))
 
 
 def test_unknown_format_and_remote_paths(warehouse):
+    """An unknown format raises as in the JAX package; a remote warehouse
+    URL resolves through fsspec (memory:// here) and registers what it
+    holds, like the JAX package's."""
+    import uuid
+
     t = TorchSession(device="cpu")
-    with pytest.raises(ValueError, match="unsupported input format"):
-        TP.setup_tables(t, warehouse, "avro", True, [], "app")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.register_parquet("x", "s3://bucket/x")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.register_nds_tables("gs://bucket/wh")
+    j = JaxSession(conf={"engine.aot_cache_dir": ""})
+    for mod, s in ((TP, t), (JP, j)):
+        with pytest.raises(ValueError, match="unsupported input format"):
+            mod.setup_tables(s, warehouse, "avro", True, [], "app")
+    for s in (t, j):
+        s.register_parquet("x", "s3://bucket/x")
+        assert s.catalog.entries["x"].path == "s3://bucket/x"
+    empty = f"memory://empty-{uuid.uuid4().hex}"
+    t.register_nds_tables(empty)
+    j.register_nds_tables(empty)
+    assert sorted(t.catalog.entries) == sorted(j.catalog.entries) == ["x"]
 
 
 def test_result_write_matches_jax(warehouse, tmp_path):
@@ -590,8 +653,31 @@ def test_cli_matches_jax(warehouse, tmp_path, monkeypatch):
 
 
 def test_cli_input_formats():
+    """The CLI takes the JAX CLI's input formats and refuses others."""
     with pytest.raises(SystemExit):
-        TCLI.main(["wh", "s.sql", "t.csv", "--input_format", "csv"])
+        TCLI.main(["wh", "s.sql", "t.csv", "--input_format", "avro"])
+    import argparse
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def parse(self, argv=None, namespace=None):
+        seen["choices"] = next(a.choices for a in self._actions
+                               if a.dest == "input_format")
+        raise Stop
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(argparse.ArgumentParser, "parse_args", parse)
+    try:
+        for cli in (TCLI, JCLI):
+            with pytest.raises(Stop):
+                cli.main(["wh", "s.sql", "t.csv"])
+            assert seen.pop("choices") == ["parquet", "csv", "orc",
+                                           "lakehouse"]
+    finally:
+        mp.undo()
 
 
 def test_mesh_devices_not_ported(warehouse, tmp_path):

@@ -250,14 +250,23 @@ ITEM8_CASES = {
 ITEM8_CONF = {"blocked_union": {"engine.union_agg_window_rows": 1024}}
 
 #: what the port still raises NotImplementedError for, naming the ROADMAP.md
-#: item that ports it: (SQL or None, session conf)
+#: item that ports it: (SQL or None, session conf). Statements other than
+#: SELECT are item 9.6, the tcp lakehouse catalog item 12
 UNPORTED = {
     "create_view": ("create view v as select ss_store_sk from store_sales",
                     {}),
     "insert": ("insert into store_sales select * from store_sales", {}),
+    "delete": ("delete from store_sales where ss_store_sk = 1", {}),
+    "lake_catalog_http": (None, {"engine.lake_catalog":
+                                 "http://127.0.0.1:1"}),
     "plan_feedback_on": (None, {"engine.plan_feedback": "on"}),
     "trace_dir": (None, {"engine.trace_dir": "traces"}),
 }
+
+#: the ROADMAP.md item each UNPORTED case names
+UNPORTED_ITEMS = {"create_view": "item 9.6", "insert": "item 9.6",
+                  "delete": "item 9.6", "lake_catalog_http": "item 12",
+                  "plan_feedback_on": "item 14", "trace_dir": "item 12"}
 
 
 def _conf(mode):
@@ -364,7 +373,8 @@ def test_item8_branches_match_jax(tables, qname):
 @pytest.mark.parametrize("qname", sorted(UNPORTED))
 def test_unported_branches_raise(tables, qname):
     sql, conf = UNPORTED[qname]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md.*{UNPORTED_ITEMS[qname]}"):
         t = TorchSession(conf={**_conf("on"), **conf}, device="cpu")
         for name, at in tables.items():
             t.register_arrow(name, at)
@@ -542,7 +552,14 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/throughput.py",
             "nds_tpu_torch/cli/throughput.py",
             "nds_tpu_torch/cli/explain.py",
-            "tools/torch_throughput_phase.py"} <= rel
+            "nds_tpu_torch/io/avro.py",
+            "nds_tpu_torch/lakehouse/__init__.py",
+            "nds_tpu_torch/lakehouse/catalog.py",
+            "nds_tpu_torch/lakehouse/leases.py",
+            "nds_tpu_torch/lakehouse/table.py",
+            "nds_tpu_torch/lakehouse/zonemap.py",
+            "tools/torch_throughput_phase.py",
+            "tools/torch_lakehouse_phase.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch
