@@ -71,6 +71,14 @@ Phases, each printing one JSON line:
            and direct ms, peaks and working sets, the pool's bytes in / out,
            evictions and disk bytes, partitions, launches) and a `spill`
            summary line
+  maintenance_sf100  the maintenance path's heaviest device statement at
+           SF100: DF_SS's returns DELETE as lakehouse/dml.py runs it on the
+           engine (select * from store_returns where not coalesce(<its IN
+           subquery over store_sales and date_dim>, false)) over the device
+           tables, for the first generated delete-date range: cold and
+           steady ms, branches, launches, peak, the budgeter's verdict (a
+           refusal shown, then run under REFUSED_MODE); the survivor count
+           must equal numpy's
   budget_refusals  the statements the default lines refused, with their
            modeled peaks against the reject line
   device_memory  what the CUDA runtime holds outside the caching
@@ -103,7 +111,9 @@ Phases, each printing one JSON line:
            expect. The directory goes at the end.
   stream   the whole NDS chain over a generated stream 0 (103 statements),
            each step a CLI of the port, in a temporary directory removed
-           at the end. Leg A at SF STREAM_SF_A, decimals: gen_data with one
+           at the end; both legs' gen_data and Load Tests start before the
+           joins phase and run beside the SF100 phases (stream_start). Leg
+           A at SF STREAM_SF_A, decimals: gen_data with one
            process per core (`stream_data`: rows per table, the fixed
            tables against rowcounts.hpp), transcode to parquet, the .dat
            files then deleted (`stream_load`: seconds, rows/s, parquet
@@ -116,9 +126,12 @@ Phases, each printing one JSON line:
            on against off and update_summary on the `on` summaries. Leg B
            at SF STREAM_SF_B with --floats, while leg A's Load Test runs:
            the same steps, the stream on the card with the kernels on and
-           on the CPU (a process of its own, beside leg A's card runs),
-           validated with the floats carve-out. Both SFs are cut from the
-           SF10 / SF1 the phase was made for (`reduced` says so). Every
+           on the CPU (a process of its own, beside leg A's card runs
+           and the throughput phase), validated with the floats
+           carve-out. Both SFs are cut from the SF10 / SF1 the phase was
+           made for, and each leg runs the first STREAM_TEMPLATES templates
+           of its stream 0 and its STREAM_GATE_TEMPLATES (`reduced` says
+           so). Every
            statement must be Completed or CompletedWithTaskFailures but
            those STREAM_EXPECTED_FAILURES names (with their failureKind),
            the time logs must hold the reference's rows, validate must
@@ -153,9 +166,11 @@ Phases, each printing one JSON line:
            legs (their .dat files kept for it) before their directory
            goes: leg A's data through cli/transcode.py --output_format
            lakehouse --workers 4 (`lakehouse_load`: Load Test seconds,
-           rows/s, data files and manifest versions per fact table), then
-           again with --resume, which must convert 0 rows; stream 0's 103
-           statements cold through cli/power.py --input_format lakehouse
+           rows/s, data files and manifest versions per fact table; below
+           SF1 the files shrink with the SF, lake_env), then again with
+           --resume, which must convert 0 rows, while the maintenance
+           phase's Load Test starts; leg A's stream 0 (as the stream
+           phase cut it) cold through cli/power.py --input_format lakehouse
            with the kernels on and the watchdog (run `L_on`, its
            `stream_query` lines and a `lakehouse_stream` line: Power Test
            Time, catalog load ms and peak beside A_on's), every statement
@@ -175,6 +190,32 @@ Phases, each printing one JSON line:
            parquet answers (a host pyarrow without ORC fails it). Made for
            SF10 / SF1 at leg A's and leg B's scale: `reduced` says so, and
            tools/torch_lakehouse_phase.py runs that
+  maintenance  the Data Maintenance phase after the lakehouse phase, over
+           leg B's data loaded to a lakehouse with decimals
+           (`maintenance_load`, started in the lakehouse phase once leg A's
+           Load Test has ended; leg A's lakehouse would take longer
+           than the time limit leaves: `reduced` says so, and
+           tools/torch_maintenance_phase.py runs the phase at SF10):
+           gen_data --update 1 (`maintenance_refresh`); a copy of the
+           warehouse and the refresh data through cli/maintenance.py
+           --device cpu in a process of its own; the 11 refresh functions
+           through cli/maintenance.py on the card with --optimize, launch
+           counts zeroed just before and read just after
+           (`maintenance_function` lines: ms, status, rows affected per
+           statement; `maintenance`: Tdm from the time log, files per fact
+           table before and after the optimize, peak, launches). Gates:
+           every function Completed, the reference's time-log rows, each
+           DF_* statement's count equal to a pyarrow count
+           (expected_dm_deletes), dense_build and sort_perm launched, every
+           fact table equal to the CPU's as multisets (`maintenance_cpu`);
+           rollback through cli/rollback.py to the heads before, every
+           fact table's digest restored (`maintenance_rollback`); then
+           maintenance.run_maintenance_under_load with stream 0's first 40
+           templates, the 11 functions and a vacuum, each session at half
+           the card's lines (`maintenance_under_load`: p99 solo and under
+           load, their ratio, functions/s, files vacuumed, overlap): every
+           statement of every pass Completed, 11 functions, none failed,
+           the vacuum removing files and none a live lease held
   explain  cli/explain.py --budget --scale 100 over the 99 templates on the
            card's lines with NDS_VERIFY_PLANS=all: each statement's
            verdict and modeled peak and the count per verdict; a verifier
@@ -199,6 +240,7 @@ Usage: python3 chip_smoke.py [--seed N] [--scale F]   (F < 1 cuts row counts)
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import functools
 import gc
@@ -928,11 +970,20 @@ def q93_reference(star, reason_sk=28):
     rw = (sr["sr_item_sk"][r].astype(np.int64) << 32) | sr["sr_ticket_number"][r]
     order = np.argsort(rw, kind="stable")
     rws = rw[order]
-    sw = (ss["ss_item_sk"].astype(np.int64) << 32) | ss["ss_ticket_number"]
+    # only the lines of tickets with such a return can match: a boolean
+    # gather first, so that searchsorted sees those lines alone
+    tickets = ss["ss_ticket_number"]
+    returned = np.zeros(int(max(tickets.max(initial=0),
+                                sr["sr_ticket_number"].max(initial=0))) + 1,
+                        dtype=bool)
+    returned[sr["sr_ticket_number"][r]] = True
+    cand = np.flatnonzero(returned[tickets])
+    sw = (ss["ss_item_sk"][cand].astype(np.int64) << 32) | tickets[cand]
     pos = np.searchsorted(rws, sw).clip(0, max(rws.size - 1, 0))
-    rows = np.flatnonzero(rws[pos] == sw) if rws.size else np.zeros(0, int)
-    del sw
-    ret_q = sr["sr_return_quantity"][r][order[pos[rows]]]
+    hit = (rws[pos] == sw) if rws.size else np.zeros(cand.size, bool)
+    rows, pos = cand[hit], pos[hit]
+    del sw, cand
+    ret_q = sr["sr_return_quantity"][r][order[pos]]
     act = (ss["ss_quantity"][rows] - ret_q) * ss["ss_sales_price"][rows]
     cust = np.where(ss["ss_customer_sk__valid"][rows],
                     ss["ss_customer_sk"][rows].astype(np.int64), -1) + 1
@@ -3117,14 +3168,29 @@ def run_drill(TP, faults, dev, root, wh, on, name, spec, conf, sqls):
 #: at SF3 / SF0.3 and 1,196 s at SF2 / SF0.3 on an H100, so the legs ran
 #: SF1 / SF0.2 (a stream's time is mostly per-file catalog loads, which
 #: every SF has: 1,829 date partitions a fact table), and the lakehouse
-#: phase (153 s alone at SF1 / SF0.2 on an H100) cuts leg B to SF0.1. Leg
-#: A stays at SF1: below ~SF0.8 a generator chunk of store_sales fits one
-#: 64 MiB lakehouse file, and zone maps have nothing to prune
-STREAM_SF_A = 1
+#: phase (153 s alone at SF1 / SF0.2 on an H100) cuts leg B to SF0.1.
+#: With the maintenance phase the script took 1,152 s at SF1 / SF0.1 on an
+#: H100, so leg A runs SF0.5. Below ~SF0.8 a generator chunk of store_sales
+#: fits one 64 MiB lakehouse file and zone maps have nothing to prune, so
+#: the lakehouse phase scales its file size with leg A's SF (lake_env)
+STREAM_SF_A = 0.5
 STREAM_SF_B = 0.1
 STREAM_SF_MADE_FOR = {"A": 10, "B": 1}
 #: statements of a generated stream: 99 templates, 14 / 23 / 24 / 39 in two
 STREAM_STATEMENTS = 103
+#: the templates of stream 0 that the script's legs run: its first
+#: STREAM_TEMPLATES entries, in the stream's order, and the entries of
+#: STREAM_GATE_TEMPLATES wherever they stand (the time limit: with the
+#: maintenance phase the script outgrew its 1200 s; a stream's time is
+#: mostly catalog loads at first touch: 40 templates kept ~80% of it on
+#: an H100's host). tools/torch_stream_phase.py runs all 99
+STREAM_TEMPLATES = 30
+#: per leg, the templates a gate needs: query96 launches sort_perm,
+#: query23's two statements are leg B's only segment_extreme launches, and
+#: LAKE_FORMAT_QUERIES are checked against leg B's parquet answers
+STREAM_GATE_TEMPLATES = {"A": ("query96",),
+                         "B": ("query96", "query23", "query3", "query12",
+                               "query15")}
 #: the per-query watchdog of every stream run (engine.query_timeout, s)
 STREAM_QUERY_TIMEOUT = 300
 #: the threads of leg B's CPU run, which runs beside leg A on the host
@@ -3246,11 +3312,12 @@ def start_load(root, raw, floats):
     """Step 2 of a leg, started: the Load Test (transcode to parquet) in a
     process of its own. Returns what finish_load takes."""
     report = os.path.join(root, "load.report")
-    return (run_cli(os.path.join(root, "transcode.log"),
-                    "nds_tpu_torch.cli.transcode", raw,
-                    os.path.join(root, "warehouse"), report,
-                    *(["--floats"] if floats else []), background=True),
-            time.perf_counter())
+    t0 = time.perf_counter()
+    proc = run_cli(os.path.join(root, "transcode.log"),
+                   "nds_tpu_torch.cli.transcode", raw,
+                   os.path.join(root, "warehouse"), report,
+                   *(["--floats"] if floats else []), background=True)
+    return proc, t0, exit_time(proc)
 
 
 def finish_load(leg, root, sf, raw, rows, load, keep_raw=False):
@@ -3260,9 +3327,10 @@ def finish_load(leg, root, sf, raw, rows, load, keep_raw=False):
     (warehouse, stream file, query names)."""
     from nds_tpu_torch import power as TP
 
-    proc, t0 = load
+    proc, t0, end = load
     wait_cli(proc, os.path.join(root, "transcode.log"))
-    load_s = time.perf_counter() - t0
+    end.join()
+    load_s = end.at - t0
     if not keep_raw:
         shutil.rmtree(raw)
     wh = os.path.join(root, "warehouse")
@@ -3424,7 +3492,51 @@ def stream_line(leg, run, log, summaries, per_query, launches, seconds,
           "reduced": reduced})
 
 
-def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None):
+def exit_time(proc):
+    """A started daemon thread that waits for `proc`; its `at` holds
+    time.perf_counter() at the exit, once it is joined."""
+    def wait():
+        proc.wait()
+        waiter.at = time.perf_counter()
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return waiter
+
+
+def stream_start(scale):
+    """Steps 1-2 of both legs, started ahead of the stream phase: leg A
+    generated and its Load Test started in a process of its own, then leg
+    B the same (host work only: the script starts them before the joins
+    phase, whose queries keep the card busy, and stream_phase waits for
+    the Load Tests). Returns what stream_phase takes as `started`; the
+    processes are stopped and the directory removed by stop_started, at
+    the latest when the interpreter exits."""
+    sf_a = STREAM_SF_A * min(1.0, scale)
+    sf_b = STREAM_SF_B * min(1.0, scale)
+    root = tempfile.mkdtemp(prefix="nds_stream_")
+    st = {"root": root, "sf_a": sf_a, "sf_b": sf_b, "procs": []}
+    atexit.register(stop_started, st)
+    for leg, sf, floats in (("A", sf_a, False), ("B", sf_b, True)):
+        d = os.path.join(root, leg)
+        st[f"raw_{leg}"], st[f"rows_{leg}"] = generate(leg, d, sf)
+        st[f"load_{leg}"] = start_load(d, st[f"raw_{leg}"], floats)
+        st["procs"].append(st[f"load_{leg}"][0])
+    return st
+
+
+def stop_started(st):
+    """Stop what stream_start (and the stream phase after it) started and
+    remove its directory."""
+    for proc in st["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    shutil.rmtree(st["root"], ignore_errors=True)
+
+
+def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
+                 templates=None, started=None):
     """The whole NDS chain on the card over a generated stream 0, in a
     temporary directory removed at the end. Leg A at SF STREAM_SF_A,
     decimals: kernels on, then off, validated against each other. Leg B at
@@ -3432,32 +3544,45 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None):
     (power with --device cpu, a process of its own). Leg B runs while leg
     A's Load Test does, and its CPU run beside leg A's card runs. `then`,
     where given, is called with leg A's directory, warehouse, SF and its
-    `A_on` stream line, before the directory goes (the throughput phase);
+    `A_on` stream line, before the directory goes and while leg B's CPU
+    run goes on (the throughput phase);
     `lake`, where given, last with a dict of both legs (their .dat files
-    kept for it: the lakehouse phase). Returns the launches of leg A's `on`
-    run and of leg B's card run."""
+    kept for it: the lakehouse phase). With `templates`, each leg runs the
+    first `templates` entries of its stream 0 and its STREAM_GATE_TEMPLATES
+    (truncate_stream). `started` is stream_start's, where the legs' Load
+    Tests were started earlier. Returns the launches of leg A's `on` run
+    and of leg B's card run."""
     from nds_tpu_torch import power as TP
     from nds_tpu_torch.schema import get_schemas
 
     t_phase = time.perf_counter()
-    sf_a = STREAM_SF_A * min(1.0, scale)
-    sf_b = STREAM_SF_B * min(1.0, scale)
+    st = started or stream_start(scale)
+    sf_a, sf_b = st["sf_a"], st["sf_b"]
     reduced = [f"leg {leg} at SF{sf:g} of SF{STREAM_SF_MADE_FOR[leg]:g}"
                + (" (--scale)" if scale < 1.0 else " (the time limit)")
                for leg, sf in (("A", sf_a), ("B", sf_b))
                if sf < STREAM_SF_MADE_FOR[leg]]
-    root = tempfile.mkdtemp(prefix="nds_stream_")
-    ra, rb = os.path.join(root, "A"), os.path.join(root, "B")
-    procs = []
-    try:
-        raw_a, rows_a = generate("A", ra, sf_a)
-        load_a = start_load(ra, raw_a, False)
-        procs.append(load_a[0])
+    if templates is not None:
+        reduced.append(
+            f"stream 0 cut to its first {templates} templates and "
+            f"{', '.join(sorted(set(sum(STREAM_GATE_TEMPLATES.values(), ()))))}"
+            f" (the time limit)")
 
-        raw_b, rows_b = generate("B", rb, sf_b)
+    def cut(leg, stream, names):
+        if templates is None:
+            return names
+        return truncate_stream(stream, templates,
+                               STREAM_GATE_TEMPLATES[leg])[1]
+
+    ra, rb = os.path.join(st["root"], "A"), os.path.join(st["root"], "B")
+    raw_a, rows_a, raw_b, rows_b = (st["raw_A"], st["rows_A"], st["raw_B"],
+                                    st["rows_B"])
+    procs = st["procs"]
+    try:
         wh_b, stream_b, names_b = finish_load(
-            "B", rb, sf_b, raw_b, rows_b, start_load(rb, raw_b, True),
+            "B", rb, sf_b, raw_b, rows_b, st["load_B"],
             keep_raw=lake is not None)
+        names_b = cut("B", stream_b, names_b)
         cpu_dir = os.path.join(rb, "B_cpu")
         t_cpu = time.perf_counter()
         cpu = run_cli(
@@ -3471,12 +3596,15 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None):
             env={"OMP_NUM_THREADS": str(STREAM_CPU_THREADS)},
             background=True)
         procs.append(cpu)
+        cpu_end = exit_time(cpu)
         card_b = stream_card_run(torch, GK, TP, dev, "B_card", rb, wh_b,
                                  stream_b, names_b, on, True)
         stream_queries("B_card", card_b[0], card_b[2])
 
         wh_a, stream_a, names_a = finish_load("A", ra, sf_a, raw_a, rows_a,
-                                              load_a, keep_raw=lake is not None)
+                                              st["load_A"],
+                                              keep_raw=lake is not None)
+        names_a = cut("A", stream_a, names_a)
         runs = {}
         for run, conf in (("A_on", on), ("A_off", off)):
             runs[run] = stream_card_run(torch, GK, TP, dev, run, ra, wh_a,
@@ -3496,9 +3624,15 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None):
                                "A_off" if run == "A_on" else "A_on", v_s,
                                reduced)
             a_on = a_on or line
+        if then is not None:
+            # beside the rest of leg B's CPU run, which is the longer
+            gc.collect()
+            torch.cuda.empty_cache()
+            then(ra, wh_a, sf_a, a_on)
 
         wait_cli(cpu, os.path.join(rb, "B_cpu.log"))
-        cpu_s = time.perf_counter() - t_cpu
+        cpu_end.join()
+        cpu_s = cpu_end.at - t_cpu
         cpu_sum = read_summaries(os.path.join(cpu_dir, "json"))
         cpu_log = read_time_log(os.path.join(cpu_dir, "time.csv"))
         check_stream_run("B_cpu", names_b, cpu_sum, cpu_log,
@@ -3515,10 +3649,6 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None):
                     v_s, reduced)
         stream_line("B", "B_cpu", cpu_log, cpu_sum, {}, None, cpu_s,
                     "B_card", v_s, reduced)
-        if then is not None:
-            gc.collect()
-            torch.cuda.empty_cache()
-            then(ra, wh_a, sf_a, a_on)
         if lake is not None:
             gc.collect()
             torch.cuda.empty_cache()
@@ -3530,11 +3660,7 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None):
                   "b_card_dir": os.path.join(rb, "B_card"),
                   "reduced": reduced})
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
-        shutil.rmtree(root, ignore_errors=True)
+        stop_started(st)
     emit({"phase": "stream_done", "seconds": time.perf_counter() - t_phase})
     return runs["A_on"][3], launches_b
 
@@ -3557,21 +3683,28 @@ THROUGHPUT_KERNELS = ("dense_build", "sort_perm")
 THROUGHPUT_VALIDATE = 2
 #: the templates of each stream the script's throughput phase runs: the
 #: first THROUGHPUT_TEMPLATES entries of each generated stream, in its own
-#: order (the time limit; None runs all 99, as tools/
-#: torch_throughput_phase.py does)
-THROUGHPUT_TEMPLATES = 40
+#: order, and STREAM_GATE_TEMPLATES' wherever they stand (the time limit;
+#: None runs all 99, as tools/torch_throughput_phase.py does). 15 of the
+#: 40 it ran in PR 12: the script outgrew its 1200 s again with the
+#: maintenance phase
+THROUGHPUT_TEMPLATES = 15
 
 
-def truncate_stream(path, templates):
-    """Keep the first `templates` entries of a generated stream file, in
-    place. Returns its statement names before and after."""
+def truncate_stream(path, templates, keep=()):
+    """Keep the first `templates` entries of a generated stream file, and
+    the later entries of the templates named in `keep` (e.g. "query23"), in
+    place and in the stream's order. Returns its statement names before
+    and after."""
     from nds_tpu_torch import power as TP
 
     before = list(TP.gen_sql_from_stream(path))
     with open(path) as fh:
         pieces = fh.read().split("-- start")
+    kept = [p for i, p in enumerate(pieces[1:])
+            if i < templates or p[p.find("template") + 9:p.find(".tpl")]
+            in keep]
     with open(path, "w") as fh:
-        fh.write("-- start".join(pieces[:templates + 1]))
+        fh.write("-- start".join([pieces[0], *kept]))
     return before, list(TP.gen_sql_from_stream(path))
 
 
@@ -3645,8 +3778,10 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
                      streams=THROUGHPUT_STREAMS, log_dir=None,
                      templates=None):
     """The Throughput Run on the card: `streams`, generated with the port's
-    cli/gen_query_stream from the Load Test's RNGSEED, all 103 statements
-    each, run at once through cli/throughput.py in thread mode over the
+    cli/gen_query_stream from the Load Test's RNGSEED (all 103 statements
+    each, or with `templates` each stream's first `templates` entries and
+    STREAM_GATE_TEMPLATES' "A" entries: truncate_stream), run at once
+    through cli/throughput.py in thread mode over the
     warehouse `wh`, with the kernels on, the stream phase's watchdog and
     engine.verify_plans=final, the card's catalog and working-set lines
     divided between the streams (throughput_conf). Launch counts are
@@ -3690,7 +3825,8 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
         path = os.path.join(sdir, f"query_{n}.sql")
         full = names[n] = list(TP.gen_sql_from_stream(path))
         if templates is not None:
-            full, names[n] = truncate_stream(path, templates)
+            full, names[n] = truncate_stream(path, templates,
+                                             STREAM_GATE_TEMPLATES["A"])
         if len(full) != STREAM_STATEMENTS:
             fail(f"throughput stream {n}: {len(full)} statements")
     conf, catalog_bytes = throughput_conf(B, dev, len(streams), on)
@@ -3839,6 +3975,20 @@ def throughput_phase(torch, GK, dev, root, wh, sf, on, off, a_on, reduced,
 
 #: the lakehouse phase: the decode workers of its Load Test
 LAKE_WORKERS = 4
+#: the ingest's target bytes per data file (NDS_INGEST_FILE_BYTES) at SF1
+#: and above: transcode.py's default
+LAKE_FILE_BYTES = 64 << 20
+
+
+def lake_env(sf):
+    """The environment of leg A's lakehouse Load Test at SF `sf`: below SF1
+    the target file size shrinks with the SF, so that a generator chunk of
+    store_sales splits into as many files as at SF1 and zone maps have
+    files to prune (an NDS_INGEST_FILE_BYTES already set is kept)."""
+    if sf >= 1 or "NDS_INGEST_FILE_BYTES" in os.environ:
+        return None
+    return {"NDS_INGEST_FILE_BYTES": str(int(LAKE_FILE_BYTES * sf))}
+
 #: the scale the phase was made for (leg A's, at which its stream runs);
 #: tools/torch_lakehouse_phase.py runs it
 LAKE_MADE_FOR = {"A": 10, "B": 1}
@@ -3857,7 +4007,7 @@ LAKE_ISO_SQL = (
 LAKE_FORMAT_QUERIES = ("query3", "query15", "query12")
 
 
-def start_lake_load(name, root, raw, *args):
+def start_lake_load(name, root, raw, *args, env=None):
     """Start a Load Test of the lakehouse phase, a cli/transcode.py process
     of its own, to `--output_format name` (the lakehouse, csv or orc) in
     `root`/warehouse_<name>. Returns (process, log, warehouse, report) for
@@ -3866,7 +4016,8 @@ def start_lake_load(name, root, raw, *args):
     log = os.path.join(root, f"transcode_{name}.log")
     report = os.path.join(root, f"load_{name}.report")
     return (run_cli(log, "nds_tpu_torch.cli.transcode", raw, wh, report,
-                    "--output_format", name, *args, background=True),
+                    "--output_format", name, *args, env=env,
+                    background=True),
             log, wh, report)
 
 
@@ -4126,7 +4277,7 @@ def lake_format_runs(torch, GK, TP, dev, ctx, on, loads):
     return emit(rec)
 
 
-def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
+def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None, after_load=None):
     """The lakehouse, csv and orc entries on the card, over the stream
     phase's legs (`ctx`, stream_phase's `lake` argument; their .dat files
     kept). (1) Leg A's data through cli/transcode.py --output_format
@@ -4135,14 +4286,17 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
     then the same command with --resume, which must convert 0 rows, while
     leg B's data goes to a csv and an orc warehouse (--floats) in two more
     processes. (2)
-    Stream 0's 103 statements cold through cli/power.py --input_format
+    Leg A's stream 0 (as the stream phase cut it) cold through
+    cli/power.py --input_format
     lakehouse with the kernels on and the stream watchdog (run `L_on`):
     every statement Completed, validate against A_on finding no unmatched
     query, dense_build and sort_perm launched; Power Test Time, catalog
     load ms and peak beside A_on's. (3) lake_prune_check, (4)
     lake_isolation_check, (5) lake_format_runs. The JSON summaries of the
-    stream go to `log_dir` as they are written, where given. Returns the
-    stream's launches."""
+    stream go to `log_dir` as they are written, where given; `after_load`,
+    where given, is called when leg A's Load Test has ended (the script
+    starts the maintenance phase's Load Test there). Returns the stream's
+    launches."""
     from nds_tpu_torch import power as TP
 
     from pyarrow import orc  # noqa: F401  (a host without ORC fails here)
@@ -4150,8 +4304,11 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
     t_phase = time.perf_counter()
     ra, sf = ctx["root_a"], ctx["sf_a"]
     reduced = list(ctx["reduced"])
+    env = lake_env(sf)
     wh, load_test_s, converted = finish_lake_load(start_lake_load(
-        "lakehouse", ra, ctx["raw_a"], "--workers", LAKE_WORKERS))
+        "lakehouse", ra, ctx["raw_a"], "--workers", LAKE_WORKERS, env=env))
+    if after_load is not None:
+        after_load()
     started = {fmt: start_lake_load(fmt, ctx["root_b"], ctx["raw_b"],
                                     "--floats") for fmt in ("csv", "orc")}
     try:
@@ -4160,7 +4317,7 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
                 "nds_tpu_torch.cli.transcode", ctx["raw_a"], wh,
                 os.path.join(ra, "load_resume.report"),
                 "--output_format", "lakehouse", "--workers", LAKE_WORKERS,
-                "--resume")
+                "--resume", env=env)
         resume_s = time.perf_counter() - t0
         loads = {fmt: finish_lake_load(load)
                  for fmt, load in started.items()}
@@ -4174,6 +4331,8 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
                                 re.M).group(1))
     files = lake_files_per_table(wh)
     emit({"phase": "lakehouse_load", "sf": sf, "workers": LAKE_WORKERS,
+          "file_bytes": int((env or os.environ).get(
+              "NDS_INGEST_FILE_BYTES", LAKE_FILE_BYTES)),
           "load_test_s": load_test_s,
           "rows": converted, "rows_per_s": converted / load_test_s,
           "bytes": dir_bytes(wh),
@@ -4216,6 +4375,10 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
            f"limit; tools/torch_lakehouse_phase.py runs it)"
            for leg, s in (("A", sf), ("B", ctx["sf_b"]))
            if s < LAKE_MADE_FOR[leg]]
+    if env is not None:
+        cut.append(f"leg A's lakehouse files at "
+                   f"{env['NDS_INGEST_FILE_BYTES']} bytes of {LAKE_FILE_BYTES}"
+                   f" (a store_sales chunk splits as at SF1)")
     emit({"phase": "lakehouse", "sf": sf, "load_test_s": load_test_s,
           "power_test_ms": line["power_test_ms"],
           "a_on_power_test_ms": a_on["power_test_ms"],
@@ -4225,8 +4388,696 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None):
           "csv_load_test_s": formats["csv"]["load_test_s"],
           "orc_load_test_s": formats["orc"]["load_test_s"],
           "seconds": time.perf_counter() - t_phase,
+          # the maintenance phase's Load Test ran beside this phase's after
+          # leg A's (the time limit): its times are not this phase's alone
+          "maintenance_load_beside": after_load is not None,
           "reduced": cut})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# maintenance: the Data Maintenance phase over leg A's lakehouse
+# ---------------------------------------------------------------------------
+
+#: the kernels the maintenance path launches: a CPU run of the 11 refresh
+#: functions with branch_spy and engine.pallas_*=on reaches these wrappers
+#: and no other (tests/test_torch_maintenance.py holds the list to it)
+MAINTENANCE_KERNELS = ("dense_build", "sort_perm")
+#: the scale the phase was made for (tools/torch_maintenance_phase.py)
+MAINTENANCE_MADE_FOR = 10
+#: the under-load pass runs stream 0's first templates (the time limit)
+MAINTENANCE_TEMPLATES = 40
+#: the fact tables the refresh functions write (maintenance.FACT_TABLES)
+DM_FACT_TABLES = ("catalog_sales", "catalog_returns", "inventory",
+                  "store_returns", "store_sales", "web_returns", "web_sales")
+#: each DF_* function: (fact table, its date key, its order key, the
+#: returns table, its order key), the DELETE statements of
+#: nds_tpu_torch/data_maintenance/DF_*.sql
+DF_TABLES = {
+    "DF_CS": ("catalog_sales", "cs_sold_date_sk", "cs_order_number",
+              "catalog_returns", "cr_order_number"),
+    "DF_SS": ("store_sales", "ss_sold_date_sk", "ss_ticket_number",
+              "store_returns", "sr_ticket_number"),
+    "DF_WS": ("web_sales", "ws_sold_date_sk", "ws_order_number",
+              "web_returns", "wr_order_number"),
+    "DF_I": ("inventory", "inv_date_sk", None, None, None),
+}
+#: step 6's delete-date range: the first pair of the `delete` table that
+#: gen_data --update 1 makes (the same at every SF)
+MAINTENANCE_SF100_RANGE = ("1998-01-01", "1998-01-31")
+
+
+def dm_time_log_rows(funcs, optimize=False, vacuum=False):
+    """The rows of a Data Maintenance time log, as the reference names
+    them (nds_tpu/maintenance.py _run_maintenance_body)."""
+    return (list(funcs) + (["Optimize Time"] if optimize else [])
+            + (["Vacuum Time"] if vacuum else [])
+            + ["Data Maintenance Start Time", "Data Maintenance End Time",
+               "Data Maintenance Time", "Total Time"])
+
+
+def read_dm_time_log(path):
+    """[(row name, value)] of a Data Maintenance time log."""
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["application_id", "query", "time/s"]:
+        fail(f"maintenance time log header {rows[0]}")
+    return [(r[1], r[2]) for r in rows[1:]]
+
+
+def delete_ranges(refresh):
+    """{"delete": [(DATE1, DATE2)], "inventory_delete": [...]} of a refresh
+    data directory, read from its .dat files in file order, each pair
+    ordered so that DATE1 <= DATE2 (ISO dates order as strings)."""
+    out = {}
+    for t in ("delete", "inventory_delete"):
+        d = os.path.join(refresh, t)
+        pairs = []
+        for f in sorted(os.listdir(d)):
+            with open(os.path.join(d, f)) as fh:
+                for line in fh:
+                    if line.strip():
+                        pairs.append(tuple(sorted(line.split("|")[:2])))
+        out[t] = pairs
+    return out
+
+
+def _int_column(tb, name):
+    """(int64 values with NULLs as 0, validity) of an Arrow column."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    col = tb.column(name)
+    if pa.types.is_date(col.type):
+        col = col.cast(pa.int32())
+    valid = pc.is_valid(col).to_numpy(zero_copy_only=False)
+    data = pc.fill_null(col.cast(pa.int64()), 0).to_numpy(
+        zero_copy_only=False)
+    return np.asarray(data, dtype=np.int64), np.asarray(valid, dtype=bool)
+
+
+def pre_delete_versions(wh):
+    """{fact table: the manifest version before its first `delete` commit}
+    (None where the table has none)."""
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    out = {}
+    for t in DM_FACT_TABLES:
+        vs = LakehouseTable(os.path.join(wh, t)).versions()
+        first = [v for v, _, op in vs if op == "delete"]
+        out[t] = (max(v for v, _, _ in vs if v < first[0]) if first
+                  else None)
+    return out
+
+
+def expected_dm_deletes(wh, refresh, versions):
+    """The rows each DF_* statement deletes, counted with pyarrow and numpy
+    apart from the engine: each function's DELETEs applied in turn, in the
+    order maintenance.get_maintenance_queries gives them (per date pair the
+    returns delete, then the fact delete), to the fact tables at `versions`
+    (pre_delete_versions) and date_dim at its head. A returns row goes when
+    its order key is among those of the fact rows sold in the range; a
+    fact row when its date key lies between the range's first and last
+    d_date_sk (none when the range holds no date); a NULL key never
+    matches. Returns {function: [rows per statement]}."""
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    def read(t, cols):
+        snap = LakehouseTable(os.path.join(wh, t)).snapshot(versions.get(t))
+        tb = snap.dataset().to_table(columns=cols)
+        return [_int_column(tb, c) for c in cols]
+
+    (dsk, dsk_ok), (day, day_ok) = read("date_dim", ["d_date_sk", "d_date"])
+    ranges = delete_ranges(refresh)
+    out = {}
+    for fn, (fact, f_date, f_key, ret, r_key) in DF_TABLES.items():
+        cols = read(fact, [f_date] + ([f_key] if f_key else []))
+        (f_dt, f_dt_ok) = cols[0]
+        live_f = np.ones(f_dt.shape[0], dtype=bool)
+        if ret:
+            (f_k, f_k_ok) = cols[1]
+            [(r_k, r_k_ok)] = read(ret, [r_key])
+            live_r = np.ones(r_k.shape[0], dtype=bool)
+        counts = []
+        for d1, d2 in ranges["inventory_delete" if fn == "DF_I"
+                             else "delete"]:
+            lo, hi = (np.datetime64(d, "D").astype(np.int64)
+                      for d in (d1, d2))
+            sks = dsk[dsk_ok & day_ok & (day >= lo) & (day <= hi)]
+            if ret:
+                sold = live_f & f_dt_ok & np.isin(f_dt, sks)
+                keys = np.unique(f_k[sold & f_k_ok])
+                gone = live_r & r_k_ok & np.isin(r_k, keys)
+                counts.append(int(gone.sum()))
+                live_r &= ~gone
+            gone = (live_f & f_dt_ok & (f_dt >= sks.min())
+                    & (f_dt <= sks.max()) if sks.size
+                    else np.zeros_like(live_f))
+            counts.append(int(gone.sum()))
+            live_f &= ~gone
+        out[fn] = counts
+    return out
+
+
+def _column_words(col):
+    """The values of an Arrow column as a numpy array of machine words
+    (uint64; a decimal128 two words a value), NULL slots zeroed, and its
+    validity. Integers, dates, decimals, floats and booleans."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
+    valid = np.asarray(pc.is_valid(arr).to_numpy(zero_copy_only=False),
+                       dtype=bool)
+    t = arr.type
+    if pa.types.is_decimal128(t):
+        raw = np.frombuffer(arr.buffers()[1], dtype=np.uint64)
+        words = raw[2 * arr.offset:2 * (arr.offset + len(arr))].reshape(-1, 2)
+        words = np.where(valid[:, None], words, 0)
+    elif pa.types.is_date(t) or pa.types.is_integer(t) or \
+            pa.types.is_floating(t) or pa.types.is_boolean(t):
+        if pa.types.is_date(t):
+            arr = arr.cast(pa.int32() if pa.types.is_date32(t)
+                           else pa.int64())
+        filled = pc.fill_null(arr, pa.scalar(0, arr.type)
+                              if not pa.types.is_boolean(arr.type)
+                              else False)
+        vals = np.asarray(filled.to_numpy(zero_copy_only=False))
+        if vals.dtype.kind == "f":
+            vals = vals.astype(np.float64).view(np.uint64)
+        words = vals.astype(np.int64).view(np.uint64)
+    else:
+        fail(f"fact_digests: no word form for a {t} column")
+    return words, valid
+
+
+def _table_digest(path):
+    import hashlib
+
+    import pyarrow.compute as pc
+
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    tb = LakehouseTable(path).dataset().to_table()
+    order = pc.sort_indices(tb, sort_keys=[(c, "ascending")
+                                           for c in tb.column_names])
+    tb = tb.take(order)
+    h = hashlib.sha256(str(tb.schema).encode())
+    for name in tb.column_names:
+        words, valid = _column_words(tb.column(name))
+        h.update(np.ascontiguousarray(words).tobytes())
+        h.update(np.packbits(valid).tobytes())
+    return [tb.num_rows, h.hexdigest()]
+
+
+def fact_digests(wh, tables=DM_FACT_TABLES):
+    """{table: [rows, sha256 of its schema and of its rows sorted by every
+    column, NULLs apart]} at each table's head, four tables at a time:
+    equal digests mean equal multisets of rows, exactly, and an equal
+    schema."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nds_tpu_torch.report import use_system_arrow_pool
+
+    # Arrow's mimalloc pool crashes under reads from several threads
+    use_system_arrow_pool()
+    with ThreadPoolExecutor(4) as ex:
+        got = list(ex.map(_table_digest,
+                          [os.path.join(wh, t) for t in tables]))
+    return dict(zip(tables, got))
+
+
+def head_timestamp_ms(wh, tables=DM_FACT_TABLES):
+    """The latest commit timestamp (epoch ms) of the tables' heads: a
+    rollback to it restores every one of them to its head now."""
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    return max(LakehouseTable(os.path.join(wh, t)).versions()[-1][1]
+               for t in tables)
+
+
+@contextlib.contextmanager
+def recorded_dm_statements(TM):
+    """Record each refresh statement the port runs: (function, seconds,
+    rows affected or None) appended to the yielded list."""
+    from nds_tpu_torch import faults as TF
+
+    orig = TM._run_dm_statement
+    got = []
+
+    def run(session, q):
+        t0 = time.perf_counter()
+        res = orig(session, q)
+        got.append((TF.current_scope(), time.perf_counter() - t0,
+                    getattr(res, "rows_affected", None)))
+        return res
+
+    TM._run_dm_statement = run
+    try:
+        yield got
+    finally:
+        TM._run_dm_statement = orig
+
+
+@contextlib.contextmanager
+def audited_vacuums(TT):
+    """Record each vacuum of a lakehouse table: (table, files removed, the
+    removed files that a live reader lease held just before it)."""
+    orig = TT.LakehouseTable.vacuum
+    got = []
+
+    def vacuum(self, *a, **kw):
+        held = self._held_files()
+        res = orig(self, *a, **kw)
+        got.append((self.name, res["files_removed"],
+                    sorted(set(res["removed"]) & held)))
+        return res
+
+    TT.LakehouseTable.vacuum = vacuum
+    try:
+        yield got
+    finally:
+        TT.LakehouseTable.vacuum = orig
+
+
+def maintenance_run(torch, GK, TM, dev, root, wh, refresh, on):
+    """Step 2: the 11 refresh functions through cli/maintenance.py on the
+    card with --optimize (no vacuum). Launch counts are zeroed just before
+    and read just after. Returns (time log rows, summaries, statements,
+    files per fact table after the functions and after the optimize,
+    launches, peak GiB, seconds)."""
+    from nds_tpu_torch.cli import maintenance as TCLI
+
+    d = os.path.join(root, "M_card")
+    os.makedirs(d)
+    prop = property_file(os.path.join(d, "card.properties"), on)
+    files = {}
+    orig_opt = TM.optimize_warehouse
+
+    def optimize(*a, **kw):
+        files["before"] = lake_files_per_table(wh)
+        out = orig_opt(*a, **kw)
+        files["after"] = lake_files_per_table(wh)
+        return out
+
+    TM.optimize_warehouse = optimize
+    try:
+        with recorded_dm_statements(TM) as stmts, \
+                open(os.path.join(d, "maintenance.log"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            GK.reset_launches()
+            t0 = time.perf_counter()
+            TCLI.main([wh, refresh, os.path.join(d, "time.csv"),
+                       "--property_file", prop, "--optimize",
+                       "--json_summary_folder", os.path.join(d, "json")])
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = dict(GK.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    finally:
+        TM.optimize_warehouse = orig_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (read_dm_time_log(os.path.join(d, "time.csv")),
+            read_summaries(os.path.join(d, "json")), stmts, files, launches,
+            peak, seconds)
+
+
+def check_dm_run(run, funcs, log, summaries, optimize=True):
+    """The gates of a Data Maintenance run: every function Completed and
+    the time log's rows as the reference names them."""
+    status = {q: s["queryStatus"][0] for q, s in summaries.items()}
+    if status != {q: "Completed" for q in funcs}:
+        fail(f"maintenance {run}: statuses {status}: " + "; ".join(
+            f"{q}: {summaries[q]['exceptions'][-1][:300]}"
+            for q, v in status.items() if v != "Completed"
+            and summaries[q]["exceptions"]))
+    want = dm_time_log_rows(funcs, optimize=optimize)
+    if [r for r, _ in log] != want:
+        fail(f"maintenance {run}: time log rows {[r for r, _ in log]}, "
+             f"not {want}")
+
+
+def maintenance_under_load(torch, GK, TM, TT, B, dev, root, wh, refresh,
+                           stream, on, templates):
+    """Step 5: maintenance.run_maintenance_under_load with stream 0's first
+    `templates` templates and the 11 functions and a vacuum, the reader's
+    and the writer's sessions each with half the card's catalog and
+    working-set lines (throughput_conf for two streams). Returns the
+    `maintenance_under_load` record."""
+    d = os.path.join(root, "M_load")
+    os.makedirs(d)
+    cut = os.path.join(d, "stream.sql")
+    shutil.copyfile(stream, cut)
+    before, after = truncate_stream(cut, templates)
+    conf, catalog_bytes = throughput_conf(B, dev, 2, on)
+    prop = property_file(os.path.join(d, "load.properties"), conf)
+    statuses = []
+    Report = TM.BenchReport
+
+    class Recorded(Report):
+        def report_on(self, fn, *args, **kw):
+            s = super().report_on(fn, *args, **kw)
+            # args[2]: the statement's or the function's name
+            statuses.append((fn.__name__, args[2], s["queryStatus"][-1]))
+            return s
+
+    old_env = os.environ.get("NDS_CATALOG_BUDGET_BYTES")
+    os.environ["NDS_CATALOG_BUDGET_BYTES"] = str(catalog_bytes)
+    TM.BenchReport = Recorded
+    err = None
+    try:
+        with audited_vacuums(TT) as vacuums, \
+                open(os.path.join(d, "under_load.log"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            GK.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                report = TM.run_maintenance_under_load(
+                    wh, refresh, cut, os.path.join(d, "time.csv"),
+                    report_path=os.path.join(d, "report.json"),
+                    property_file=prop, device=dev)
+            except RuntimeError as exc:  # the DM thread failed: reported
+                err = str(exc)
+                with open(os.path.join(d, "report.json")) as rf:
+                    report = json.load(rf)
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = dict(GK.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    finally:
+        TM.BenchReport = Report
+        if old_env is None:
+            os.environ.pop("NDS_CATALOG_BUDGET_BYTES", None)
+        else:
+            os.environ["NDS_CATALOG_BUDGET_BYTES"] = old_env
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_q = len(after)
+    not_done = [(k, q, st) for k, q, st in statuses if st != "Completed"]
+    leased = [(t, f) for t, _, f in vacuums if f]
+    rec = emit({
+        "phase": "maintenance_under_load", "statements": n_q,
+        "templates": templates, "stream_statements": len(before),
+        "catalog_bytes_per_session": catalog_bytes,
+        "plan_budget_bytes_per_session": conf["engine.plan_budget_bytes"],
+        "p99_solo_ms": report["query_p99_ms_solo"],
+        "p99_under_load_ms": report["query_p99_ms_under_load"],
+        "p99_degradation": report["query_p99_degradation"],
+        "dm_functions": report["dm_functions"],
+        "dm_failed": report["dm_failed"],
+        "dm_elapsed_s": report["dm_elapsed_s"],
+        "dm_functions_per_s": report["dm_functions_per_s"],
+        "vacuums": report["vacuums"],
+        "vacuum_files_removed": report["vacuum_files_removed"],
+        "vacuum_removed_leased": leased,
+        "overlap_wall_s": report["overlap_wall_s"],
+        "dm_error": report.get("dm_error"), "not_completed": not_done,
+        "reports": len(statuses), "launches": launches, "peak_gib": peak,
+        "seconds": seconds})
+    if err is not None or report.get("dm_error"):
+        fail(f"maintenance under load: {err or report['dm_error']}")
+    if len(statuses) != 3 * n_q + 11 or not_done:
+        fail(f"maintenance under load: {len(statuses)} reports of "
+             f"{3 * n_q + 11}; not completed {not_done}")
+    if report["dm_functions"] != 11 or report["dm_failed"] != 0:
+        fail(f"maintenance under load: {report['dm_functions']} functions "
+             f"completed, {report['dm_failed']} failed")
+    if report["vacuum_files_removed"] < 1 or leased:
+        fail(f"maintenance under load: the vacuum removed "
+             f"{report['vacuum_files_removed']} files, leased ones {leased}")
+    return rec
+
+
+def maintenance_phase(torch, GK, dev, root, wh, sf, stream, on,
+                      reduced=()):
+    """The Data Maintenance phase on the card over a lakehouse warehouse
+    `wh` at SF `sf`, in `root`, with `stream` for the under-load pass.
+    (1) gen_data --update 1 (`maintenance_refresh`: seconds, rows per
+    staging table). (3, started first) The warehouse and the refresh data
+    copied, and the 11 refresh functions run on the copy through
+    cli/maintenance.py --device cpu in a process of its own. (2) The 11
+    functions through cli/maintenance.py on the card with --optimize
+    (`maintenance_function` lines: ms, status, rows affected per
+    statement; `maintenance` line: Tdm from the time log, files per fact
+    table before and after the optimize, peak GiB, launches). Gates:
+    every function Completed, the time log's rows as the reference names
+    them, each DF_* statement's deleted rows equal to expected_dm_deletes,
+    MAINTENANCE_KERNELS launched. (3) Every fact table equal between the
+    card and the CPU, as multisets of rows (fact_digests). (4) Rollback
+    (cli/rollback.py) to the heads before step 2: every fact table's rows
+    and digest as before. (5) maintenance_under_load. Returns the
+    launches of step 2."""
+    from nds_tpu_torch import maintenance as TM
+    from nds_tpu_torch.analysis import budget as B
+    from nds_tpu_torch.cli import rollback as TRB
+    from nds_tpu_torch.lakehouse import table as TT
+
+    t_phase = time.perf_counter()
+    funcs = list(TM.DM_FUNCS)
+    refresh = os.path.join(root, "refresh")
+    t0 = time.perf_counter()
+    run_cli(os.path.join(root, "gen_update.log"),
+            "nds_tpu_torch.cli.gen_data", "--scale", sf, "--parallel",
+            max(2, os.cpu_count()), "--data_dir", refresh, "--update", 1)
+    gen_s = time.perf_counter() - t0
+    emit({"phase": "maintenance_refresh", "sf": sf, "seconds": gen_s,
+          "rows": count_dat_rows(refresh),
+          "delete_ranges": delete_ranges(refresh)})
+
+    pre = fact_digests(wh)
+    pre_ts = head_timestamp_ms(wh)
+    t0 = time.perf_counter()
+    wh_cpu = os.path.join(root, "warehouse_maintenance_cpu")
+    refresh_cpu = os.path.join(root, "refresh_cpu")
+    shutil.copytree(wh, wh_cpu)
+    shutil.copytree(refresh, refresh_cpu)
+    copy_s = time.perf_counter() - t0
+    d_cpu = os.path.join(root, "M_cpu")
+    os.makedirs(d_cpu)
+    t_cpu = time.perf_counter()
+    cpu = run_cli(os.path.join(d_cpu, "maintenance.log"),
+                  "nds_tpu_torch.cli.maintenance", wh_cpu, refresh_cpu,
+                  os.path.join(d_cpu, "time.csv"), "--device", "cpu",
+                  "--property_file", property_file(
+                      os.path.join(d_cpu, "cpu.properties"), on),
+                  "--json_summary_folder", os.path.join(d_cpu, "json"),
+                  env={"OMP_NUM_THREADS": str(STREAM_CPU_THREADS)},
+                  background=True)
+    try:
+        log, summaries, stmts, files, launches, peak, seconds = \
+            maintenance_run(torch, GK, TM, dev, root, wh, refresh, on)
+        wait_cli(cpu, os.path.join(d_cpu, "maintenance.log"))
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+        cpu.wait()
+    cpu_s = time.perf_counter() - t_cpu
+    times = dict(log)
+    per_fn = {}
+    for fn, secs, n in stmts:
+        per_fn.setdefault(fn, []).append((secs, n))
+    for fn in funcs:
+        s = summaries.get(fn, {})
+        emit({"phase": "maintenance_function", "function": fn,
+              "ms": (s.get("queryTimes") or [None])[0],
+              "status": (s.get("queryStatus") or [None])[0],
+              "statement_ms": [secs * 1e3 for secs, _ in per_fn.get(fn, [])],
+              "rows_affected": [n for _, n in per_fn.get(fn, [])]})
+    check_dm_run("card", funcs, log, summaries)
+    deletes = expected_dm_deletes(wh, refresh, pre_delete_versions(wh))
+    got_deletes = {fn: [n for _, n in per_fn.get(fn, [])] for fn in deletes}
+    tdm = float(times["Data Maintenance Time"])
+    emit({"phase": "maintenance", "sf": sf, "tdm_s": tdm,
+          "optimize_s": float(times["Optimize Time"]),
+          "functions_ms": {fn: summaries[fn]["queryTimes"][0]
+                           for fn in funcs},
+          "deleted": got_deletes, "deleted_expected": deletes,
+          "files_before_optimize": {t: f for t, (f, _) in
+                                    files["before"].items()},
+          "files_after_optimize": {t: f for t, (f, _) in
+                                   files["after"].items()},
+          "peak_gib": peak, "launches": launches,
+          "seconds": seconds, "copy_s": copy_s,
+          "refresh_gen_s": gen_s})
+    if got_deletes != deletes:
+        fail(f"maintenance: DF_* deleted {got_deletes}, pyarrow counts "
+             f"{deletes}")
+    for k in MAINTENANCE_KERNELS:
+        if launches[k] == 0:
+            fail(f"maintenance: kernel {k} was not launched")
+
+    # (3) the card against the CPU
+    cpu_sum = read_summaries(os.path.join(d_cpu, "json"))
+    cpu_log = read_dm_time_log(os.path.join(d_cpu, "time.csv"))
+    check_dm_run("cpu", funcs, cpu_log, cpu_sum, optimize=False)
+    card = fact_digests(wh)
+    on_cpu = fact_digests(wh_cpu)
+    differ = sorted(t for t in card if card[t] != on_cpu[t])
+    emit({"phase": "maintenance_cpu",
+          "tdm_s": float(dict(cpu_log)["Data Maintenance Time"]),
+          "seconds": cpu_s,
+          "rows": {t: [card[t][0], on_cpu[t][0]] for t in card},
+          "differ": differ})
+    shutil.rmtree(wh_cpu, ignore_errors=True)
+    if differ:
+        fail(f"maintenance: fact tables {differ} differ between the card "
+             f"and the CPU")
+
+    # (4) rollback to the heads before step 2
+    t0 = time.perf_counter()
+    with open(os.path.join(root, "rollback.log"), "w") as fh, \
+            contextlib.redirect_stdout(fh):
+        TRB.main([wh, str(pre_ts), "--device", str(dev)])
+    rollback_s = time.perf_counter() - t0
+    back = fact_digests(wh)
+    emit({"phase": "maintenance_rollback", "timestamp_ms": pre_ts,
+          "seconds": rollback_s,
+          "rows": {t: [pre[t][0], back[t][0]] for t in pre},
+          "restored": sorted(t for t in pre if back[t] == pre[t])})
+    if back != pre:
+        fail(f"maintenance: rollback left "
+             f"{sorted(t for t in pre if back[t] != pre[t])} unlike before")
+
+    # (5) under load
+    load = maintenance_under_load(torch, GK, TM, TT, B, dev, root, wh,
+                                  refresh, stream, on, MAINTENANCE_TEMPLATES)
+    cut = list(reduced) + (
+        [f"SF{sf:g} of SF{MAINTENANCE_MADE_FOR} (the time limit; "
+         f"tools/torch_maintenance_phase.py runs it)"]
+        if sf < MAINTENANCE_MADE_FOR else []) + [
+        f"the under-load stream cut to stream 0's first "
+        f"{MAINTENANCE_TEMPLATES} templates (the time limit)"]
+    emit({"phase": "maintenance_done", "sf": sf, "tdm_s": tdm,
+          "p99_degradation": load["p99_degradation"],
+          "dm_functions_per_s": load["dm_functions_per_s"],
+          "seconds": time.perf_counter() - t_phase, "reduced": cut})
+    return launches
+
+
+def start_maintenance_load(ctx):
+    """Start the maintenance phase's Load Test: leg B's .dat files (kept by
+    the stream phase) through cli/transcode.py to a lakehouse with decimals
+    (LAKE_WORKERS workers). Returns start_lake_load's tuple."""
+    return start_lake_load("lakehouse", ctx["root_b"], ctx["raw_b"],
+                           "--workers", LAKE_WORKERS)
+
+
+def maintenance_over_leg_b(torch, GK, dev, ctx, on, load=None):
+    """The script's maintenance phase: leg B's data loaded to a lakehouse
+    with decimals (`load`, a start_maintenance_load already started, or one
+    started here; `maintenance_load`), then maintenance_phase over it with
+    leg B's stream 0. Leg A's lakehouse would make the phase several times
+    longer than the time limit leaves (each DF_* DELETE rewrites its whole
+    fact table), so the cut is listed in `reduced`. Returns the launches of
+    the phase's card run."""
+    rb, sf = ctx["root_b"], ctx["sf_b"]
+    wh, load_test_s, converted = finish_lake_load(
+        load or start_maintenance_load(ctx))
+    emit({"phase": "maintenance_load", "sf": sf, "load_test_s": load_test_s,
+          "rows": converted,
+          "files_per_fact_table": {t: f for t, (f, _) in
+                                   lake_files_per_table(wh).items()}})
+    return maintenance_phase(
+        torch, GK, dev, rb, wh, sf, ctx["stream_b"], on,
+        reduced=[f"leg B's data (SF{sf:g}) loaded to a lakehouse with "
+                 f"decimals, in place of leg A's SF{ctx['sf_a']:g} "
+                 f"lakehouse (the time limit)"])
+
+
+def maintenance_sf100(torch, GK, TX, B, Session, star, tables, dev, on):
+    """Step 6: the heaviest device statement of the maintenance path at
+    SF100, DF_SS's returns delete as lakehouse/dml.py runs it on the
+    engine: its survivor query (select * from store_returns where not
+    coalesce(<the DELETE's predicate>, false)), built from DF_SS.sql's
+    first statement with MAINTENANCE_SF100_RANGE, over the SF100 device
+    tables. A refusal at the card's lines is shown, and the query then runs
+    under REFUSED_MODE. Cold run with branch_spy, STEADY_RUNS steady runs;
+    the survivor count must equal numpy's. Returns the
+    `maintenance_sf100` record."""
+    from nds_tpu_torch import maintenance as TM
+    from nds_tpu_torch.engine import expr as E
+    from nds_tpu_torch.engine.sql import ast as A
+    from nds_tpu_torch.engine.sql.parser import parse_sql
+
+    with open(os.path.join(TM.MAINTENANCE_SQL_DIR, "DF_SS.sql")) as fh:
+        first = next(
+            s for s in fh.read().split(";") if s.strip() and not all(
+                ln.strip().startswith("--") or not ln.strip()
+                for ln in s.splitlines()))
+    first = "\n".join(ln for ln in first.strip().splitlines()
+                      if not ln.strip().startswith("--"))
+    delete_sql = TM.replace_date([first], [MAINTENANCE_SF100_RANGE])[0]
+    stmt = parse_sql(delete_sql)
+    query = A.SelectStmt(
+        select_items=[("*", None)], from_items=[A.TableRef(stmt.table)],
+        where=E.UnaryOp("not", E.Func("coalesce",
+                                      (stmt.where, E.Lit(False)))))
+    s = Session(conf=dict(on), device=dev)
+    for name, t in tables.items():
+        s.register_table(name, t)
+    refused = None
+    try:
+        s.run_stmt(query)
+    except B.PlanBudgetError as exc:
+        rec = s.last_plan_budget
+        refused = {"modeled_peak_gib": rec["peak_bytes"] / 2**30,
+                   "reject_gib": B.resolve_reject_bytes(s.conf, dev) / 2**30,
+                   "error": str(exc)}
+
+    def run():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with admitted(s, refused):
+            res = s.run_stmt(query).collect()
+        torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    ev = []
+    restore = branch_spy(TX.Executor, ev)
+    GK.reset_launches()
+    try:
+        res, cold_ms = run()
+    finally:
+        restore()
+    launches = dict(GK.LAUNCHES)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steady = [run()[1] for _ in range(STEADY_RUNS)]
+    working = torch.cuda.max_memory_allocated(dev) - before
+    budget = budget_record(B, s, working, dev, refused)
+    # numpy: the returns whose ticket was sold in the range survive not
+    dd, ss, sr = star["date_dim"], star["store_sales"], star["store_returns"]
+    lo, hi = (np.datetime64(d, "D").astype(np.int64)
+              for d in MAINTENANCE_SF100_RANGE)
+    sks = dd["d_date_sk"][(dd["d_date"] >= lo) & (dd["d_date"] <= hi)]
+    sold = ss["ss_sold_date_sk__valid"] & np.isin(ss["ss_sold_date_sk"], sks)
+    tickets = np.unique(ss["ss_ticket_number"][sold])
+    gone = int(np.isin(sr["sr_ticket_number"], tickets).sum())
+    n_ret = sr["sr_ticket_number"].shape[0]
+    rec = emit({"phase": "maintenance_sf100", "sql": delete_sql,
+                "rows": res.num_rows, "numpy_survivors": n_ret - gone,
+                "deleted": gone, "store_returns_rows": n_ret,
+                "cold_ms": cold_ms, "steady_ms": float(np.median(steady)),
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "branches": ev, "launches": launches, "budget": budget,
+                "refusal": refused, "steady_runs": STEADY_RUNS})
+    del s, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rec["rows"] != rec["numpy_survivors"]:
+        fail(f"maintenance sf100: {rec['rows']} survivors, numpy "
+             f"{rec['numpy_survivors']}")
+    return rec
 
 
 #: the explain phase's scale: the SF100 the earlier phases model
@@ -4554,6 +5405,9 @@ def main(argv=None):
 
     # (the registration loop's variables hold s_off and a table too)
     del s_on, s_off, s, t
+    # the stream legs' data and Load Tests (host processes) from here on,
+    # beside the SF100 phases, whose queries keep the card busy
+    started = stream_start(args.scale)
     joined, join_launches = joins_phase(torch, GK, TX, B, Session, star,
                                         tables, dev, on, off, rows, checks)
     for rec in kernels:
@@ -4572,6 +5426,10 @@ def main(argv=None):
     spill_launches = spill_phase(torch, GK, TX, B, Session, tables, dev, on)
     for rec in kernels:
         rec["spill_launches"] = spill_launches[rec["name"]]
+
+    # -- maintenance_sf100 (DF_SS's survivor query over the SF100 tables) --
+    torch.cuda.empty_cache()
+    maintenance_sf100(torch, GK, TX, B, Session, star, tables, dev, on)
 
     # -- budget_refusals / device_memory -----------------------------------
     lines_all = {**results, **joined, **windowed}
@@ -4625,17 +5483,37 @@ def main(argv=None):
 
     # -- lakehouse (over both legs, after the throughput phase) -----------
     lakehouse = {}
+    # -- maintenance (over leg B's data, after the lakehouse phase) -------
+    maintenance = {}
 
     def lake(ctx):
-        lakehouse.update(lakehouse_phase(torch, GK, dev, ctx, on))
+        # the maintenance phase's Load Test starts when the lakehouse
+        # phase's own has ended, and runs beside the rest of that phase
+        started = []
+        try:
+            lakehouse.update(lakehouse_phase(
+                torch, GK, dev, ctx, on, after_load=lambda: started.append(
+                    start_maintenance_load(ctx))))
+            gc.collect()
+            torch.cuda.empty_cache()
+            maintenance.update(maintenance_over_leg_b(
+                torch, GK, dev, ctx, on, load=started[0]))
+        finally:
+            for proc, *_ in started:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
 
     stream_a, stream_b = stream_phase(torch, GK, dev, on, off, args.scale,
-                                      then=then, lake=lake)
+                                      then=then, lake=lake,
+                                      templates=STREAM_TEMPLATES,
+                                      started=started)
     for rec in kernels:
         rec["stream_a_launches"] = stream_a[rec["name"]]
         rec["stream_b_launches"] = stream_b[rec["name"]]
         rec["throughput_launches"] = throughput[rec["name"]]
         rec["lakehouse_launches"] = lakehouse[rec["name"]]
+        rec["maintenance_launches"] = maintenance[rec["name"]]
 
     # -- explain -----------------------------------------------------------
     explain_phase(dev)

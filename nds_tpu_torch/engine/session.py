@@ -7,8 +7,9 @@ snapshot per statement and pruned file by file by their zone maps,
 in-memory Arrow tables, or device tables built with `table_from_numpy`),
 parses + binds + prunes SQL, executes it with the unfused operator path
 (whatever `engine.fuse` says: fusion is not ported), and returns Arrow
-tables. Statements other than SELECT (DML, CREATE VIEW) raise
-NotImplementedError (ROADMAP.md queue 1 item 9.6).
+tables. CREATE / DROP (TEMP) VIEW registers or drops an Arrow entry;
+INSERT, DELETE, CREATE TABLE AS and CALL rollback_to_timestamp run over
+lakehouse tables through lakehouse/dml.py (the Data Maintenance phase).
 
 It runs on the card unless the caller asks for the CPU: `device=None`
 resolves to `cuda` and raises when no GPU is present; nothing moves to the
@@ -53,6 +54,7 @@ from ..schema import (
     Schema,
     TABLE_PARTITIONING,
     TABLE_PRIMARY_KEYS,
+    get_maintenance_schemas,
     get_schemas,
 )
 from . import expr as E
@@ -153,9 +155,6 @@ _UNPORTED_KNOBS = (
      "queue 1 item 15 (the engine's own checks)"),
 )
 
-_ITEM9_6 = "ROADMAP.md queue 1 item 9.6 (data maintenance: DML, CREATE VIEW)"
-
-
 _ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
 
 
@@ -239,6 +238,9 @@ class Catalog:
         self._use_tick = 0
         # entries whose columns the budget evicted, over the session's life
         self.evictions = 0
+        # per thread, the lakehouse names whose pins a DML statement holds
+        # for its nested reads (hold_pins)
+        self._pin_holds = threading.local()
 
     @staticmethod
     def _cached_bytes(e) -> int:
@@ -342,7 +344,9 @@ class Catalog:
     def pin_lakehouse(self, name, version=None):
         """Resolve (or restore) a lakehouse entry's snapshot pin.
 
-        `version=None` resolves the current head once and pins it. When the
+        `version=None` resolves the current head once and pins it, unless
+        this thread holds the name (hold_pins: a DML statement froze it for
+        its nested reads), which keeps the pin where it is. When the
         pin moves (the table advanced, or a plan carries an explicit older
         pin), every cached device column of the old snapshot is dropped
         first. The pin is registered in the process-wide reader-lease table
@@ -355,6 +359,9 @@ class Catalog:
         from ..lakehouse.leases import LEASES, resolve_lease_ttl
         from ..lakehouse.table import LakehouseTable
 
+        held = getattr(self._pin_holds, "names", None)
+        if version is None and held and name in held:
+            return e.pinned_version
         lt = LakehouseTable(e.path, conf=self.session.conf)
         snap = lt.snapshot(version)
         ttl = resolve_lease_ttl(self.session.conf)
@@ -371,6 +378,28 @@ class Catalog:
             if e.lease_id is None or not LEASES.renew(e.lease_id, ttl):
                 e.lease_id = lt.acquire_reader_lease(snap, ttl)
         return e.pinned_version
+
+    def hold_pins(self, names):
+        """A context manager that freezes the named tables' pins for this
+        thread: nested statements (a DML's survivor scan, its scalar
+        subqueries) keep reading the transaction's snapshot instead of
+        re-resolving the head mid-transaction."""
+        import contextlib
+
+        holds = self._pin_holds
+
+        @contextlib.contextmanager
+        def _hold():
+            prev = getattr(holds, "names", None)
+            holds.names = frozenset(prev or ()) | {
+                str(n).lower() for n in names
+            }
+            try:
+                yield
+            finally:
+                holds.names = prev
+
+        return _hold()
 
     def load(self, name, columns=None, lake_version=None,
              lake_files=None) -> Table:
@@ -523,7 +552,10 @@ class Catalog:
     def invalidate(self, name):
         """Drop an entry's cached columns, row count, PK memo and snapshot
         pin, releasing its reader lease: the next statement re-resolves
-        (and re-leases) the head at its own plan time."""
+        (and re-leases) the head at its own plan time. A DML commit calls
+        it (lakehouse/dml.py). The JAX package's also clears the session's
+        plan and result caches; the port has none until ROADMAP.md queue 1
+        item 11, which must clear them here."""
         e = self.entries.get(name)
         if e is None:
             return
@@ -722,18 +754,24 @@ class Session:
             schema=schema, path=path, fmt="lakehouse"
         )
 
-    def register_nds_tables(self, data_root, fmt="parquet"):
-        """Register every source table found under a warehouse directory
-        (a local path or an fsspec URL) in format `fmt`: parquet, orc, csv
-        (a transcoded csv warehouse) or lakehouse."""
+    def register_nds_tables(self, data_root, fmt="parquet", maintenance=False):
+        """Register every source table (or, with `maintenance`, every
+        refresh staging table) found under a warehouse directory (a local
+        path or an fsspec URL) in format `fmt`: parquet, orc, csv (a
+        transcoded csv warehouse) or lakehouse."""
         import posixpath
 
         from ..io.fs import get_fs, join as fs_join
 
+        schemas = (
+            get_maintenance_schemas(self.use_decimal)
+            if maintenance
+            else get_schemas(self.use_decimal)
+        )
         fs, root = get_fs(data_root)
         if fmt == "lakehouse":
             from ..lakehouse.table import sweep_table_at_session_start
-        for tname, schema in get_schemas(self.use_decimal).items():
+        for tname, schema in schemas.items():
             if fs.exists(posixpath.join(root, tname)):
                 path = fs_join(data_root, tname)
                 if fmt == "lakehouse":
@@ -909,15 +947,31 @@ class Session:
             out = self.run_stmt(stmt)
         return out
 
-    def run_stmt(self, stmt) -> Optional[Result]:
+    def run_stmt(self, stmt):
+        """Run one parsed statement: a SELECT's Result; None for CREATE /
+        DROP VIEW (the view is materialised to Arrow at creation); a
+        lakehouse/dml.py DmlResult for INSERT, DELETE, CREATE TABLE AS and
+        CALL."""
         if isinstance(stmt, A.SelectStmt):
             binder = Binder(self.catalog)
             plan = self._finish_plan(binder.bind(stmt), binder.promotions)
             return Result(self, plan)
-        raise NotImplementedError(
-            f"{type(stmt).__name__} is not ported to nds_tpu_torch yet: "
-            f"{_ITEM9_6}"
-        )
+        if isinstance(stmt, A.CreateViewStmt):
+            binder = Binder(self.catalog)
+            plan = self._finish_plan(
+                binder.bind(stmt.query), binder.promotions
+            )
+            self.register_arrow(stmt.name, Result(self, plan).collect())
+            return None
+        if isinstance(stmt, A.DropViewStmt):
+            self.drop(stmt.name)
+            return None
+        if isinstance(stmt, (A.InsertStmt, A.DeleteStmt, A.CreateTableStmt,
+                             A.CallStmt)):
+            from ..lakehouse.dml import run_dml
+
+            return run_dml(self, stmt)
+        raise TypeError(f"unsupported statement {type(stmt).__name__}")
 
 
 # ---------------------------------------------------------------------------

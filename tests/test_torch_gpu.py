@@ -866,3 +866,51 @@ def test_generated_stream_on_card_validates_against_cpu(cuda, tmp_path,
     assert TV.iterate_queries(str(tmp_path / "card" / "out"),
                               str(tmp_path / "cpu" / "out"), names,
                               is_float=floats) == []
+
+
+@pytest.mark.gpu
+def test_insert_and_delete_on_card_match_cpu(cuda, tmp_path):
+    """A small INSERT ... SELECT with a join and a decimal product, a
+    DELETE through the Arrow path and one through the engine path (an IN
+    subquery: a mark join on the card) over a lakehouse table: the rows
+    affected and the table left on the card equal those on the CPU."""
+    from decimal import Decimal
+
+    import pyarrow as pa
+
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    rng = np.random.default_rng(7)
+    n = 5000
+    fact = pa.table({
+        "k": pa.array(rng.integers(1, 200, n), type=pa.int64()),
+        "d": pa.array(rng.integers(0, 90, n), type=pa.int32()),
+        "amt": pa.array([Decimal(int(c)) / 100 for c in
+                         rng.integers(-50_000, 50_000, n)],
+                        type=pa.decimal128(7, 2)),
+    })
+    dim = pa.table({"k": pa.array(np.arange(1, 200), type=pa.int64()),
+                    "rate": pa.array([Decimal(int(r)) / 100 for r in
+                                      rng.integers(0, 20, 199)],
+                                     type=pa.decimal128(5, 2))})
+    stmts = ["insert into f (select f.k, f.d + 100, f.amt * (1 + rate) "
+             "from f join dim on f.k = dim.k where f.d < 30)",
+             "delete from f where d between 10 and 19",
+             "delete from f where k in (select k from dim where rate > 0.1)"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / dev / "f")
+        LakehouseTable.create(path, fact)
+        s = Session(conf={f"engine.pallas_{k}": "on"
+                          for k in ("agg", "join", "sort")},
+                    device=cuda if dev == "cuda" else "cpu")
+        s.register_arrow("dim", dim)
+        s.register_lakehouse("f", path)
+        affected = [s.sql(q).rows_affected for q in stmts]
+        left = LakehouseTable(path).dataset().to_table()
+        out[dev] = (affected, left.sort_by([(c, "ascending")
+                                            for c in left.column_names]))
+    assert out["cuda"][0] == out["cpu"][0]
+    assert all(a > 0 for a in out["cuda"][0]), out["cuda"][0]
+    assert out["cuda"][1].equals(out["cpu"][1])

@@ -10,8 +10,8 @@ crash hygiene, vacuum under reader leases, rollback) and of
 tests/test_catalog.py's fs backend (epoch names, the conflict matrix, the
 fence, the fenced zombie, cross-host leases, the heartbeat) run against
 both packages, parametrised by `pkg`, with the reference's expected
-outcome for each. Their DML cases wait for ROADMAP.md queue 1 item 9.6,
-the tcp coordinator and the trace-event cases for item 12.
+outcome for each. Their DML cases run in tests/test_torch_dml.py; the tcp
+coordinator and the trace-event cases wait for ROADMAP.md queue 1 item 12.
 
 Tolerance: exact. Rows, versions, file stats, manifests (after pids,
 epochs, uuids and timestamps in names are normalised away: files compare

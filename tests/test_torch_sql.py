@@ -8,7 +8,9 @@ plain versions (CPU tensors). Integers, dates and strings must match
 EXACTLY; floats within nds_tpu.validate.compare's 1e-5 relative epsilon
 (f32 kernel accumulation on both sides, in different orders).
 Plus the port's guards: no jax / nds_tpu import anywhere in the port, no
-silent CPU fallback, and NotImplementedError for every unported branch.
+silent CPU fallback, and NotImplementedError for every unported branch;
+the statements other than SELECT that raised until ROADMAP.md item 9.6
+run through both packages.
 The joins and set operators have their own parity file,
 tests/test_torch_joins.py.
 """
@@ -250,13 +252,9 @@ ITEM8_CASES = {
 ITEM8_CONF = {"blocked_union": {"engine.union_agg_window_rows": 1024}}
 
 #: what the port still raises NotImplementedError for, naming the ROADMAP.md
-#: item that ports it: (SQL or None, session conf). Statements other than
-#: SELECT are item 9.6, the tcp lakehouse catalog item 12
+#: item that ports it: (SQL or None, session conf). The tcp lakehouse
+#: catalog is item 12
 UNPORTED = {
-    "create_view": ("create view v as select ss_store_sk from store_sales",
-                    {}),
-    "insert": ("insert into store_sales select * from store_sales", {}),
-    "delete": ("delete from store_sales where ss_store_sk = 1", {}),
     "lake_catalog_http": (None, {"engine.lake_catalog":
                                  "http://127.0.0.1:1"}),
     "plan_feedback_on": (None, {"engine.plan_feedback": "on"}),
@@ -264,9 +262,23 @@ UNPORTED = {
 }
 
 #: the ROADMAP.md item each UNPORTED case names
-UNPORTED_ITEMS = {"create_view": "item 9.6", "insert": "item 9.6",
-                  "delete": "item 9.6", "lake_catalog_http": "item 12",
+UNPORTED_ITEMS = {"lake_catalog_http": "item 12",
                   "plan_feedback_on": "item 14", "trace_dir": "item 12"}
+
+#: the statements other than SELECT that raised until item 9.6 was ported,
+#: now run by both packages over the star's store_sales as a lakehouse
+#: table: (script, the query that reads what it left)
+ONCE_UNPORTED = {
+    "create_view": ("create view v as select ss_store_sk from store_sales",
+                    "select ss_store_sk, count(*) c from v "
+                    "group by ss_store_sk"),
+    "insert": ("insert into store_sales select * from store_sales",
+               "select ss_store_sk, count(*) c, sum(ss_quantity) q "
+               "from store_sales group by ss_store_sk"),
+    "delete": ("delete from store_sales where ss_store_sk = 1",
+               "select ss_store_sk, count(*) c, sum(ss_quantity) q "
+               "from store_sales group by ss_store_sk"),
+}
 
 
 def _conf(mode):
@@ -379,6 +391,33 @@ def test_unported_branches_raise(tables, qname):
         for name, at in tables.items():
             t.register_arrow(name, at)
         t.sql(sql).collect()
+
+
+@pytest.mark.parametrize("qname", sorted(ONCE_UNPORTED))
+def test_once_unported_statements_match_jax(tables, qname, tmp_path):
+    """CREATE VIEW, INSERT and DELETE through both packages, with the
+    kernels on, over store_sales as a lakehouse table: what each statement
+    returns and what it leaves are the JAX package's."""
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+
+    script, check = ONCE_UNPORTED[qname]
+    out = {}
+    for name, make in (("jax", lambda: JaxSession(conf={
+            **_conf("on"), "engine.aot_cache_dir": ""})),
+            ("port", lambda: TorchSession(conf=_conf("on"), device="cpu"))):
+        path = str(tmp_path / name / "store_sales")
+        LakehouseTable.create(path, tables["store_sales"])
+        s = make()
+        for t, at in tables.items():
+            if t != "store_sales":
+                s.register_arrow(t, at)
+        s.register_lakehouse("store_sales", path)
+        res = s.run_script(script)
+        out[name] = (getattr(res, "rows_affected", res),
+                     s.sql(check).collect().sort_by("ss_store_sk"))
+    assert out["port"][0] == out["jax"][0]
+    assert out["port"][1].num_rows > 0
+    assert_same(out["jax"][1], out["port"][1], qname)
 
 
 def test_table_from_numpy_tables_run_through_sql(tables, sessions):
@@ -559,7 +598,12 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/lakehouse/table.py",
             "nds_tpu_torch/lakehouse/zonemap.py",
             "tools/torch_throughput_phase.py",
-            "tools/torch_lakehouse_phase.py"} <= rel
+            "tools/torch_lakehouse_phase.py",
+            "nds_tpu_torch/maintenance.py",
+            "nds_tpu_torch/lakehouse/dml.py",
+            "nds_tpu_torch/cli/maintenance.py",
+            "nds_tpu_torch/cli/rollback.py",
+            "tools/torch_maintenance_phase.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch
