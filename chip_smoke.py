@@ -210,12 +210,37 @@ Phases, each printing one JSON line:
            fact table equal to the CPU's as multisets (`maintenance_cpu`);
            rollback through cli/rollback.py to the heads before, every
            fact table's digest restored (`maintenance_rollback`); then
-           maintenance.run_maintenance_under_load with stream 0's first 40
-           templates, the 11 functions and a vacuum, each session at half
-           the card's lines (`maintenance_under_load`: p99 solo and under
+           maintenance.run_maintenance_under_load with stream 0's first
+           MAINTENANCE_TEMPLATES templates, the 11 functions and a vacuum,
+           each session at half the card's lines
+           (`maintenance_under_load`: p99 solo and under
            load, their ratio, functions/s, files vacuumed, overlap): every
            statement of every pass Completed, 11 functions, none failed,
            the vacuum removing files and none a live lease held
+  bench    the whole benchmark through nds_tpu_torch.cli.bench and its
+           crash-safe checkpoint, at SF BENCH_SF with BENCH_STREAMS streams
+           over a lakehouse warehouse, the power_test property file with
+           the kernels on, the Power and Throughput Tests over
+           BENCH_TEMPLATES, all 11 refresh functions, every device phase's
+           JSON summaries. Step 1 starts after the joins phase, beside the
+           SF100 phases: the CLI with --fault_spec crash:power_test in a
+           process of its own runs data_gen (with two refresh sets),
+           load_test and gen_streams, host work that touches no CUDA, and
+           dies at power_test: it must exit non-zero with exactly those
+           three checkpointed and no metrics.csv. Step 2, after the
+           maintenance phase: the CLI with --resume skips the three from
+           the checkpoint and runs the Power Test, both Throughput Tests
+           and both Maintenance Tests, each a CLI process on the card;
+           metrics.csv must equal Tload, Tpower, Ttt1, Ttt2, Tdm1 and Tdm2
+           as the script re-derives them from the phases' own reports and
+           the composite metric of TPC-DS Spec 7.6.3 over them; every
+           statement and refresh function Completed, each on the card
+           (the summaries' torch.device and device name). One
+           `bench_phase` line per orchestrator phase (seconds, attempts)
+           and a `bench` line (the times, perf_metric, the card's peak
+           memory in use while step 2 ran, `reduced`). No kernel gate:
+           its phases are subprocesses. Made for SF10 with 3 streams:
+           tools/torch_bench_phase.py runs that
   explain  cli/explain.py --budget --scale 100 over the 99 templates on the
            card's lines with NDS_VERIFY_PLANS=all: each statement's
            verdict and modeled peak and the count per verdict; a verifier
@@ -246,6 +271,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -3679,15 +3705,14 @@ THROUGHPUT_KERNELS = ("dense_build", "sort_perm")
 #: the statements of each stream that a run without concurrency (kernels
 #: off, one session for both streams) re-runs for validate: those reading
 #: the most fact rows (the whole re-run of both streams does not fit the
-#: script's time limit)
-THROUGHPUT_VALIDATE = 2
+#: script's time limit, which the bench phase shares)
+THROUGHPUT_VALIDATE = 1
 #: the templates of each stream the script's throughput phase runs: the
 #: first THROUGHPUT_TEMPLATES entries of each generated stream, in its own
 #: order, and STREAM_GATE_TEMPLATES' wherever they stand (the time limit;
-#: None runs all 99, as tools/torch_throughput_phase.py does). 15 of the
-#: 40 it ran in PR 12: the script outgrew its 1200 s again with the
-#: maintenance phase
-THROUGHPUT_TEMPLATES = 15
+#: None runs all 99, as tools/torch_throughput_phase.py does; the
+#: maintenance and bench phases share that limit)
+THROUGHPUT_TEMPLATES = 10
 
 
 def truncate_stream(path, templates, keep=()):
@@ -4405,8 +4430,9 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None, after_load=None):
 MAINTENANCE_KERNELS = ("dense_build", "sort_perm")
 #: the scale the phase was made for (tools/torch_maintenance_phase.py)
 MAINTENANCE_MADE_FOR = 10
-#: the under-load pass runs stream 0's first templates (the time limit)
-MAINTENANCE_TEMPLATES = 40
+#: the under-load pass runs stream 0's first templates (the time limit,
+#: which the bench phase shares)
+MAINTENANCE_TEMPLATES = 20
 #: the fact tables the refresh functions write (maintenance.FACT_TABLES)
 DM_FACT_TABLES = ("catalog_sales", "catalog_returns", "inventory",
                   "store_returns", "store_sales", "web_returns", "web_sales")
@@ -5080,6 +5106,328 @@ def maintenance_sf100(torch, GK, TX, B, Session, star, tables, dev, on):
     return rec
 
 
+#: the whole benchmark in the script: SF and streams (3: each Throughput
+#: Test one stream, each Maintenance Test one refresh set), cut from
+#: BENCH_MADE_FOR (tools/torch_bench_phase.py)
+BENCH_SF = 0.1
+BENCH_STREAMS = 3
+BENCH_MADE_FOR = {"sf": 10, "streams": 3}
+#: the Power and Throughput Tests' sub_queries in the script (the time limit)
+BENCH_TEMPLATES = ("query3", "query7", "query15", "query42", "query55",
+                   "query96")
+#: gen_data's processes in the bench's config
+BENCH_PARALLEL = 4
+BENCH_CRASH = "crash:power_test"
+#: the orchestrator's phases the crash leaves checkpointed: host work
+BENCH_HOST_PHASES = ("data_gen", "load_test", "gen_streams")
+#: full_bench.PHASES, in order
+BENCH_PHASES = BENCH_HOST_PHASES + (
+    "power_test", "throughput_test_1", "maintenance_test_1",
+    "throughput_test_2", "maintenance_test_2", "maintenance_under_load")
+
+
+def template_names(n):
+    """The statement names of templates 1..n as a stream file names them
+    (the two-part templates as _part1 and _part2)."""
+    out = []
+    for t in range(1, n + 1):
+        out += ([f"query{t}_part1", f"query{t}_part2"]
+                if t in (14, 23, 24, 39) else [f"query{t}"])
+    return out
+
+
+def bench_config(root, sf, streams, on, templates=None, under_load=None,
+                 parallel=BENCH_PARALLEL):
+    """The whole benchmark's config (bench.yml's keys, written as JSON, a
+    subset of YAML) for a run in `root`: gen_data with its refresh sets, a
+    lakehouse warehouse, the power_test property file with `on`, the
+    Power and Throughput Tests over `templates` (None: whole streams), all
+    11 refresh functions, every device phase's JSON summaries, and
+    maintenance under load when `under_load` is a list of stream 1's
+    statements (or "all"). Returns (path, params)."""
+    os.makedirs(root, exist_ok=True)
+    sub = ",".join(templates) if templates else None
+    j = functools.partial(os.path.join, root)
+    params = {
+        "data_gen": {"scale_factor": sf, "parallel": parallel,
+                     "raw_data_path": j("raw"), "skip": False},
+        "load_test": {"output_path": j("warehouse"),
+                      "warehouse_format": "lakehouse",
+                      "report_path": j("load.report"), "skip": False},
+        "generate_query_stream": {"num_streams": streams,
+                                  "query_template_dir": None,
+                                  "stream_output_path": j("streams"),
+                                  "skip": False},
+        "power_test": {"report_path": j("power.csv"),
+                       "property_path": property_file(j("bench.properties"),
+                                                      on),
+                       "output_path": None, "sub_queries": sub,
+                       "json_summary_folder": j("json", "power"),
+                       "skip": False},
+        "throughput_test": {"report_base_path": j("throughput"),
+                            "sub_queries": sub,
+                            "json_summary_folder": j("json", "throughput"),
+                            "skip": False},
+        "maintenance_test": {"maintenance_report_base_path": j("maintenance"),
+                             "maintenance_queries": None,
+                             "json_summary_folder": j("json", "maintenance"),
+                             "skip": False},
+        "maintenance_under_load": {
+            "enabled": bool(under_load), "maintenance_queries": None,
+            "sub_queries": (",".join(under_load)
+                            if under_load and under_load != "all" else None),
+            "report_path": None},
+        "metrics_report_path": j("metrics.csv"),
+    }
+    with open(j("bench.yml"), "w") as f:
+        json.dump(params, f, indent=2)
+    return j("bench.yml"), params
+
+
+def bench_start(root, sf, streams, on, templates=None, under_load=None,
+                device=None):
+    """Step 1 of the bench phase, started: the config written, then
+    `python -m nds_tpu_torch.cli.bench <yml> --fault_spec crash:power_test`
+    in a process of its own. It runs data_gen, load_test and gen_streams
+    (host work: it touches no CUDA) and dies at power_test. Returns what
+    bench_phase takes; stop_bench stops it and removes `root`."""
+    yml, params = bench_config(root, sf, streams, on, templates, under_load)
+    log = os.path.join(root, "bench_crash.log")
+    t0_ms = time.time() * 1000
+    proc = run_cli(log, "nds_tpu_torch.cli.bench", yml, "--fault_spec",
+                   BENCH_CRASH, *(["--device", device] if device else []),
+                   background=True)
+    return {"root": root, "yml": yml, "params": params, "proc": proc,
+            "t0_ms": t0_ms, "log": log, "sf": sf, "streams": streams,
+            "templates": templates, "device": device}
+
+
+def stop_bench(st):
+    if st["proc"].poll() is None:
+        st["proc"].kill()
+    st["proc"].wait()
+    shutil.rmtree(st["root"], ignore_errors=True)
+
+
+def bench_state(params):
+    path = os.path.join(os.path.dirname(params["metrics_report_path"]),
+                        "bench_state.json")
+    with open(path) as f:
+        return json.load(f)["phases"]
+
+
+def bench_phase_lines(step, phases, t0_ms, log):
+    """One `bench_phase` line per phase a step ran: its seconds (from the
+    previous checkpoint, or the step's start, to its own) and attempts.
+    Returns {phase: seconds}."""
+    out = {}
+    for name in sorted(phases, key=lambda p: phases[p]["completed_at_ms"]):
+        end = phases[name]["completed_at_ms"]
+        out[name] = (end - t0_ms) / 1e3
+        emit({"phase": "bench_phase", "step": step, "name": name,
+              "seconds": out[name],
+              "attempts": 1 + log.count(f"phase {name}: attempt ")})
+        t0_ms = end
+    return out
+
+
+def _round_up_tenth(x):
+    return math.ceil(x * 10) / 10
+
+
+def bench_rederive(params, streams):
+    """Tload, Tpower, Ttt1, Ttt2, Tdm1, Tdm2 from the phases' own report
+    files and the composite metric of TPC-DS Spec 7.6.3 over them, read
+    here (not by full_bench)."""
+    with open(params["load_test"]["report_path"]) as f:
+        tload = float(re.search(r"^Load Test Time: (\S+) seconds$", f.read(),
+                                re.M).group(1))
+    power = dict(read_time_log(params["power_test"]["report_path"]))
+    tpower = _round_up_tenth(float(power["Power Test Time"]) / 1000)
+    tests = {1: range(1, streams // 2 + 1), 2: range(streams // 2 + 1,
+                                                      streams)}
+    ttt, tdm = {}, {}
+    for k, nums in tests.items():
+        starts, ends = [], []
+        for n in nums:
+            log = dict(read_time_log(
+                f"{params['throughput_test']['report_base_path']}_{n}.csv"))
+            starts.append(float(log["Power Start Time"]))
+            ends.append(float(log["Power End Time"]))
+        ttt[k] = max(_round_up_tenth(max(ends) - min(starts)), 0.1)
+        total = 0.0
+        for n in nums:
+            total += float(dict(read_dm_time_log(
+                f"{params['maintenance_test']['maintenance_report_base_path']}"
+                f"_{n}.csv"))["Data Maintenance Time"])
+        tdm[k] = _round_up_tenth(total)
+    sq = streams // 2
+    metric = int(float(params["data_gen"]["scale_factor"]) * (sq * 99) / (
+        ((tpower * sq) / 3600) * ((ttt[1] + ttt[2]) / 3600)
+        * ((tdm[1] + tdm[2]) / 3600) * ((0.01 * sq * tload) / 3600))
+        ** (1 / 4))
+    return {"Tload": tload, "Tpower": tpower, "Ttt1": ttt[1], "Ttt2": ttt[2],
+            "Tdm1": tdm[1], "Tdm2": tdm[2], "perf_metric": metric}
+
+
+def bench_summaries(label, folder, names, device):
+    """The gates of a device phase's JSON summaries: one per statement of
+    `names`, every one Completed, each session on `device` ((type, card
+    name); name None on the CPU). Returns the count."""
+    got = read_summaries(folder)
+    if sorted(got) != sorted(names):
+        fail(f"bench {label}: summaries for {sorted(set(names) ^ set(got))}")
+    bad = {q: (s["queryStatus"], s["exceptions"][-1:])
+           for q, s in got.items() if s["queryStatus"] != ["Completed"]}
+    if bad:
+        fail(f"bench {label}: not Completed: {bad}")
+    ran_on = {(s["env"]["engineConf"]["torch.device"].split(":")[0],
+               s["env"]["engineConf"].get("torch.cuda.device_name"))
+              for s in got.values()}
+    if ran_on != {device}:
+        fail(f"bench {label}: ran on {ran_on}, not {device}")
+    return len(got)
+
+
+class PeakSampler:
+    """The card's memory in use (nvidia-smi, every process on it), sampled
+    every second on a thread while it runs: `peak_mib` is the largest."""
+
+    def __init__(self):
+        self.peak_mib = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=60)
+            if r.returncode == 0:
+                used = int(r.stdout.split()[0])
+                self.peak_mib = max(self.peak_mib or 0, used)
+            self._stop.wait(1.0)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        return self.peak_mib
+
+
+def bench_phase(st, device, reduced, sample=True):
+    """Steps 1 (ended) and 2 of the bench phase: wait for the crashed run
+    and hold it to its gates (a non-zero exit, exactly BENCH_HOST_PHASES
+    checkpointed, no metrics.csv), then `python -m nds_tpu_torch.cli.bench
+    <yml> --resume` (its device phases on the card, or on `--device` where
+    bench_start named one): the three skipped from the checkpoint, the
+    other phases run, metrics.csv equal to bench_rederive, every statement
+    and refresh function Completed on `device`. Emits the `bench_phase`
+    lines and the `bench` line; returns the latter."""
+    from nds_tpu_torch import power as TP
+    from nds_tpu_torch.maintenance import DM_FUNCS
+
+    params, root = st["params"], st["root"]
+    rc = st["proc"].wait()
+    with open(st["log"]) as f:
+        crash_log = f.read()
+    if rc == 0 or "InjectedCrash" not in crash_log:
+        fail(f"bench: the crashed run exited {rc}:\n{crash_log[-3000:]}")
+    phases = bench_state(params)
+    if sorted(phases) != sorted(BENCH_HOST_PHASES):
+        fail(f"bench: the crash left {sorted(phases)} checkpointed")
+    if os.path.exists(params["metrics_report_path"]):
+        fail("bench: the crashed run wrote metrics.csv")
+    seconds = bench_phase_lines("crash", phases, st["t0_ms"], crash_log)
+    # step 2, with no fault spec
+    log = os.path.join(root, "bench_resume.log")
+    t0_ms = time.time() * 1000
+    sampler = PeakSampler() if sample else None
+    try:
+        proc = run_cli(log, "nds_tpu_torch.cli.bench", st["yml"], "--resume",
+                       *(["--device", st["device"]] if st["device"] else []),
+                       env={"NDS_FAULT_SPEC": ""}, background=True)
+        rc = proc.wait()
+    finally:
+        peak = sampler.stop() if sampler else None
+    resume_s = (time.time() * 1000 - t0_ms) / 1e3
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        fail(f"bench: --resume exited {rc}:\n{text[-3000:]}")
+    skipped = re.findall(r"phase (\w+): skipped \(checkpoint\)", text)
+    if sorted(skipped) != sorted(BENCH_HOST_PHASES):
+        fail(f"bench: --resume skipped {skipped} from the checkpoint")
+    ran = [p for p in bench_state(params) if p not in phases]
+    want = [p for p in BENCH_PHASES if p not in BENCH_HOST_PHASES
+            and (p != "maintenance_under_load"
+                 or params["maintenance_under_load"]["enabled"])]
+    if sorted(ran) != sorted(want):
+        fail(f"bench: --resume completed {ran}, not {want}")
+    modules = re.findall(r"^====== \S+ -m (\S+)", text, re.M)
+    sq = st["streams"] // 2
+    want = ["power"] + (["throughput"] + ["maintenance"] * sq) * 2 + (
+        ["maintenance"] if params["maintenance_under_load"]["enabled"]
+        else [])
+    if modules != [f"nds_tpu_torch.cli.{m}" for m in want]:
+        fail(f"bench: --resume ran {modules}")
+    seconds.update(bench_phase_lines(
+        "resume", {p: v for p, v in bench_state(params).items()
+                   if p not in phases}, t0_ms, text))
+    with open(params["metrics_report_path"]) as f:
+        got = dict(line.split(",", 1) for line in f.read().splitlines())
+    derived = bench_rederive(params, st["streams"])
+    if list(got) != ["scale_factor", "num_streams", *derived]:
+        fail(f"bench: metrics.csv {got}")
+    for k, v in derived.items():
+        if (int if k == "perf_metric" else float)(got[k]) != v:
+            fail(f"bench: metrics.csv {k}={got[k]}, re-derived {v}")
+    if derived["perf_metric"] <= 0:
+        fail(f"bench: perf_metric {derived['perf_metric']}")
+    stream = functools.partial(os.path.join,
+                               params["generate_query_stream"][
+                                   "stream_output_path"])
+
+    def names(n):
+        all_ = list(TP.gen_sql_from_stream(stream(f"query_{n}.sql")))
+        return [q for q in all_ if not st["templates"]
+                or q in st["templates"]]
+
+    counts = {"power": bench_summaries(
+        "power", params["power_test"]["json_summary_folder"], names(0),
+        device)}
+    for n in range(1, st["streams"]):
+        counts[f"stream_{n}"] = bench_summaries(
+            f"stream {n}", os.path.join(
+                params["throughput_test"]["json_summary_folder"],
+                f"stream_{n}"), names(n), device)
+        folder = f"{params['maintenance_test']['json_summary_folder']}_{n}"
+        counts[f"refresh_{n}"] = bench_summaries(
+            f"refresh set {n}", folder, list(DM_FUNCS), device)
+        log_rows = [r for r, _ in read_dm_time_log(
+            f"{params['maintenance_test']['maintenance_report_base_path']}"
+            f"_{n}.csv")]
+        if log_rows != dm_time_log_rows(DM_FUNCS):
+            fail(f"bench: refresh set {n}'s time log rows {log_rows}")
+    under_load = None
+    if params["maintenance_under_load"]["enabled"]:
+        with open(params["maintenance_test"]["maintenance_report_base_path"]
+                  + "_under_load.json") as f:
+            under_load = json.load(f)
+        if (under_load["solo_failed"] or under_load["under_load_failed"]
+                or under_load["dm_failed"]
+                or under_load["dm_functions"] != len(DM_FUNCS)):
+            fail(f"bench: maintenance under load {under_load}")
+    rec = {"phase": "bench", "sf": st["sf"], "num_streams": st["streams"],
+           "streams_per_throughput_test": sq, **derived,
+           "metrics_csv": got, "phase_seconds": seconds,
+           "resume_seconds": resume_s, "peak_used_mib": peak,
+           "summaries": counts, "ran_on": list(device),
+           "under_load": under_load, "reduced": reduced}
+    emit(rec)
+    return rec
+
+
 #: the explain phase's scale: the SF100 the earlier phases model
 EXPLAIN_SF = 100
 #: the statements the card's lines refused at SF100 in the earlier phases
@@ -5412,6 +5760,12 @@ def main(argv=None):
                                         tables, dev, on, off, rows, checks)
     for rec in kernels:
         rec["joins_launches"] = join_launches[rec["name"]]
+    # the whole benchmark's host phases from here on, beside the SF100
+    # phases: a process of its own that dies at power_test (bench_phase)
+    bench_sf = max(0.01, BENCH_SF * min(1.0, args.scale))
+    bench_st = bench_start(tempfile.mkdtemp(prefix="nds_bench_"), bench_sf,
+                           BENCH_STREAMS, on, BENCH_TEMPLATES)
+    atexit.register(stop_bench, bench_st)
 
     # -- windows -----------------------------------------------------------
     torch.cuda.empty_cache()
@@ -5514,6 +5868,18 @@ def main(argv=None):
         rec["throughput_launches"] = throughput[rec["name"]]
         rec["lakehouse_launches"] = lakehouse[rec["name"]]
         rec["maintenance_launches"] = maintenance[rec["name"]]
+
+    # -- bench (the whole benchmark, resumed after its crash) --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_phase(bench_st, ("cuda", kind), reduced + [
+        f"SF{bench_sf} with {BENCH_STREAMS} streams (made for SF"
+        f"{BENCH_MADE_FOR['sf']} with {BENCH_MADE_FOR['streams']}: "
+        "tools/torch_bench_phase.py)",
+        f"the Power and Throughput Tests over {','.join(BENCH_TEMPLATES)} "
+        "(sub_queries; the time limit)",
+        "maintenance under load off (the maintenance phase runs it)"])
+    stop_bench(bench_st)
 
     # -- explain -----------------------------------------------------------
     explain_phase(dev)

@@ -914,3 +914,57 @@ def test_insert_and_delete_on_card_match_cpu(cuda, tmp_path):
     assert out["cuda"][0] == out["cpu"][0]
     assert all(a > 0 for a in out["cuda"][0]), out["cuda"][0]
     assert out["cuda"][1].equals(out["cpu"][1])
+
+
+@pytest.mark.gpu
+def test_bench_cli_on_card(cuda, tmp_path):
+    """The whole benchmark through `python -m nds_tpu_torch.cli.bench` with
+    the device phases on the card, at SF0.01 with 3 streams: gen_data with
+    two refresh sets, the Load Test to a lakehouse, gen_query_stream, the
+    Power Test and both Throughput Tests over a 3-template subset, and both
+    Maintenance Tests (LF_SS, DF_SS). Every statement is Completed on the
+    card, and the composite metric is positive."""
+    import subprocess
+    import sys
+
+    subset = ["query3", "query7", "query96"]
+    j = tmp_path.joinpath
+    params = {
+        "data_gen": {"scale_factor": 0.01, "parallel": 2,
+                     "raw_data_path": str(j("raw"))},
+        "load_test": {"output_path": str(j("wh")),
+                      "warehouse_format": "lakehouse",
+                      "report_path": str(j("load.txt"))},
+        "generate_query_stream": {"num_streams": 3,
+                                  "stream_output_path": str(j("streams"))},
+        "power_test": {"report_path": str(j("power.csv")),
+                       "sub_queries": ",".join(subset),
+                       "json_summary_folder": str(j("json_power"))},
+        "throughput_test": {"report_base_path": str(j("tt")),
+                            "sub_queries": ",".join(subset),
+                            "json_summary_folder": str(j("json_tt"))},
+        "maintenance_test": {"maintenance_report_base_path": str(j("dm")),
+                             "maintenance_queries": "LF_SS,DF_SS",
+                             "json_summary_folder": str(j("json_dm"))},
+        "metrics_report_path": str(j("metrics.csv")),
+    }
+    yml = j("bench.yml")
+    yml.write_text(json.dumps(params))  # JSON is YAML
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "nds_tpu_torch.cli.bench",
+                        str(yml)], cwd=repo, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0, (r.stdout[-3000:], r.stderr[-3000:])
+    metrics = dict(line.split(",", 1)
+                   for line in j("metrics.csv").read_text().splitlines())
+    assert int(metrics["perf_metric"]) > 0, metrics
+    folders = {j("json_power"): subset, j("json_tt", "stream_1"): subset,
+               j("json_tt", "stream_2"): subset,
+               j("json_dm_1"): ["LF_SS", "DF_SS"],
+               j("json_dm_2"): ["LF_SS", "DF_SS"]}
+    for folder, names in folders.items():
+        summaries = [json.load(open(folder / f)) for f in os.listdir(folder)]
+        assert sorted(s["query"] for s in summaries) == sorted(names)
+        for s in summaries:
+            assert s["queryStatus"] == ["Completed"], (folder, s["query"])
+            assert s["env"]["engineConf"]["torch.device"].startswith("cuda")

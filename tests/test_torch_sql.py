@@ -603,7 +603,10 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/lakehouse/dml.py",
             "nds_tpu_torch/cli/maintenance.py",
             "nds_tpu_torch/cli/rollback.py",
-            "tools/torch_maintenance_phase.py"} <= rel
+            "tools/torch_maintenance_phase.py",
+            "nds_tpu_torch/full_bench.py",
+            "nds_tpu_torch/cli/bench.py",
+            "tools/torch_bench_phase.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch

@@ -7,7 +7,8 @@ itself (chip_smoke.maintenance_phase): the refresh data (gen_data --update
 1), the 11 refresh functions through cli/maintenance.py on the card with
 --optimize and, beside them, on a copy on the CPU; the fact tables card
 against CPU, the DF_* deletes against pyarrow counts, rollback, and
-maintenance under load (stream 0's first 40 templates). With --sf100 it
+maintenance under load (stream 0's first
+chip_smoke.MAINTENANCE_TEMPLATES templates). With --sf100 it
 first runs step 6, DF_SS's survivor query over chip_smoke's SF100 tables
 (made with numpy, ~26 GiB on the card).
 
