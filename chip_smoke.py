@@ -58,6 +58,28 @@ Phases, each printing one JSON line:
            default size), launch segment_sums and dense_build and equal the
            off session, q98, q36 and the q5 shape their numpy references;
            one line per query and a `windows` summary line
+  fuse     fused pipelines, top-k and the caches (engine/fuse.py,
+           engine/aotcache.py) with engine.pallas_agg=off, so that
+           aggregates fuse: order (the fused filter over store_sales),
+           minmax (the fused min/max tail over it), q3 (the fused
+           dimension filters; its aggregate tail pins, FUSE_ALLOWED_PINS),
+           q93 as the joins phase runs it (the top-k) and the q5 shape as
+           the windows phase runs it (over its tables), each fused against
+           `engine.fuse=off`: the paths taken (fuse_spy), no pin but the
+           allowed, the answer against the earlier phases' checks (order
+           against numpy too) and the unfused one (integers exactly, q3's
+           f64 sums within f64_sum_rtol, q93 as the joins phase holds
+           it), steady ms
+           (plan cache off) and peak of each, entries and their hits on
+           reruns, q5's busy share; q3 through the caches (the plan cache
+           answers a rerun, a rerun without it replays the join order);
+           `python -m nds_tpu_torch.cli.cache` warm / stats / warm in
+           processes of their own over a small star warehouse, on a
+           thread beside the stream phase (the second loads every entry,
+           builds none). The in-process SF100 phases
+           run with the plan cache off (STEADY: they measure steady time);
+           the CLI phases keep every default, with one AOT directory
+           (NDS_AOT_CACHE_DIR) for the script and its processes
   spill    the out-of-core paths at SF100: SPILL_CASES (q3's hash join
            forced through the spill pool at 8 and at 3 partitions, the
            ORDER BY's sorted runs at 8, the same with the pool capped so
@@ -112,7 +134,8 @@ Phases, each printing one JSON line:
   stream   the whole NDS chain over a generated stream 0 (103 statements),
            each step a CLI of the port, in a temporary directory removed
            at the end; both legs' gen_data and Load Tests start before the
-           joins phase and run beside the SF100 phases (stream_start). Leg
+           joins phase and run beside the SF100 phases (stream_start), as
+           does the generation of their stream 0 (finish_legs). Leg
            A at SF STREAM_SF_A, decimals: gen_data with one
            process per core (`stream_data`: rows per table, the fixed
            tables against rowcounts.hpp), transcode to parquet, the .dat
@@ -169,7 +192,9 @@ Phases, each printing one JSON line:
            rows/s, data files and manifest versions per fact table; below
            SF1 the files shrink with the SF, lake_env), then again with
            --resume, which must convert 0 rows, while the maintenance
-           phase's Load Test starts; leg A's stream 0 (as the stream
+           phase's Load Test starts (these host processes run on a thread,
+           lake_loads, from the end of leg A's parquet Load Test, beside
+           the SF100 phases); leg A's stream 0 (as the stream
            phase cut it) cold through cli/power.py --input_format lakehouse
            with the kernels on and the watchdog (run `L_on`, its
            `stream_query` lines and a `lakehouse_stream` line: Power Test
@@ -192,8 +217,8 @@ Phases, each printing one JSON line:
            tools/torch_lakehouse_phase.py runs that
   maintenance  the Data Maintenance phase after the lakehouse phase, over
            leg B's data loaded to a lakehouse with decimals
-           (`maintenance_load`, started in the lakehouse phase once leg A's
-           Load Test has ended; leg A's lakehouse would take longer
+           (`maintenance_load`, started by lake_loads once leg A's
+           lakehouse Load Test has ended; leg A's lakehouse would take longer
            than the time limit leaves: `reduced` says so, and
            tools/torch_maintenance_phase.py runs the phase at SF10):
            gen_data --update 1 (`maintenance_refresh`); a copy of the
@@ -206,7 +231,9 @@ Phases, each printing one JSON line:
            table before and after the optimize, peak, launches). Gates:
            every function Completed, the reference's time-log rows, each
            DF_* statement's count equal to a pyarrow count
-           (expected_dm_deletes), dense_build and sort_perm launched, every
+           (expected_dm_deletes), dense_build and sort_perm launched, the
+           session's plan / result and join-order caches empty after every
+           DML commit (`maintenance_caches`), every
            fact table equal to the CPU's as multisets (`maintenance_cpu`);
            rollback through cli/rollback.py to the heads before, every
            fact table's digest restored (`maintenance_rollback`); then
@@ -227,8 +254,10 @@ Phases, each printing one JSON line:
            process of its own runs data_gen (with two refresh sets),
            load_test and gen_streams, host work that touches no CUDA, and
            dies at power_test: it must exit non-zero with exactly those
-           three checkpointed and no metrics.csv. Step 2, after the
-           maintenance phase: the CLI with --resume skips the three from
+           three checkpointed and no metrics.csv. Step 2, on a thread
+           beside the stream phase from the end of the power phase (the
+           card's memory in use it reports is every process's, the stream
+           phase's included): the CLI with --resume skips the three from
            the checkpoint and runs the Power Test, both Throughput Tests
            and both Maintenance Tests, each a CLI process on the card;
            metrics.csv must equal Tload, Tpower, Ttt1, Ttt2, Tdm1 and Tdm2
@@ -632,9 +661,52 @@ KERNEL_META = {
 }
 
 
+#: the script's start: every line carries its seconds since (`at_s`)
+_T0 = time.perf_counter()
+#: the stream emit writes to: main sets it to its own standard output, so
+#: that a line emitted on a thread beside a step that redirects stdout
+#: (a CLI's log) still reaches it
+_OUT = []
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps({**obj, "at_s": round(time.perf_counter() - _T0, 3)})
+    out = _OUT[0] if _OUT else sys.stdout
+    with _EMIT_LOCK:
+        out.write(line + "\n")
+        out.flush()
     return obj
+
+
+class Procs:
+    """The child processes a step starts, beside the script's next steps:
+    stop() kills those still running, and any added after it (a thread
+    that starts one as the script exits)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._procs = []
+        self._stopped = False
+
+    def append(self, proc):
+        with self._lock:
+            self._procs.append(proc)
+            stopped = self._stopped
+        if stopped:
+            proc.kill()
+            proc.wait()
+            raise SystemExit(1)
+        return proc
+
+    def stop(self):
+        with self._lock:
+            self._stopped = True
+            procs = list(self._procs)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
 def fail(msg):
@@ -1208,6 +1280,14 @@ def branch_spy(executor_cls, events):
 # ---------------------------------------------------------------------------
 # checks
 # ---------------------------------------------------------------------------
+
+
+def f64_sum_rtol(max_group_rows: int) -> float:
+    """Relative tolerance between two f64 sums of the same up to
+    `max_group_rows` non-negative terms added in different orders: each is
+    within rows * 2^-53 of the exact sum, so they differ by less than
+    (rows + 1) * 2^-52 of it."""
+    return (max_group_rows + 1) * 2.0**-52
 
 
 def f32_sum_rtol(max_group_rows: int) -> float:
@@ -1879,6 +1959,7 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
                 same_topk(q93_rows(r), ref_top, rtol_of, "q93 vs numpy")
                 return same_topk(q93_rows(r), q93_rows(got_off), rtol_of,
                                  "q93 on vs off")
+            check.rtol_of = rtol_of  # the fuse phase compares with it too
 
             rec["max_rel_vs_off"] = check(res)
             rec["max_rel_vs_numpy"] = same_topk(
@@ -2108,7 +2189,9 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     --scale the q5 shape's union fits one default window, so the window is
     set to an eighth of its rows there (the `union_window` of its line).
     `checks` gains, per query, the phase's check of a result with the
-    kernels on."""
+    kernels on. Last, over the phase's tables and conf, the fuse phase's
+    q5 shape (fuse_q5). Returns (per-query lines, launches, fuse_q5's
+    record)."""
     t_phase = time.perf_counter()
     wtables = to_tables(star, dev, windows=True, base=tables)
     torch.cuda.synchronize()
@@ -2241,13 +2324,17 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
         checks[q] = check
         out[q] = rec
         emit(rec)
-    del s_on, s_off, wtables
+    del s_on, s_off
+    torch.cuda.empty_cache()
+    q5_fused = fuse_q5(torch, TX, B, Session, wtables, dev, on, extra, rows,
+                       checks)
+    del wtables
     emit({"phase": "windows", "launches": launches, "peak_gib": peak_all,
           "reserved_peak_gib": reserved_all,
           "resident_gib": resident, "numpy_reference_s": ref_s,
           "steady_runs": STEADY_RUNS, "reduced": STEADY_CUT,
           "seconds": time.perf_counter() - t_phase})
-    return out, launches
+    return out, launches, q5_fused
 
 
 def check_q5_windows(blocked, extra, budget, rows):
@@ -2340,15 +2427,54 @@ def check_q36(res, got_off, ref):
                 "q36 on vs off")}
 
 
-def check_q5(res, got_off, ref, windows):
-    """The q5 shape on and off against numpy: each store's sales, returns
-    and profit, the channel and grand totals. The on session's sums run in
-    f32 once per window and once per merge of a window's partials."""
+def q5_want(ref):
+    """{(channel, id): (sales, returns, profit, rows, |profit| terms)} of
+    the q5 shape's numpy reference, the rollup's totals included."""
     stores = sorted(ref)
     tot = [sum(ref[s][i] for s in stores) for i in range(5)]
     want = {(None, None): tot, ("store channel", None): tot}
     for s in stores:
         want[("store channel", "store" + s)] = ref[s]
+    return want
+
+
+def q5_row_rtol(want_row, windows):
+    """The kernels-on tolerance of one q5 row's columns: f32 sums once per
+    window and once per merge of a window's partials, widened for profit
+    by its cancellation (`cancel`)."""
+    _, _, prof, n, aprof = want_row
+    n_terms = n + 4 * windows
+    cancel = max(1.0, aprof / max(abs(prof), 1e-300))
+    return {"sales": f32_sum_rtol(n_terms),
+            "returns_amt": f32_sum_rtol(n_terms),
+            "profit": f32_sum_rtol(n_terms) * cancel, "cancel": cancel}
+
+
+def q5_same(a, b, ref, windows, tag):
+    """Two q5 results row by row (keyed by channel and id): each column
+    within twice the kernels-on tolerance (both may sum in f32)."""
+    want = q5_want(ref)
+    ra = {(r["channel"], r["id"]): r for r in a.to_pylist()}
+    rb = {(r["channel"], r["id"]): r for r in b.to_pylist()}
+    if set(ra) != set(rb):
+        fail(f"{tag}: rows differ")
+    worst = 0.0
+    for k, r in ra.items():
+        tol = q5_row_rtol(want[k], windows)
+        for col in ("sales", "returns_amt", "profit"):
+            x, y = r[col], rb[k][col]
+            rel = abs(x - y) / max(abs(y), 1e-300)
+            worst = max(worst, rel)
+            if rel > 2 * tol[col]:
+                fail(f"{tag}: {k} {col}: {x} vs {y} (rel {rel})")
+    return worst
+
+
+def check_q5(res, got_off, ref, windows):
+    """The q5 shape on and off against numpy: each store's sales, returns
+    and profit, the channel and grand totals. The on session's sums run in
+    f32 once per window and once per merge of a window's partials."""
+    want = q5_want(ref)
     out = {}
     for tag, r_ in (("on", res), ("off", got_off)):
         rows = r_.to_pylist()
@@ -2360,15 +2486,12 @@ def check_q5(res, got_off, ref, windows):
             fail(f"q5 {tag}: {len(rows)} rows, numpy has {len(want)}")
         worst = 0.0
         for r in rows:
-            sales, rets, prof, n, aprof = want[(r["channel"], r["id"])]
-            n_terms = n + 4 * windows
-            cancel = max(1.0, aprof / max(abs(prof), 1e-300))
-            for col, v, on_tol, off_tol in (
-                    ("sales", sales, f32_sum_rtol(n_terms), 1e-9),
-                    ("returns_amt", rets, f32_sum_rtol(n_terms), 1e-9),
-                    ("profit", prof, f32_sum_rtol(n_terms) * cancel,
-                     1e-9 * cancel)):
-                tol = on_tol if tag == "on" else off_tol
+            sales, rets, prof, _, _ = want[(r["channel"], r["id"])]
+            on_tol = q5_row_rtol(want[(r["channel"], r["id"])], windows)
+            for col, v in (("sales", sales), ("returns_amt", rets),
+                           ("profit", prof)):
+                tol = on_tol[col] if tag == "on" else (
+                    1e-9 * on_tol["cancel"])
                 rel = abs(r[col] - v) / max(abs(v), 1e-300)
                 worst = max(worst, rel)
                 if rel > tol:
@@ -2385,6 +2508,435 @@ def check_q5(res, got_off, ref, windows):
 #: printed (`refused` in the query's `budget` record and the
 #: `budget_refusals` line), and the phase's checks of the statement's
 #: result then run as before.
+# ---------------------------------------------------------------------------
+# fuse: the fused pipelines, top-k and the caches at SF100
+# ---------------------------------------------------------------------------
+
+#: a session that measures steady time turns the plan / result cache off:
+#: a rerun would otherwise answer from it (the JAX package's timers do the
+#: same); the join-order replay stays at its default (on)
+STEADY = {"engine.plan_cache": "off"}
+#: the fuse phase's main-path queries: each must take FUSE_PATHS
+FUSE_QUERIES = ("order", "minmax", "q3")
+#: per query, the fused paths its cold run must take: (kind, stages or
+#: None, fact rows in or None); `chain` a FusedPipeline call, `agg` a
+#: FusedAggPipeline call, `topk` the Limit-over-Sort gather
+FUSE_PATHS = {
+    "order": [("chain", 1, "store_sales")],
+    "minmax": [("agg", None, "store_sales")],
+    "q3": [("chain", 1, "date_dim"), ("chain", 1, "item")],
+    "q93": [("topk", None, None)],
+}
+#: the pins the JAX package's rules make on these queries at SF100 (the
+#: same at any scale: they follow from the key bounds), so the fuse gate
+#: allows them and no other: q3's aggregate tail groups by d_year
+#: (1900..2100) and i_brand_id (1001001..10016017), a domain past the
+#: direct scatter's 2^22 cells, so FusedAggPipeline raises Unfusible and
+#: the tail runs on the eager sort-based group-by, as in the JAX package
+FUSE_ALLOWED_PINS = {"q3": 1}
+#: the cache round trip: these statements over a small star warehouse
+#: (over leg A's SF0.25 warehouse each process took 75-80 s beside the
+#: bench phase, which it slowed by 67 s: the time limit)
+FUSE_CACHE_SCALE = 1e-4
+FUSE_CACHE_ENTRIES = (
+    ("query3", ("q3",)), ("minmax", ("minmax",)), ("order", ("order",)),
+    ("topk", ("topk",)),
+)
+FUSE_TOPK_SQL = """
+    select ss_item_sk, ss_quantity from store_sales
+    where ss_quantity > 50 order by ss_quantity desc, ss_item_sk limit 10
+"""
+
+
+def fuse_spy(TF, TX, P):
+    """Record the fused paths an executor takes: each FusedPipeline /
+    FusedAggPipeline call (its stages and input rows), each top-k
+    Limit-over-Sort, each MultiJoin's greedy order (replayed or scanned).
+    Returns (events, restore)."""
+    events = []
+    saved = [(TF.FusedPipeline, "call"), (TF.FusedAggPipeline, "call"),
+             (TX.Executor, "_exec_limit"), (TX.Executor, "_multijoin_greedy")]
+    originals = [getattr(c, n) for c, n in saved]
+
+    def fused(kind, orig):
+        def call(self, table, donate):
+            events.append({"kind": kind, "stages": len(self.stages),
+                           "rows": table.nrows_known, "cap": table.cap})
+            return orig(self, table, donate)
+        return call
+
+    def limit(self, node, _orig=originals[2]):
+        if (isinstance(node.child, P.Sort)
+                and getattr(node.child, "_topk_safe", False)
+                and id(node.child) not in self._cte_cache):
+            events.append({"kind": "topk", "n": node.n})
+        return _orig(self, node)
+
+    def greedy(self, current, edges, merged, group, n, trace=None,
+               spill_parts=0, _orig=originals[3]):
+        events.append({"kind": "join_order",
+                       "replay": trace is not None and "steps" in trace})
+        return _orig(self, current, edges, merged, group, n, trace,
+                     spill_parts)
+
+    TF.FusedPipeline.call = fused("chain", originals[0])
+    TF.FusedAggPipeline.call = fused("agg", originals[1])
+    TX.Executor._exec_limit = limit
+    TX.Executor._multijoin_greedy = greedy
+
+    def restore():
+        for (c, n), f in zip(saved, originals):
+            setattr(c, n, f)
+    return events, restore
+
+
+def fuse_paths_taken(events, wanted, rows):
+    """The entries of `wanted` (FUSE_PATHS) that `events` lack."""
+    missing = []
+    for kind, stages, table in wanted:
+        ok = any(e["kind"] == kind
+                 and (stages is None or e["stages"] >= stages)
+                 and (table is None or e["rows"] == rows[table])
+                 for e in events)
+        if not ok:
+            missing.append((kind, stages, table))
+    return missing
+
+
+def order_reference_check(star):
+    """The ORDER BY's numpy reference: store_sales' (ss_quantity,
+    ss_item_sk) where ss_quantity > 95; the quantity column in order
+    exactly, the rows as a multiset exactly."""
+    ss = star["store_sales"]
+    keep = ss["ss_quantity"] > 95
+    q = np.sort(ss["ss_quantity"][keep])
+
+    def packed(quantity, item):
+        # one int64 per row (item keys are below 2^32): the rows as a
+        # multiset, sorted
+        return np.sort(quantity.astype(np.int64) << 32
+                       | item.astype(np.int64))
+
+    pairs = packed(ss["ss_quantity"][keep], ss["ss_item_sk"][keep])
+
+    def check(res):
+        gq = res.column("ss_quantity").to_numpy(zero_copy_only=False)
+        gi = res.column("ss_item_sk").to_numpy(zero_copy_only=False)
+        if not np.array_equal(gq.astype(np.int64), q.astype(np.int64)):
+            fail("fuse: order's quantities differ from numpy's")
+        if not np.array_equal(packed(gq, gi), pairs):
+            fail("fuse: order's rows differ from numpy's")
+        return {"rows_vs_numpy": int(q.shape[0])}
+    return check
+
+
+def fuse_run(torch, dev, session, sql, refused):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with admitted(session, refused):
+        res = session.sql(sql).collect()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def fuse_compare(torch, TF, TX, P, B, dev, q, sql, s_f, s_u, rows, checks,
+                 same, profile=False):
+    """One query fused (`s_f`) against unfused (`s_u`): the cold run with
+    fuse_spy, the paths taken, the answer against `checks[q]` and against
+    the unfused result (`same(fused, unfused)`: the query's phase
+    tolerance; the card's float sums add in no fixed order), then
+    STEADY_RUNS steady runs of each side in turn (the plan cache off) with
+    its peak, the entries and their hits, and with `profile` one profiled
+    steady run of each side (busy share)."""
+    refused = refusal(B, s_f, sql)
+    pins0 = s_f.exec_cache.pins
+    events, restore = fuse_spy(TF, TX, P)
+    try:
+        res, cold_ms = fuse_run(torch, dev, s_f, sql, refused)
+    finally:
+        restore()
+    got_u, cold_u = fuse_run(torch, dev, s_u, sql, refused)
+    rec = {"phase": "fuse_query", "query": q, "rows": res.num_rows,
+           "cold_ms": cold_ms, "unfused_cold_ms": cold_u,
+           "paths": events,
+           "pins": s_f.exec_cache.pins - pins0,
+           "max_rel_vs_unfused": same(res, got_u),
+           "refusal": refused}
+    rec["max_rel_vs_checks"] = worst_rel(checks[q](res))
+    missing = fuse_paths_taken(events, FUSE_PATHS.get(q, ()), rows)
+    if missing:
+        fail(f"fuse: {q} did not take {missing}: it took {rec['paths']}")
+    if rec["pins"] != FUSE_ALLOWED_PINS.get(q, 0):
+        fail(f"fuse: {q} pinned {rec['pins']} signature(s), "
+             f"{FUSE_ALLOWED_PINS.get(q, 0)} allowed")
+    for side, s in (("fused", s_f), ("unfused", s_u)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        hits0 = s.exec_cache.hits
+        ms = [fuse_run(torch, dev, s, sql, refused)[1]
+              for _ in range(STEADY_RUNS)]
+        rec[f"{side}_steady_ms"] = float(np.median(ms))
+        rec[f"{side}_steady_runs_ms"] = ms
+        rec[f"{side}_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        rec[f"{side}_working_gib"] = (
+            torch.cuda.max_memory_allocated(dev) - before) / 2**30
+        if side == "fused":
+            rec["entries"] = len(s.exec_cache.map)
+            rec["rerun_hits"] = s.exec_cache.hits - hits0
+            if rec["rerun_hits"] == 0 and any(
+                    e["kind"] in ("chain", "agg") for e in events):
+                fail(f"fuse: {q}'s reruns did not hit the exec cache")
+        if profile:
+            prof = profile_query(
+                torch, lambda s=s: fuse_run(torch, dev, s, sql, refused), q)
+            rec[f"{side}_busy_share"] = prof["device_busy_share"]
+            rec[f"{side}_device_ms"] = prof["device_ms"]
+    return rec
+
+
+def fuse_q5(torch, TX, B, Session, wtables, dev, on, extra, rows, checks):
+    """The fuse phase's q5 shape, over the windows phase's tables: fused
+    against unfused with the windows phase's conf. Its blocked windows go
+    through _apply_wrappers_fused; the per-window wrappers are renames,
+    which neither engine fuses, so its fused entries are the union
+    branches' projections, the date filter and the projections over the
+    aggregate."""
+    from nds_tpu_torch.engine import fuse as TF
+    from nds_tpu_torch.engine import plan as P
+
+    conf = {**on, **extra, **STEADY}
+    s_f = Session(conf=conf)
+    s_u = Session(conf={**conf, "engine.fuse": "off"}, device="cuda")
+    for s in (s_f, s_u):
+        for name, t in wtables.items():
+            s.register_table(name, t)
+    wrappers = []
+    orig = TX.Executor._apply_wrappers_fused
+
+    def spy(self, t, w, memo):
+        wrappers.append(len(w))
+        return orig(self, t, w, memo)
+    TX.Executor._apply_wrappers_fused = spy
+    try:
+        kw = checks["q5"].keywords
+        rec = fuse_compare(
+            torch, TF, TX, P, B, dev, "q5", WINDOW_QUERIES["q5"], s_f, s_u,
+            rows, checks, lambda a, b: q5_same(
+                a, b, kw["ref"], kw["windows"], "fuse q5 vs unfused"),
+            profile=True)
+    finally:
+        TX.Executor._apply_wrappers_fused = orig
+    rec["windows_through_apply_wrappers_fused"] = len(wrappers)
+    rec["blocked_union"] = s_f.last_blocked_union
+    if not wrappers:
+        fail("fuse: q5's windows did not go through _apply_wrappers_fused")
+    if not any(e["kind"] == "chain" for e in rec["paths"]):
+        fail(f"fuse: q5 took no fused chain: {rec['paths']}")
+    return rec
+
+
+def fuse_cache_warehouse(root, seed):
+    """The cache round trip's small star warehouse under `root` and its
+    stream file of FUSE_CACHE_ENTRIES. The script makes them on its main
+    thread, before the round trip's thread starts: Arrow's default
+    (mimalloc) pool is not safe with Arrow work on two threads (see
+    nds_tpu_torch/report.py's use_system_arrow_pool). Returns (warehouse,
+    stream file)."""
+    wh = os.path.join(root, "cache_wh")
+    write_warehouse(make_star(seed, FUSE_CACHE_SCALE), wh, workers=2)
+    sql = {"q3": QUERIES["q3"], "minmax": QUERIES["minmax"],
+           "order": QUERIES["order"], "topk": FUSE_TOPK_SQL}
+    stream = stream_file(os.path.join(root, "cache_stream.sql"), [
+        (tag, [sql[q] for q in qs]) for tag, qs in FUSE_CACHE_ENTRIES])
+    return wh, stream
+
+
+def fuse_cache_round_trip(root, wh, stream, procs, device=None):
+    """`python -m nds_tpu_torch.cli.cache warm` in processes of their own
+    over fuse_cache_warehouse's warehouse `wh` and `stream`: into an empty
+    directory under `root` (cold, every entry built and stored), `stats`
+    (it reads the directory only), then `warm` again (a fresh process:
+    every entry loaded, none built). The script runs it beside the stream
+    phase and the bench phase's --resume, over dimension dictionaries far
+    smaller than a deployment's, so the cold ms of the two processes say
+    nothing of what the cache saves; the gate is the builds and loads.
+    Each process joins `procs` (a Procs, which stops what still runs).
+    Returns the line. `device` names the children's device (default: the
+    card)."""
+    d = os.path.join(root, "aot")
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nds_tpu_torch.cli.cache", *args,
+             "--cache_dir", d, "--json"], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        procs.append(proc)
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"fuse: cache {args[0]} exited {proc.returncode}: "
+                 f"{err[-2000:]}")
+        return json.loads(out), time.perf_counter() - t0
+
+    warm = ("warm", wh, stream, *(("--device", device) if device else ()))
+    empty, empty_s = cli(*warm)
+    stats = cli("stats")[0]
+    loaded, loaded_s = cli(*warm)
+    rec = {"phase": "fuse_cache", "scale": f"x{FUSE_CACHE_SCALE} of SF100",
+           "statements": [t for t, _ in FUSE_CACHE_ENTRIES],
+           "beside": "the stream phase and the bench phase's --resume",
+           "empty": {"query_ms": empty["query_ms"],
+                     "exec_cache": empty["exec_cache"], "aot": empty["aot"],
+                     "process_s": empty_s},
+           "stats": stats,
+           "warm": {"query_ms": loaded["query_ms"],
+                    "exec_cache": loaded["exec_cache"],
+                    "aot": loaded["aot"], "process_s": loaded_s},
+           "cold_ms_empty": sum(empty["query_ms"].values()),
+           "cold_ms_warm": sum(loaded["query_ms"].values())}
+    if empty.get("failed") or loaded.get("failed"):
+        fail(f"fuse: cache warm failed {empty.get('failed')} "
+             f"{loaded.get('failed')}")
+    if not (empty["exec_cache"]["builds"] > 0
+            and stats["entries"] == empty["aot"]["stores"] > 0):
+        fail(f"fuse: the cold warm built or stored nothing: {rec['empty']}")
+    if (loaded["exec_cache"]["builds"] != 0
+            or loaded["exec_cache"]["loads"]
+            != empty["exec_cache"]["builds"]
+            or loaded["aot"]["disk_hits"] == 0):
+        fail(f"fuse: the fresh process did not load every entry: "
+             f"{rec['warm']}")
+    return rec
+
+
+class Beside(threading.Thread):
+    """`fn(*args)` on a thread of its own, beside the script's next step;
+    join() returns its result or raises what it raised (a failed gate's
+    SystemExit included)."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self._call = (fn, args)
+        self._out = self._exc = None
+        self.start()
+
+    def run(self):
+        fn, args = self._call
+        try:
+            self._out = fn(*args)
+        except BaseException as exc:  # re-raised by join
+            self._exc = exc
+
+    def join(self, timeout=None):
+        super().join(timeout)
+        if self._exc is not None:
+            raise self._exc
+        return self._out
+
+
+def fuse_phase(torch, TX, B, Session, star, tables, dev, on, rows, checks,
+               q5_rec):
+    """Fused pipelines, top-k and the caches at SF100 (ROADMAP item 11),
+    with engine.pallas_agg=off so that aggregates fuse: order (the fused
+    filter over store_sales), minmax (the fused min/max tail over it), q3
+    (the fused dimension filters; its aggregate tail pins, as in the JAX
+    package) and, as the joins phase runs it, q93 (the top-k), each fused
+    against unfused (fuse_compare); q3 through the caches (a rerun
+    replays its join order; with the plan cache on it answers from it);
+    the windows phase's q5 line (fuse_q5, `q5_rec`). One `fuse_query`
+    line per query, a `fuse_caches` and a `fuse` summary line. The cache
+    round trip (fuse_cache_round_trip) runs later, beside the bench
+    phase."""
+    from nds_tpu_torch.engine import fuse as TF
+    from nds_tpu_torch.engine import plan as P
+
+    t_phase = time.perf_counter()
+    checks = dict(checks)
+    numpy_order = order_reference_check(star)
+    checks["order"] = (lambda r, c=checks["order"]: {
+        "max_rel_vs_slice": worst_rel(c(r)), **numpy_order(r)})
+    conf = {**on, "engine.pallas_agg": "off", **STEADY}
+    s_f = Session(conf=conf)
+    s_u = Session(conf={**conf, "engine.fuse": "off"}, device="cuda")
+    j_f = Session(conf={**on, **STEADY})
+    j_u = Session(conf={**on, **STEADY, "engine.fuse": "off"},
+                  device="cuda")
+    cached = Session(conf={**on, "engine.pallas_agg": "off"})
+    for s in (s_f, s_u, j_f, j_u, cached):
+        for name, t in tables.items():
+            s.register_table(name, t)
+    def q3_same(a, b):
+        # with engine.pallas_agg=off both sides add the same f64 values in
+        # torch's routines, in orders that may differ: an f64 bound
+        ref = q3_groups(b)
+        return same_groups(q3_groups(a), ref, f64_sum_rtol(
+            max((n for _, n in ref.values()), default=0)), "fuse vs unfused")
+
+    same = {
+        # integers and extremes: exact
+        "order": lambda a, b: same_result(a, b, 0.0, "fuse order"),
+        "minmax": lambda a, b: same_result(a, b, 0.0, "fuse minmax"),
+        # float sums: f64 against f64 (q3); the joins phase's on / off
+        # bound (q93)
+        "q3": q3_same,
+        "q93": lambda a, b: same_topk(q93_rows(a), q93_rows(b),
+                                      checks["q93"].rtol_of,
+                                      "fuse q93 vs unfused"),
+    }
+    out = {}
+    for q in FUSE_QUERIES:
+        out[q] = fuse_compare(torch, TF, TX, P, B, dev, q, QUERIES[q], s_f,
+                              s_u, rows, checks, same[q])
+        emit(out[q])
+    out["q93"] = fuse_compare(torch, TF, TX, P, B, dev, "q93",
+                              JOIN_QUERIES["q93"], j_f, j_u, rows, checks,
+                              same["q93"])
+    emit(out["q93"])
+    out["q5"] = q5_rec
+    del s_f, s_u, j_f, j_u
+
+    # q3 through the caches (the plan cache on, its default)
+    refused = refusal(B, cached, QUERIES["q3"])
+    runs = []
+    for label in ("first", "plan_cache", "join_order"):
+        if label == "join_order":
+            cached.conf["engine.plan_cache"] = "off"
+        events, restore = fuse_spy(TF, TX, P)
+        try:
+            res, ms = fuse_run(torch, dev, cached, QUERIES["q3"], refused)
+        finally:
+            restore()
+        runs.append({"run": label, "ms": ms,
+                     "paths": sorted({e["kind"] for e in events}),
+                     "join_order_replayed": [e["replay"] for e in events
+                                             if e["kind"] == "join_order"],
+                     "max_rel_vs_checks": worst_rel(checks["q3"](res))})
+    first, hit, replay = runs
+    if (hit["paths"] or hit["join_order_replayed"]
+            or not replay["join_order_replayed"]
+            or not all(replay["join_order_replayed"])
+            or any(first["join_order_replayed"])):
+        fail(f"fuse: q3 through the caches: {runs}")
+    emit({"phase": "fuse_caches", "query": "q3", "runs": runs,
+          "plan_cache_entries": len(cached.plan_cache.map),
+          "plan_cache_gib": cached.plan_cache.nbytes / 2**30,
+          "join_orders": len(cached.join_order_cache)})
+    del cached
+    emit({"phase": "fuse", "queries": sorted(out),
+          "steady_ms": {q: [r["fused_steady_ms"], r["unfused_steady_ms"]]
+                        for q, r in out.items()},
+          "peak_gib": {q: [r["fused_peak_gib"], r["unfused_peak_gib"]]
+                       for q, r in out.items()},
+          "busy_share_q5": [q5_rec["fused_busy_share"],
+                            q5_rec["unfused_busy_share"]],
+          "pins": {q: r["pins"] for q, r in out.items()},
+          "steady_runs": STEADY_RUNS, "reduced": STEADY_CUT,
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
 REFUSED_MODE = "warn"
 
 
@@ -3196,10 +3748,13 @@ def run_drill(TP, faults, dev, root, wh, on, name, spec, conf, sqls):
 #: every SF has: 1,829 date partitions a fact table), and the lakehouse
 #: phase (153 s alone at SF1 / SF0.2 on an H100) cuts leg B to SF0.1.
 #: With the maintenance phase the script took 1,152 s at SF1 / SF0.1 on an
-#: H100, so leg A runs SF0.5. Below ~SF0.8 a generator chunk of store_sales
-#: fits one 64 MiB lakehouse file and zone maps have nothing to prune, so
-#: the lakehouse phase scales its file size with leg A's SF (lake_env)
-STREAM_SF_A = 0.5
+#: H100, so leg A ran SF0.5; with the fuse phase the script took 1,170 /
+#: 1,239 s on H100 hosts slower than PR 14's (its Load Tests alone 20-40%
+#: slower), so leg A runs SF0.25. Below ~SF0.8 a generator chunk of
+#: store_sales fits one 64 MiB lakehouse file and zone maps have nothing
+#: to prune, so the lakehouse phase scales its file size with leg A's SF
+#: (lake_env)
+STREAM_SF_A = 0.25
 STREAM_SF_B = 0.1
 STREAM_SF_MADE_FOR = {"A": 10, "B": 1}
 #: statements of a generated stream: 99 templates, 14 / 23 / 24 / 39 in two
@@ -3207,10 +3762,14 @@ STREAM_STATEMENTS = 103
 #: the templates of stream 0 that the script's legs run: its first
 #: STREAM_TEMPLATES entries, in the stream's order, and the entries of
 #: STREAM_GATE_TEMPLATES wherever they stand (the time limit: with the
-#: maintenance phase the script outgrew its 1200 s; a stream's time is
-#: mostly catalog loads at first touch: 40 templates kept ~80% of it on
-#: an H100's host). tools/torch_stream_phase.py runs all 99
-STREAM_TEMPLATES = 30
+#: maintenance phase the script outgrew its 1200 s, and twice again with
+#: the fuse phase, 1,377 s on a slow host with 20, and past 1,200 s on
+#: one with 10; a stream's time is mostly catalog loads at first touch, a
+#: few templates (query5, query2, query4, query10) most of it: 40
+#: templates kept ~80% of it on an H100's host, and query5 alone took 16
+#: to 26 s of each leg's 55 to 68 s with 10).
+#: tools/torch_stream_phase.py runs all 99
+STREAM_TEMPLATES = 2
 #: per leg, the templates a gate needs: query96 launches sort_perm,
 #: query23's two statements are leg B's only segment_extreme launches, and
 #: LAKE_FORMAT_QUERIES are checked against leg B's parquet answers
@@ -3346,11 +3905,12 @@ def start_load(root, raw, floats):
     return proc, t0, exit_time(proc)
 
 
-def finish_load(leg, root, sf, raw, rows, load, keep_raw=False):
+def finish_load(leg, root, sf, raw, rows, load, keep_raw=False, procs=None):
     """Steps 2-3 of a leg, ended: wait for the Load Test, delete the .dat
     files (unless `keep_raw`: the lakehouse phase loads them again), emit
-    `stream_load`, generate stream 0 from the Load Test's RNGSEED. Returns
-    (warehouse, stream file, query names)."""
+    `stream_load`, generate stream 0 from the Load Test's RNGSEED (a
+    process joining `procs` where given). Returns (warehouse, stream file,
+    query names)."""
     from nds_tpu_torch import power as TP
 
     proc, t0, end = load
@@ -3381,9 +3941,13 @@ def finish_load(leg, root, sf, raw, rows, load, keep_raw=False):
           in parts})
 
     streams = os.path.join(root, "streams")
-    run_cli(os.path.join(root, "gen_query_stream.log"),
-            "nds_tpu_torch.cli.gen_query_stream", "--streams", 1, "--scale",
-            sf, "--rngseed", seed, "--output_dir", streams)
+    log = os.path.join(root, "gen_query_stream.log")
+    proc = run_cli(log, "nds_tpu_torch.cli.gen_query_stream", "--streams", 1,
+                   "--scale", sf, "--rngseed", seed, "--output_dir", streams,
+                   background=True)
+    if procs is not None:
+        procs.append(proc)
+    wait_cli(proc, log)
     stream = os.path.join(streams, "query_0.sql")
     names = list(TP.gen_sql_from_stream(stream))
     if len(names) != STREAM_STATEMENTS:
@@ -3541,7 +4105,7 @@ def stream_start(scale):
     sf_a = STREAM_SF_A * min(1.0, scale)
     sf_b = STREAM_SF_B * min(1.0, scale)
     root = tempfile.mkdtemp(prefix="nds_stream_")
-    st = {"root": root, "sf_a": sf_a, "sf_b": sf_b, "procs": []}
+    st = {"root": root, "sf_a": sf_a, "sf_b": sf_b, "procs": Procs()}
     atexit.register(stop_started, st)
     for leg, sf, floats in (("A", sf_a, False), ("B", sf_b, True)):
         d = os.path.join(root, leg)
@@ -3551,14 +4115,24 @@ def stream_start(scale):
     return st
 
 
-def stop_started(st):
-    """Stop what stream_start (and the stream phase after it) started and
-    remove its directory."""
-    for proc in st["procs"]:
-        if proc.poll() is None:
-            proc.kill()
-        proc.wait()
-    shutil.rmtree(st["root"], ignore_errors=True)
+def finish_legs(st):
+    """Steps 2-3 of both legs, ended (finish_load, their .dat files kept
+    for the lakehouse phase): the script runs this on a thread beside the
+    SF100 phases and hands its result to stream_phase as `st["legs"]`.
+    Returns {leg: (warehouse, stream file, query names)}."""
+    return {leg: finish_load(leg, os.path.join(st["root"], leg),
+                             st[f"sf_{leg.lower()}"], st[f"raw_{leg}"],
+                             st[f"rows_{leg}"], st[f"load_{leg}"],
+                             keep_raw=True, procs=st["procs"])
+            for leg in ("B", "A")}
+
+
+def stop_started(st, remove=True):
+    """Stop what stream_start (and the stream and lakehouse phases after
+    it) started and, with `remove`, remove its directory."""
+    st["procs"].stop()
+    if remove:
+        shutil.rmtree(st["root"], ignore_errors=True)
 
 
 def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
@@ -3576,8 +4150,10 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
     kept for it: the lakehouse phase). With `templates`, each leg runs the
     first `templates` entries of its stream 0 and its STREAM_GATE_TEMPLATES
     (truncate_stream). `started` is stream_start's, where the legs' Load
-    Tests were started earlier. Returns the launches of leg A's `on` run
-    and of leg B's card run."""
+    Tests were started earlier; its directory is then the caller's to
+    remove; where it holds `legs` (a Beside of finish_legs), the legs' Load
+    Tests were finished there. Returns the launches of leg A's `on` run and
+    of leg B's card run."""
     from nds_tpu_torch import power as TP
     from nds_tpu_torch.schema import get_schemas
 
@@ -3605,7 +4181,8 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
                                     st["rows_B"])
     procs = st["procs"]
     try:
-        wh_b, stream_b, names_b = finish_load(
+        legs = st["legs"].join() if "legs" in st else {}
+        wh_b, stream_b, names_b = legs.get("B") or finish_load(
             "B", rb, sf_b, raw_b, rows_b, st["load_B"],
             keep_raw=lake is not None)
         names_b = cut("B", stream_b, names_b)
@@ -3627,9 +4204,9 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
                                  stream_b, names_b, on, True)
         stream_queries("B_card", card_b[0], card_b[2])
 
-        wh_a, stream_a, names_a = finish_load("A", ra, sf_a, raw_a, rows_a,
-                                              st["load_A"],
-                                              keep_raw=lake is not None)
+        wh_a, stream_a, names_a = legs.get("A") or finish_load(
+            "A", ra, sf_a, raw_a, rows_a, st["load_A"],
+            keep_raw=lake is not None)
         names_a = cut("A", stream_a, names_a)
         runs = {}
         for run, conf in (("A_on", on), ("A_off", off)):
@@ -3686,7 +4263,7 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
                   "b_card_dir": os.path.join(rb, "B_card"),
                   "reduced": reduced})
     finally:
-        stop_started(st)
+        stop_started(st, remove=started is None)
     emit({"phase": "stream_done", "seconds": time.perf_counter() - t_phase})
     return runs["A_on"][3], launches_b
 
@@ -3711,8 +4288,10 @@ THROUGHPUT_VALIDATE = 1
 #: first THROUGHPUT_TEMPLATES entries of each generated stream, in its own
 #: order, and STREAM_GATE_TEMPLATES' wherever they stand (the time limit;
 #: None runs all 99, as tools/torch_throughput_phase.py does; the
-#: maintenance and bench phases share that limit)
-THROUGHPUT_TEMPLATES = 10
+#: maintenance and bench phases share that limit; a stream's templates
+#: follow its RNGSEED, and one query23 or query83 took 17 to 27 s of a
+#: run's 48 s Ttt with 5)
+THROUGHPUT_TEMPLATES = 2
 
 
 def truncate_stream(path, templates, keep=()):
@@ -4032,18 +4611,19 @@ LAKE_ISO_SQL = (
 LAKE_FORMAT_QUERIES = ("query3", "query15", "query12")
 
 
-def start_lake_load(name, root, raw, *args, env=None):
+def start_lake_load(name, root, raw, *args, env=None, procs=None):
     """Start a Load Test of the lakehouse phase, a cli/transcode.py process
     of its own, to `--output_format name` (the lakehouse, csv or orc) in
-    `root`/warehouse_<name>. Returns (process, log, warehouse, report) for
-    finish_lake_load."""
+    `root`/warehouse_<name>; the process joins `procs` where given.
+    Returns (process, log, warehouse, report) for finish_lake_load."""
     wh = os.path.join(root, f"warehouse_{name}")
     log = os.path.join(root, f"transcode_{name}.log")
     report = os.path.join(root, f"load_{name}.report")
-    return (run_cli(log, "nds_tpu_torch.cli.transcode", raw, wh, report,
-                    "--output_format", name, *args, env=env,
-                    background=True),
-            log, wh, report)
+    proc = run_cli(log, "nds_tpu_torch.cli.transcode", raw, wh, report,
+                   "--output_format", name, *args, env=env, background=True)
+    if procs is not None:
+        procs.append(proc)
+    return proc, log, wh, report
 
 
 def finish_lake_load(load):
@@ -4302,47 +4882,34 @@ def lake_format_runs(torch, GK, TP, dev, ctx, on, loads):
     return emit(rec)
 
 
-def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None, after_load=None):
-    """The lakehouse, csv and orc entries on the card, over the stream
-    phase's legs (`ctx`, stream_phase's `lake` argument; their .dat files
-    kept). (1) Leg A's data through cli/transcode.py --output_format
-    lakehouse --workers LAKE_WORKERS (`lakehouse_load`: the Load Test's
-    seconds and rows/s, data files and manifest versions per fact table),
-    then the same command with --resume, which must convert 0 rows, while
-    leg B's data goes to a csv and an orc warehouse (--floats) in two more
-    processes. (2)
-    Leg A's stream 0 (as the stream phase cut it) cold through
-    cli/power.py --input_format
-    lakehouse with the kernels on and the stream watchdog (run `L_on`):
-    every statement Completed, validate against A_on finding no unmatched
-    query, dense_build and sort_perm launched; Power Test Time, catalog
-    load ms and peak beside A_on's. (3) lake_prune_check, (4)
-    lake_isolation_check, (5) lake_format_runs. The JSON summaries of the
-    stream go to `log_dir` as they are written, where given; `after_load`,
-    where given, is called when leg A's Load Test has ended (the script
-    starts the maintenance phase's Load Test there). Returns the stream's
-    launches."""
-    from nds_tpu_torch import power as TP
-
-    from pyarrow import orc  # noqa: F401  (a host without ORC fails here)
-
-    t_phase = time.perf_counter()
-    ra, sf = ctx["root_a"], ctx["sf_a"]
-    reduced = list(ctx["reduced"])
-    env = lake_env(sf)
+def lake_loads(ctx, after_load=None, procs=None):
+    """Step (1) of the lakehouse phase, host work only: leg A's data
+    through cli/transcode.py --output_format lakehouse --workers
+    LAKE_WORKERS, then the same command with --resume, while leg B's data
+    goes to a csv and an orc warehouse (--floats) in two more processes.
+    `after_load`, where given, is called when leg A's Load Test has ended
+    (the script starts the maintenance phase's Load Test there) and its
+    result kept as `after_load`; each process joins `procs` where given.
+    Returns what lakehouse_phase takes as `loaded`."""
+    ra = ctx["root_a"]
+    env = lake_env(ctx["sf_a"])
     wh, load_test_s, converted = finish_lake_load(start_lake_load(
-        "lakehouse", ra, ctx["raw_a"], "--workers", LAKE_WORKERS, env=env))
-    if after_load is not None:
-        after_load()
+        "lakehouse", ra, ctx["raw_a"], "--workers", LAKE_WORKERS, env=env,
+        procs=procs))
+    after = after_load() if after_load is not None else None
     started = {fmt: start_lake_load(fmt, ctx["root_b"], ctx["raw_b"],
-                                    "--floats") for fmt in ("csv", "orc")}
+                                    "--floats", procs=procs)
+               for fmt in ("csv", "orc")}
     try:
         t0 = time.perf_counter()
-        run_cli(os.path.join(ra, "transcode_resume.log"),
-                "nds_tpu_torch.cli.transcode", ctx["raw_a"], wh,
-                os.path.join(ra, "load_resume.report"),
-                "--output_format", "lakehouse", "--workers", LAKE_WORKERS,
-                "--resume", env=env)
+        resume = run_cli(os.path.join(ra, "transcode_resume.log"),
+                         "nds_tpu_torch.cli.transcode", ctx["raw_a"], wh,
+                         os.path.join(ra, "load_resume.report"),
+                         "--output_format", "lakehouse", "--workers",
+                         LAKE_WORKERS, "--resume", env=env, background=True)
+        if procs is not None:
+            procs.append(resume)
+        wait_cli(resume, os.path.join(ra, "transcode_resume.log"))
         resume_s = time.perf_counter() - t0
         loads = {fmt: finish_lake_load(load)
                  for fmt, load in started.items()}
@@ -4354,6 +4921,40 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None, after_load=None):
     with open(os.path.join(ra, "load_resume.report")) as fh:
         resumed = int(re.search(r"^Total rows converted: (\d+)$", fh.read(),
                                 re.M).group(1))
+    return {"wh": wh, "env": env, "load_test_s": load_test_s,
+            "converted": converted, "resume_s": resume_s, "resumed": resumed,
+            "loads": loads, "after_load": after}
+
+
+def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None, after_load=None,
+                    loaded=None):
+    """The lakehouse, csv and orc entries on the card, over the stream
+    phase's legs (`ctx`, stream_phase's `lake` argument; their .dat files
+    kept). (1) lake_loads, or its result `loaded` where the caller ran it
+    ahead (the script does, beside its earlier phases): `lakehouse_load`
+    (the Load Test's seconds and rows/s, data files and manifest versions
+    per fact table); --resume must convert 0 rows. (2)
+    Leg A's stream 0 (as the stream phase cut it) cold through
+    cli/power.py --input_format
+    lakehouse with the kernels on and the stream watchdog (run `L_on`):
+    every statement Completed, validate against A_on finding no unmatched
+    query, dense_build and sort_perm launched; Power Test Time, catalog
+    load ms and peak beside A_on's. (3) lake_prune_check, (4)
+    lake_isolation_check, (5) lake_format_runs. The JSON summaries of the
+    stream go to `log_dir` as they are written, where given; `after_load`
+    is lake_loads'. Returns the stream's launches."""
+    from nds_tpu_torch import power as TP
+
+    from pyarrow import orc  # noqa: F401  (a host without ORC fails here)
+
+    t_phase = time.perf_counter()
+    ra, sf = ctx["root_a"], ctx["sf_a"]
+    reduced = list(ctx["reduced"])
+    if loaded is None:
+        loaded = lake_loads(ctx, after_load)
+    wh, env, loads = loaded["wh"], loaded["env"], loaded["loads"]
+    load_test_s, converted = loaded["load_test_s"], loaded["converted"]
+    resume_s, resumed = loaded["resume_s"], loaded["resumed"]
     files = lake_files_per_table(wh)
     emit({"phase": "lakehouse_load", "sf": sf, "workers": LAKE_WORKERS,
           "file_bytes": int((env or os.environ).get(
@@ -4415,7 +5016,7 @@ def lakehouse_phase(torch, GK, dev, ctx, on, log_dir=None, after_load=None):
           "seconds": time.perf_counter() - t_phase,
           # the maintenance phase's Load Test ran beside this phase's after
           # leg A's (the time limit): its times are not this phase's alone
-          "maintenance_load_beside": after_load is not None,
+          "maintenance_load_beside": loaded["after_load"] is not None,
           "reduced": cut})
     return launches
 
@@ -4644,20 +5245,36 @@ def head_timestamp_ms(wh, tables=DM_FACT_TABLES):
                for t in tables)
 
 
+class _Statements(list):
+    """recorded_dm_statements' list, with `cached_after_commit`: per DML
+    statement (a result with rows affected), (function, the session's
+    plan / result cache entries and join orders just after it)."""
+
+    def __init__(self):
+        super().__init__()
+        self.cached_after_commit = []
+
+
 @contextlib.contextmanager
 def recorded_dm_statements(TM):
     """Record each refresh statement the port runs: (function, seconds,
-    rows affected or None) appended to the yielded list."""
+    rows affected or None) appended to the yielded list, and the caches a
+    commit left (`cached_after_commit`)."""
     from nds_tpu_torch import faults as TF
 
     orig = TM._run_dm_statement
-    got = []
+    got = _Statements()
 
     def run(session, q):
         t0 = time.perf_counter()
         res = orig(session, q)
-        got.append((TF.current_scope(), time.perf_counter() - t0,
-                    getattr(res, "rows_affected", None)))
+        n = getattr(res, "rows_affected", None)
+        got.append((TF.current_scope(), time.perf_counter() - t0, n))
+        if n is not None:
+            got.cached_after_commit.append((
+                TF.current_scope(),
+                len(session.plan_cache.map) + len(session.plan_cache.scalars),
+                len(session.join_order_cache)))
         return res
 
     TM._run_dm_statement = run
@@ -4937,6 +5554,15 @@ def maintenance_phase(torch, GK, dev, root, wh, sf, stream, on,
     if got_deletes != deletes:
         fail(f"maintenance: DF_* deleted {got_deletes}, pyarrow counts "
              f"{deletes}")
+    # a DML commit empties the session's plan / result and join-order
+    # caches (Catalog.invalidate -> Session._catalog_changed)
+    left = [c for c in stmts.cached_after_commit if c[1] or c[2]]
+    emit({"phase": "maintenance_caches",
+          "commits": len(stmts.cached_after_commit),
+          "left_after_commit": left})
+    if not stmts.cached_after_commit or left:
+        fail(f"maintenance: caches after a commit "
+             f"{stmts.cached_after_commit}")
     for k in MAINTENANCE_KERNELS:
         if launches[k] == 0:
             fail(f"maintenance: kernel {k} was not launched")
@@ -4989,12 +5615,13 @@ def maintenance_phase(torch, GK, dev, root, wh, sf, stream, on,
     return launches
 
 
-def start_maintenance_load(ctx):
+def start_maintenance_load(ctx, procs=None):
     """Start the maintenance phase's Load Test: leg B's .dat files (kept by
     the stream phase) through cli/transcode.py to a lakehouse with decimals
-    (LAKE_WORKERS workers). Returns start_lake_load's tuple."""
+    (LAKE_WORKERS workers), the process joining `procs` where given.
+    Returns start_lake_load's tuple."""
     return start_lake_load("lakehouse", ctx["root_b"], ctx["raw_b"],
-                           "--workers", LAKE_WORKERS)
+                           "--workers", LAKE_WORKERS, procs=procs)
 
 
 def maintenance_over_leg_b(torch, GK, dev, ctx, on, load=None):
@@ -5197,15 +5824,17 @@ def bench_start(root, sf, streams, on, templates=None, under_load=None,
     proc = run_cli(log, "nds_tpu_torch.cli.bench", yml, "--fault_spec",
                    BENCH_CRASH, *(["--device", device] if device else []),
                    background=True)
+    procs = Procs()
+    procs.append(proc)
     return {"root": root, "yml": yml, "params": params, "proc": proc,
-            "t0_ms": t0_ms, "log": log, "sf": sf, "streams": streams,
-            "templates": templates, "device": device}
+            "procs": procs, "t0_ms": t0_ms, "log": log, "sf": sf,
+            "streams": streams, "templates": templates, "device": device}
 
 
 def stop_bench(st):
-    if st["proc"].poll() is None:
-        st["proc"].kill()
-    st["proc"].wait()
+    """Stop both steps' processes (step 2's too, where it runs on a thread
+    beside the script) and remove the bench's directory."""
+    st["procs"].stop()
     shutil.rmtree(st["root"], ignore_errors=True)
 
 
@@ -5315,7 +5944,7 @@ class PeakSampler:
         return self.peak_mib
 
 
-def bench_phase(st, device, reduced, sample=True):
+def bench_phase(st, device, reduced, sample=True, beside=None):
     """Steps 1 (ended) and 2 of the bench phase: wait for the crashed run
     and hold it to its gates (a non-zero exit, exactly BENCH_HOST_PHASES
     checkpointed, no metrics.csv), then `python -m nds_tpu_torch.cli.bench
@@ -5323,7 +5952,8 @@ def bench_phase(st, device, reduced, sample=True):
     bench_start named one): the three skipped from the checkpoint, the
     other phases run, metrics.csv equal to bench_rederive, every statement
     and refresh function Completed on `device`. Emits the `bench_phase`
-    lines and the `bench` line; returns the latter."""
+    lines and the `bench` line (`beside`: what ran beside step 2, which
+    the card's memory in use includes); returns the latter."""
     from nds_tpu_torch import power as TP
     from nds_tpu_torch.maintenance import DM_FUNCS
 
@@ -5344,9 +5974,10 @@ def bench_phase(st, device, reduced, sample=True):
     t0_ms = time.time() * 1000
     sampler = PeakSampler() if sample else None
     try:
-        proc = run_cli(log, "nds_tpu_torch.cli.bench", st["yml"], "--resume",
-                       *(["--device", st["device"]] if st["device"] else []),
-                       env={"NDS_FAULT_SPEC": ""}, background=True)
+        proc = st["procs"].append(run_cli(
+            log, "nds_tpu_torch.cli.bench", st["yml"], "--resume",
+            *(["--device", st["device"]] if st["device"] else []),
+            env={"NDS_FAULT_SPEC": ""}, background=True))
         rc = proc.wait()
     finally:
         peak = sampler.stop() if sampler else None
@@ -5422,6 +6053,7 @@ def bench_phase(st, device, reduced, sample=True):
            "streams_per_throughput_test": sq, **derived,
            "metrics_csv": got, "phase_seconds": seconds,
            "resume_seconds": resume_s, "peak_used_mib": peak,
+           "beside": beside,
            "summaries": counts, "ran_on": list(device),
            "under_load": under_load, "reduced": reduced}
     emit(rec)
@@ -5548,10 +6180,18 @@ def main(argv=None):
     ap.add_argument("--scale", type=float, default=1.0,
                     help="fraction of SF100 row counts (1.0 = SF100)")
     args = ap.parse_args(argv)
+    # every line goes to this stdout, also one emitted on a thread while a
+    # step redirects stdout to a CLI's log
+    _OUT[:] = [sys.stdout]
 
     # a plan-budgeter fault fails the statement instead of being recorded
     # as verdict "error"
     os.environ["NDS_PLAN_BUDGET_STRICT"] = "1"
+    # one persistent cache of fused builds and promotion verdicts for this
+    # process and every process it starts, in a directory of its own
+    aot_dir = tempfile.mkdtemp(prefix="nds_aot_")
+    atexit.register(shutil.rmtree, aot_dir, True)
+    os.environ["NDS_AOT_CACHE_DIR"] = aot_dir
     import torch
 
     if not torch.cuda.is_available():
@@ -5638,8 +6278,12 @@ def main(argv=None):
     # -- slice -----------------------------------------------------------
     on = {f"engine.pallas_{k}": "on" for k in ("agg", "join", "sort")}
     off = {f"engine.pallas_{k}": "off" for k in ("agg", "join", "sort")}
-    s_on = Session(conf=on)
-    s_off = Session(conf=off, device="cuda")
+    # the in-process SF100 phases measure steady time: their sessions run
+    # with the plan cache off (STEADY); the CLI phases keep every default
+    on_steady = {**on, **STEADY}
+    off_steady = {**off, **STEADY}
+    s_on = Session(conf=on_steady)
+    s_off = Session(conf=off_steady, device="cuda")
     for s in (s_on, s_off):
         for name, t in tables.items():
             s.register_table(name, t)
@@ -5756,8 +6400,25 @@ def main(argv=None):
     # the stream legs' data and Load Tests (host processes) from here on,
     # beside the SF100 phases, whose queries keep the card busy
     started = stream_start(args.scale)
+    # the lakehouse phase's Load Tests (host processes) from the end of leg
+    # A's, beside the SF100 phases: lake_loads on a thread, which starts the
+    # maintenance phase's Load Test once leg A's lakehouse is written
+    lake_ctx = {"root_a": os.path.join(started["root"], "A"),
+                "raw_a": started["raw_A"], "sf_a": started["sf_a"],
+                "root_b": os.path.join(started["root"], "B"),
+                "raw_b": started["raw_B"]}
+
+    def lake_prep():
+        started["load_A"][0].wait()
+        return lake_loads(lake_ctx, after_load=lambda: start_maintenance_load(
+            lake_ctx, started["procs"]), procs=started["procs"])
+
+    lake_loaded = Beside(lake_prep)
+    # and each leg's Load Test finished (its stream 0 generated) there too
+    started["legs"] = Beside(finish_legs, started)
     joined, join_launches = joins_phase(torch, GK, TX, B, Session, star,
-                                        tables, dev, on, off, rows, checks)
+                                        tables, dev, on_steady, off_steady,
+                                        rows, checks)
     for rec in kernels:
         rec["joins_launches"] = join_launches[rec["name"]]
     # the whole benchmark's host phases from here on, beside the SF100
@@ -5769,21 +6430,29 @@ def main(argv=None):
 
     # -- windows -----------------------------------------------------------
     torch.cuda.empty_cache()
-    windowed, window_launches = windows_phase(torch, GK, TX, B, Session,
-                                              star, tables, dev, on, off,
-                                              rows, args.scale, checks)
+    windowed, window_launches, fuse_q5_rec = windows_phase(
+        torch, GK, TX, B, Session, star, tables, dev, on_steady, off_steady,
+        rows, args.scale, checks)
     for rec in kernels:
         rec["windows_launches"] = window_launches[rec["name"]]
 
+    # -- fuse ----------------------------------------------------------------
+    torch.cuda.empty_cache()
+    emit(fuse_q5_rec)
+    fuse_phase(torch, TX, B, Session, star, tables, dev, on, rows, checks,
+               fuse_q5_rec)
+
     # -- spill -------------------------------------------------------------
     torch.cuda.empty_cache()
-    spill_launches = spill_phase(torch, GK, TX, B, Session, tables, dev, on)
+    spill_launches = spill_phase(torch, GK, TX, B, Session, tables, dev,
+                                 on_steady)
     for rec in kernels:
         rec["spill_launches"] = spill_launches[rec["name"]]
 
     # -- maintenance_sf100 (DF_SS's survivor query over the SF100 tables) --
     torch.cuda.empty_cache()
-    maintenance_sf100(torch, GK, TX, B, Session, star, tables, dev, on)
+    maintenance_sf100(torch, GK, TX, B, Session, star, tables, dev,
+                      on_steady)
 
     # -- budget_refusals / device_memory -----------------------------------
     lines_all = {**results, **joined, **windowed}
@@ -5824,9 +6493,27 @@ def main(argv=None):
     for rec in kernels:
         rec["power_launches"] = power_launches[rec["name"]]
 
-    # -- stream ------------------------------------------------------------
+    # -- bench (the whole benchmark, resumed after its crash) and the fuse
+    # phase's cache round trip, on threads beside the stream phase: their
+    # processes hold a few GiB of the card at most ---------------------------
     gc.collect()
     torch.cuda.empty_cache()
+    bench = Beside(bench_phase, bench_st, ("cuda", kind), reduced + [
+        f"SF{bench_sf} with {BENCH_STREAMS} streams (made for SF"
+        f"{BENCH_MADE_FOR['sf']} with {BENCH_MADE_FOR['streams']}: "
+        "tools/torch_bench_phase.py)",
+        f"the Power and Throughput Tests over {','.join(BENCH_TEMPLATES)} "
+        "(sub_queries; the time limit)",
+        "maintenance under load off (the maintenance phase runs it)"],
+        True, "the stream phase and the fuse phase's cache round trip")
+    trip_root = tempfile.mkdtemp(prefix="nds_fuse_")
+    atexit.register(shutil.rmtree, trip_root, True)
+    trip_procs = Procs()
+    atexit.register(trip_procs.stop)
+    trip = Beside(fuse_cache_round_trip, trip_root,
+                  *fuse_cache_warehouse(trip_root, args.seed), trip_procs)
+
+    # -- stream ------------------------------------------------------------
     # -- throughput (over leg A's warehouse, before it goes) --------------
     throughput = {}
 
@@ -5841,27 +6528,21 @@ def main(argv=None):
     maintenance = {}
 
     def lake(ctx):
-        # the maintenance phase's Load Test starts when the lakehouse
-        # phase's own has ended, and runs beside the rest of that phase
-        started = []
-        try:
-            lakehouse.update(lakehouse_phase(
-                torch, GK, dev, ctx, on, after_load=lambda: started.append(
-                    start_maintenance_load(ctx))))
-            gc.collect()
-            torch.cuda.empty_cache()
-            maintenance.update(maintenance_over_leg_b(
-                torch, GK, dev, ctx, on, load=started[0]))
-        finally:
-            for proc, *_ in started:
-                if proc.poll() is None:
-                    proc.kill()
-                proc.wait()
+        # the Load Tests ran beside the earlier phases (lake_prep); the
+        # stream phase stops what still runs if a gate fails
+        loaded = lake_loaded.join()
+        lakehouse.update(lakehouse_phase(torch, GK, dev, ctx, on,
+                                         loaded=loaded))
+        gc.collect()
+        torch.cuda.empty_cache()
+        maintenance.update(maintenance_over_leg_b(
+            torch, GK, dev, ctx, on, load=loaded["after_load"]))
 
-    stream_a, stream_b = stream_phase(torch, GK, dev, on, off, args.scale,
-                                      then=then, lake=lake,
-                                      templates=STREAM_TEMPLATES,
-                                      started=started)
+    stream_a, stream_b = stream_phase(
+        torch, GK, dev, on, off, args.scale, then=then, lake=lake,
+        templates=STREAM_TEMPLATES, started=started)
+    # the stream phase's directory (GBs) goes beside the last phases
+    removal = Beside(shutil.rmtree, started["root"], True)
     for rec in kernels:
         rec["stream_a_launches"] = stream_a[rec["name"]]
         rec["stream_b_launches"] = stream_b[rec["name"]]
@@ -5869,17 +6550,11 @@ def main(argv=None):
         rec["lakehouse_launches"] = lakehouse[rec["name"]]
         rec["maintenance_launches"] = maintenance[rec["name"]]
 
-    # -- bench (the whole benchmark, resumed after its crash) --------------
-    gc.collect()
-    torch.cuda.empty_cache()
-    bench_phase(bench_st, ("cuda", kind), reduced + [
-        f"SF{bench_sf} with {BENCH_STREAMS} streams (made for SF"
-        f"{BENCH_MADE_FOR['sf']} with {BENCH_MADE_FOR['streams']}: "
-        "tools/torch_bench_phase.py)",
-        f"the Power and Throughput Tests over {','.join(BENCH_TEMPLATES)} "
-        "(sub_queries; the time limit)",
-        "maintenance under load off (the maintenance phase runs it)"])
+    # -- bench and the cache round trip, ended ----------------------------
+    bench.join()
     stop_bench(bench_st)
+    emit(trip.join())
+    shutil.rmtree(trip_root, ignore_errors=True)
 
     # -- explain -----------------------------------------------------------
     explain_phase(dev)
@@ -5887,6 +6562,7 @@ def main(argv=None):
     # -- kernel_sweep ------------------------------------------------------
     torch.cuda.empty_cache()
     kernel_sweep(torch, GK, dev, args.seed, min(1.0, args.scale))
+    removal.join()
 
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

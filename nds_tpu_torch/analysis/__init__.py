@@ -8,5 +8,5 @@
   budgeter sizes rows by, and the rules `engine.verify_plans` runs
   (annotation placement, spill partitions, blocked unions, join-key
   scoping, LEFT->INNER promotion evidence). The mesh's sharding rules
-  are ROADMAP.md queue 1 item 13, the Pipeline rules item 11.
+  are ROADMAP.md queue 1 item 13; the Pipeline rules check fusion.
 """

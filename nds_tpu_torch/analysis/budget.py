@@ -735,10 +735,28 @@ class PlanBudgeter:
         return self._finish(node, rows, child.width, child.cap, [child],
                             live=child.cap * child.width)
 
+    def _est_pipeline(self, node: P.Pipeline) -> NodeEstimate:
+        child = self._est(node.child)
+        rows = child.rows
+        for s in node.stages:
+            if isinstance(s, P.Filter):
+                rows = int(math.ceil(rows * selectivity(s.predicate)))
+        if node.agg is not None:
+            # the fused call runs the chain AND the partial-aggregate
+            # scatter over the chain INPUT (masks deferred to the end), so
+            # the key / sort-word working set scales with the child's
+            # capacity, not the post-filter estimate
+            return self._agg_estimate(node, node.agg, [child], rows,
+                                      child.cap)
+        width = self._width(node)
+        # the fused call holds the full output column set at the input
+        # capacity (masks deferred to the end)
+        return self._finish(node, rows, width, child.cap * width, [child])
+
     def _keys_unique(self, side, keys) -> bool:
         """True when `keys` cover a declared primary key of the side's base
-        table (a Scan reached through Filter/Project wrappers): the static
-        stand-in for the runtime unique-key probe."""
+        table (a Scan reached through Filter/Project/Pipeline wrappers):
+        the static stand-in for the runtime unique-key probe."""
         _, base = P._peel_wrappers(side)
         if not isinstance(base, P.Scan):
             return False

@@ -24,10 +24,10 @@ and messages:
   on blocked-union Aggregates, `spill_partitions` on spillable nodes with
   a power-of-two count).
 
-Two families stay behind: the sharding rules run only over a mesh, and a
-mesh raises NotImplementedError (ROADMAP.md queue 1 item 13); the Pipeline
-rules check fusion, which the port does not run, so a Pipeline node raises
-(item 11).
+One family stays behind: the sharding rules run only over a mesh, and a
+mesh raises NotImplementedError (ROADMAP.md queue 1 item 13). The Pipeline
+rules check engine/fuse.py's rewrite: detached, unshared, fusible stages,
+maximal chains, the donation clearance and the fused aggregate tail.
 
 Gating: conf `engine.verify_plans` / env `NDS_VERIFY_PLANS` = off (default)
 | final (verify the finished plan once) | all (verify after binding and
@@ -46,6 +46,7 @@ from ..engine import expr as E
 from ..engine import plan as P
 from ..engine.binder import _null_rejecting_shape
 from ..engine.expr import _lit_dtype, _promote
+from ..engine.fuse import _NO_DONATE_CHILD, _expr_fusible
 from .budget import SPILL_MAX_PARTITIONS, spillable_node
 
 
@@ -562,14 +563,172 @@ class PlanVerifier:
         return out
 
     def _schema_pipeline(self, node: P.Pipeline):
-        """The reference's Pipeline rules (detached fusible stages, donation,
-        the fused aggregate tail) check fuse.py's rewrite, which the port
-        does not run: it builds no Pipeline node."""
-        raise NotImplementedError(
-            "Pipeline nodes (fusion) are not ported to nds_tpu_torch yet, "
-            "nor the verifier's Pipeline rules: ROADMAP.md queue 1 item 11 "
-            "(engine/fuse.py)"
-        )
+        child = self._schema_of(node.child)
+        self._check_donate_ok(node)
+        if not node.stages and node.agg is None:
+            # an agg-tail Pipeline may have an empty chain (the Aggregate
+            # sat directly on its input); a plain one must not
+            self._viol("pipeline", node, "Pipeline with no stages")
+            return child
+        if isinstance(node.child, P.Pipeline) and node.child.agg is None:
+            # an agg-tail Pipeline child is legitimate (a HAVING chain's
+            # pipeline sits over the fused aggregate it filters; the
+            # aggregate terminates the lower chain, so the two can never
+            # merge) — only plain-over-plain means a non-maximal chain
+            self._viol(
+                "pipeline", node,
+                "Pipeline child is itself a Pipeline (chain not maximal)",
+            )
+        cur = child
+        for s in node.stages:
+            if not isinstance(s, (P.Filter, P.Project)):
+                self._viol(
+                    "pipeline", node,
+                    f"stage {type(s).__name__} is not Filter/Project",
+                )
+                return None
+            if s.child is not None:
+                self._viol(
+                    "pipeline", node,
+                    f"stage {type(s).__name__} still has an attached child "
+                    f"(stages must be detached copies)",
+                )
+                return None
+            if self._refs.get(id(s), 1) > 1:
+                self._viol(
+                    "pipeline", node,
+                    f"stage {type(s).__name__} is referenced elsewhere in "
+                    f"the plan (Pipeline wraps a shared node, defeating "
+                    f"by-identity result reuse)",
+                )
+                return None
+            exprs = (
+                [s.predicate]
+                if isinstance(s, P.Filter)
+                else [e for e, _ in s.items]
+            )
+            for e in exprs:
+                if not _expr_fusible(e):
+                    self._viol(
+                        "pipeline", node,
+                        f"stage expression {e} is not fusible (subquery/"
+                        f"aggregate/window must never enter a Pipeline)",
+                    )
+            if cur is None:
+                continue
+            if isinstance(s, P.Filter):
+                dt = self._try_expr(
+                    s.predicate, cur, node, "pipeline filter predicate"
+                )
+                if dt is None:
+                    cur = None
+            else:
+                cur = self._project_over(node, s.items, cur)
+        if node.agg is not None:
+            return self._check_pipeline_agg(node, cur)
+        return cur
+
+    def _check_donate_ok(self, node: P.Pipeline):
+        """`donate_ok` is fuse's clearance to reuse the child's live mask
+        in place — provably wrong whenever another plan node (or a
+        cross-statement cache) can still observe it. Mirrors
+        fuse._donate_ok_child; a rewrite that sets the flag outside these
+        bounds corrupts live memory, so the verifier re-derives it."""
+        if not node.donate_ok:
+            return
+        if self._refs.get(id(node.child), 1) > 1:
+            self._viol(
+                "donate", node,
+                "donate_ok set but the pipeline child has multiple "
+                "consumers; donating its buffers would invalidate the "
+                "other consumer's input",
+            )
+        elif isinstance(node.child, _NO_DONATE_CHILD) or (
+            isinstance(node.child, P.Pipeline)
+            and node.child.agg is not None
+        ):
+            self._viol(
+                "donate", node,
+                f"donate_ok set on a {type(node.child).__name__} child "
+                f"whose result a cache or base table retains beyond this "
+                f"call",
+            )
+
+    def _check_pipeline_agg(self, node: P.Pipeline, cur):
+        """The fused aggregate tail: detached, unshared, plain-shaped,
+        fully decomposable — the exact eligibility fuse._agg_fusible
+        proved at rewrite time, re-derived here so a later pass that
+        mutates the plan cannot leave a stale (now-wrong) fusion."""
+        agg = node.agg
+        if agg.child is not None:
+            self._viol(
+                "pipeline-agg", node,
+                "aggregate tail still has an attached child (must be a "
+                "detached copy)",
+            )
+            return None
+        if self._refs.get(id(agg), 1) > 1:
+            self._viol(
+                "pipeline-agg", node,
+                "aggregate tail is referenced elsewhere in the plan "
+                "(Pipeline wraps a shared Aggregate)",
+            )
+            return None
+        if agg.grouping_sets is not None or agg.blocked_union:
+            self._viol(
+                "pipeline-agg", node,
+                "aggregate tail must be plain-shaped (no grouping sets — "
+                "the rollup cascade re-aggregates across levels; no "
+                "blocked_union — the windowed executor owns those)",
+            )
+            return None
+        if not P.aggs_decomposable(agg.aggs):
+            self._viol(
+                "pipeline-agg", node,
+                "non-decomposable aggregate set fused into a Pipeline "
+                "tail (distinct/stddev/grouping cannot run as a direct "
+                "partial-aggregate scatter)",
+            )
+            return None
+        for e, name in agg.keys:
+            if not _expr_fusible(e):
+                self._viol(
+                    "pipeline-agg", node,
+                    f"group key {name!r} is not fusible into one call",
+                )
+                return None
+        for a, name in agg.aggs:
+            if a.arg is not None and not _expr_fusible(a.arg):
+                self._viol(
+                    "pipeline-agg", node,
+                    f"aggregate argument of {name!r} is not fusible "
+                    f"into one call",
+                )
+                return None
+        if cur is None:
+            return None
+        out = {}
+        for g, name in agg.keys:
+            dt = self._try_expr(g, cur, node, f"group key {name!r}")
+            if dt is None:
+                return None
+            if name in out:
+                self._viol(
+                    "schema", node, f"duplicate output column {name!r}"
+                )
+                return None
+            out[name] = dt
+        for a, name in agg.aggs:
+            dt = self._agg_dtype(a, cur, agg)
+            if dt is None:
+                return None
+            if name in out:
+                self._viol(
+                    "schema", node, f"duplicate output column {name!r}"
+                )
+                return None
+            out[name] = dt
+        return out
 
     # ------------------------------------------------------------------
     # aggregate / window dtype rules (mirror exec._eval_agg/_eval_window)

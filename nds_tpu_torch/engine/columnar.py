@@ -21,6 +21,8 @@ numeric device path need numpy and torch alone.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -515,56 +517,113 @@ def table_to_arrow(table: Table):
 # ---------------------------------------------------------------------------
 
 
-def _lut_gather(lut: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
-    """lut[clip(codes)] on the codes' device (jnp gathers clamp; torch
-    raises on an out-of-range index, so the clamp is explicit). An empty
-    lut (the empty dictionary of a column with no value, e.g. a lakehouse
-    scan whose zone maps pruned every file) gives zeros: no row reads
-    them. The JAX package's gather raises there (ROADMAP.md queue 3)."""
-    t = torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)
+# Host-side dictionary work is a function of dictionaries and literals
+# alone. A fused pipeline (engine/fuse.py) records each product once at
+# build time on a tape and replays it on every call, so a call does tensor
+# work only: every helper below and the Evaluator's string paths take
+# their host products through `host_product`.
+_HOST = threading.local()
+
+
+class HostRead(Exception):
+    """A fused chain read device values on the host (a number formatted as
+    a string, a concat too large for a pairwise dictionary). The JAX
+    package's trace fails on exactly these, and its executable cache pins
+    the chain's input signature to the eager path; the port pins the same
+    signatures."""
+
+
+def host_product(compute):
+    """compute(), or, under an active fused-pipeline tape, the product the
+    tape recorded at build time (recorded now while the tape builds)."""
+    tape = getattr(_HOST, "tape", None)
+    if tape is None:
+        return compute()
+    return tape.product(compute)
+
+
+def host_read_guard(what: str):
+    """Raise HostRead inside a fused chain: `what` reads device values."""
+    if getattr(_HOST, "tape", None) is not None:
+        raise HostRead(what)
+
+
+@contextmanager
+def host_tape(tape):
+    """Route this thread's host products through `tape`."""
+    prev = getattr(_HOST, "tape", None)
+    _HOST.tape = tape
+    try:
+        yield tape
+    finally:
+        _HOST.tape = prev
+
+
+def device_lut(lut: np.ndarray, device) -> torch.Tensor:
+    """A host lookup table on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(lut)).to(device)
+
+
+def lut_take(t: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """t[clip(codes)] (jnp gathers clamp; torch raises on an out-of-range
+    index, so the clamp is explicit). An empty table (the empty dictionary
+    of a column with no value, e.g. a lakehouse scan whose zone maps pruned
+    every file) gives zeros: no row reads them. The JAX package's gather
+    raises there (ROADMAP.md queue 3)."""
     if t.numel() == 0:
         return torch.zeros(codes.shape, dtype=t.dtype, device=codes.device)
-    return t[codes.clamp(0, max(len(lut) - 1, 0)).long()]
+    return t[codes.clamp(0, max(t.shape[0] - 1, 0)).long()]
 
 
 def unify_dictionaries(a: Column, b: Column):
     """Remap two string columns onto one shared dictionary. Returns
     (codes_a, codes_b, unified_dictionary)."""
-    import pyarrow as pa
-    import pyarrow.compute as pc
-
     if a.dictionary is not None and a.dictionary is b.dictionary:
         return a.data, b.data, a.dictionary
-    empty = pa.array([], type=pa.string())
-    da = a.dictionary if a.dictionary is not None else empty
-    db = b.dictionary if b.dictionary is not None else empty
-    unified = pc.unique(
-        pa.concat_arrays([da.cast(pa.string()), db.cast(pa.string())])
-    )
-    remap_a = pc.index_in(da.cast(pa.string()), unified).to_numpy(
-        zero_copy_only=False
-    )
-    remap_b = pc.index_in(db.cast(pa.string()), unified).to_numpy(
-        zero_copy_only=False
-    )
-    codes_a = _lut_gather(remap_a.astype(np.int32), a.data) if len(da) else a.data
-    codes_b = _lut_gather(remap_b.astype(np.int32), b.data) if len(db) else b.data
+    dev = a.data.device
+
+    def build():
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        empty = pa.array([], type=pa.string())
+        da = a.dictionary if a.dictionary is not None else empty
+        db = b.dictionary if b.dictionary is not None else empty
+        da = da.cast(pa.string())
+        db = db.cast(pa.string())
+        unified = pc.unique(pa.concat_arrays([da, db]))
+
+        def remap(d):
+            if not len(d):
+                return None
+            r = pc.index_in(d, unified).to_numpy(zero_copy_only=False)
+            return device_lut(r.astype(np.int32), dev)
+        return remap(da), remap(db), unified
+
+    la, lb, unified = host_product(build)
+    codes_a = lut_take(la, a.data) if la is not None else a.data
+    codes_b = lut_take(lb, b.data) if lb is not None else b.data
     return codes_a, codes_b, unified
 
 
 def sort_dictionary(col: Column):
     """Codes remapped so that code order == lexicographic value order."""
-    import pyarrow as pa
-    import pyarrow.compute as pc
-
     d = col.dictionary
     if d is None or len(d) == 0:
         return col.data, d
-    d = d.cast(pa.string())
-    order = pc.array_sort_indices(d)
-    rank = np.empty(len(d), dtype=np.int32)
-    rank[order.to_numpy(zero_copy_only=False)] = np.arange(
-        len(d), dtype=np.int32
-    )
-    sorted_dict = d.take(order)
-    return _lut_gather(rank, col.data), sorted_dict
+    dev = col.data.device
+
+    def build():
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        s = d.cast(pa.string())
+        order = pc.array_sort_indices(s)
+        rank = np.empty(len(s), dtype=np.int32)
+        rank[order.to_numpy(zero_copy_only=False)] = np.arange(
+            len(s), dtype=np.int32
+        )
+        return device_lut(rank, dev), s.take(order)
+
+    rank, sorted_dict = host_product(build)
+    return lut_take(rank, col.data), sorted_dict

@@ -9,18 +9,19 @@ the tensor's device, never by a platform probe: on a CUDA tensor they
 launch the hand-written kernels of ops/gpu_kernels.py, on a CPU tensor the
 kernels' plain versions run.
 
-Ported: scan, filter, project, limit, sort, MultiJoin/Join (the dense
-star-join, the packed-word join and the hash-candidate join for inner,
-left, right, full, semi, anti and mark joins, with residuals, and the
-cross join), DISTINCT, the set operations (UNION [ALL], INTERSECT, EXCEPT),
-aggregate (direct and sort-based, distinct aggregates included), ROLLUP /
-grouping sets with grouping(), blocked union aggregation, windows, scalar
-subqueries, and the out-of-core paths (the spilled join, sort and
-distinct, staged through the session's host-RAM spill pool). What is left
-raises NotImplementedError naming the ROADMAP.md item that ports it (fused
-pipelines), or is a path the JAX executor declines on one device (the
-mesh's exchange join and its spill fallback); none returns a different
-answer.
+Ported: scan, filter, project, fused Filter/Project pipelines and
+aggregate tails (engine/fuse.py), limit with the Limit-over-Sort top-k,
+sort, MultiJoin/Join (the dense star-join, the packed-word join and the
+hash-candidate join for inner, left, right, full, semi, anti and mark
+joins, with residuals, and the cross join; join orders replayed across
+statements), DISTINCT, the set operations (UNION [ALL], INTERSECT,
+EXCEPT), aggregate (direct and sort-based, distinct aggregates included),
+ROLLUP / grouping sets with grouping(), blocked union aggregation,
+windows, scalar subqueries, the session's plan / result cache, and the
+out-of-core paths (the spilled join, sort and distinct, staged through
+the session's host-RAM spill pool). What is left is a path the JAX
+executor declines on one device (the mesh's exchange join and its spill
+fallback); none returns a different answer.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ from .. import faults
 from ..dtypes import BOOL, DType, FLOAT64, INT32, INT64
 from ..ops import gpu_kernels as GK
 from ..ops import kernels as K
+from . import aotcache as AOTC
 from . import expr as E
+from . import fuse
 from . import plan as P
 from . import spill as SP
 from .columnar import (
@@ -51,10 +54,6 @@ from .expr import Evaluator, _cast_column, _common_dtype, _share_dictionary
 
 class ExecError(Exception):
     pass
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to nds_tpu_torch yet: {item}")
 
 
 def _cascade_agg_items(agg_items):
@@ -233,6 +232,7 @@ class Executor:
         self.device = torch.device(device)
         self._cte_cache = {}  # id(plan) -> Table
         self._scalar_cache = {}  # id(plan) -> python value
+        self._fp_cache = {}  # id(plan) -> structural fingerprint
         # the running aggregation's keys (grouping()), live mask and count
         # (distinct aggregates)
         self._current_agg_keys = None
@@ -260,13 +260,45 @@ class Executor:
         key = id(node)
         if key in self._cte_cache:
             return self._cte_cache[key]
-        m = getattr(self, f"_exec_{type(node).__name__.lower()}", None)
-        if m is None:  # P.Pipeline: the port's session never builds one
-            raise _not_ported(f"plan node {type(node).__name__}",
-                              "ROADMAP.md queue 1 item 11 (fused pipelines)")
-        out = m(node)
+        # agg-tail Pipelines are the fused form of a (cacheable) Aggregate:
+        # they keep the cross-statement reuse the raw node had
+        cacheable = isinstance(node, self._CACHEABLE) or (
+            isinstance(node, P.Pipeline) and node.agg is not None
+        )
+        cache = self._session_cache() if cacheable else None
+        if cache is not None:
+            with self.catalog.session.cache_lock:
+                hit = cache.get(self._fp(node))
+            if hit is not None:
+                self._cte_cache[key] = hit
+                return hit
+        out = getattr(self, f"_exec_{type(node).__name__.lower()}")(node)
         self._cte_cache[key] = out
+        if cache is not None:
+            with self.catalog.session.cache_lock:
+                cache.put(self._fp(node), out)
         return out
+
+    # plan-node types worth caching across statements: the expensive
+    # pipeline breakers (a CTE body virtually always ends in one)
+    _CACHEABLE = (P.Aggregate, P.Distinct, P.SetOp, P.Window)
+
+    def _session_cache(self):
+        """The session's plan / result cache, or None (no session, or
+        `engine.plan_cache=off`)."""
+        session = getattr(self.catalog, "session", None)
+        if session is None:
+            return None
+        if session.conf.get("engine.plan_cache", "on") == "off":
+            return None
+        return session.plan_cache
+
+    def _fp(self, node) -> str:
+        key = id(node)
+        fp = self._fp_cache.get(key)
+        if fp is None:
+            fp = self._fp_cache[key] = P.fingerprint(node)
+        return fp
 
     # ------------------------------------------------------------------
     def _exec_scan(self, node: P.Scan) -> Table:
@@ -321,7 +353,104 @@ class Executor:
         child = self.execute(node.child)
         return self._masked(child, self._predicate_mask(child, node.predicate))
 
+    # -- fused Filter/Project pipelines -----------------------------------
+    # A Pipeline node (fuse.mark_pipelines) runs its whole chain through
+    # one entry of the session's ExecutableCache (engine/fuse.py): the
+    # host-side dictionary work was done once at the entry's build, masks
+    # fold into one deferred live mask, and no Table is made per stage.
+    # Entries are reused across reruns AND structurally identical queries
+    # (stage fingerprint + input signature). Signatures whose build reads
+    # device values on the host are pinned to the exact eager per-stage
+    # path, the signatures the JAX package pins.
+
+    def _aot_build_args(self, session):
+        """(AotCache | None, conf signature) for a fused build: the
+        session's persistent cache plus the engine conf values that change
+        the build's products and so join the stored entry's key."""
+        aot = getattr(session, "aot_cache", None) if session else None
+        if aot is None:
+            return None, ()
+        return aot, (
+            str(session.conf.get("engine.fuse_agg", "on")),
+            str(session.conf.get("engine.pallas_agg", "off")),
+        )
+
+    def _exec_pipeline(self, node: P.Pipeline) -> Table:
+        child = self.execute(node.child)
+        session = getattr(self.catalog, "session", None)
+        has_agg = node.agg is not None
+        if (
+            session is not None
+            and session.conf.get("engine.fuse", "on") != "off"
+            and child.columns
+            and child.cap > 0
+            # backstop only: the plan rewrite already keeps the aggregate
+            # out under a kernel mode (Session._finish_plan); this fires
+            # for a plan made before the conf turned pallas_agg on, whose
+            # fused scatter would bypass the per-aggregate kernel route
+            and not (
+                has_agg
+                and session.conf.get("engine.pallas_agg", "off") != "off"
+            )
+        ):
+            fp = getattr(node, "_stage_fp", None)
+            if fp is None:
+                fp = node._stage_fp = P.fingerprint(
+                    P.Pipeline(stages=node.stages, child=None, agg=node.agg)
+                )
+            sig = fuse.input_signature(child, with_stats=has_agg)
+            aot, conf_sig = self._aot_build_args(session)
+            with session.cache_lock:
+                entry, _ = session.exec_cache.lookup(
+                    fp, sig, child.cap,
+                    lambda: fuse.build_entry(node.stages, node.agg, child,
+                                             aot, fp, conf_sig),
+                )
+            if entry is not None:
+                donate = (
+                    node.donate_ok
+                    and session.conf.get("engine.fuse_donate", "off") == "on"
+                )
+                return entry.call(child, donate)
+        # eager per-stage path (_apply_wrappers wants top-down order)
+        out = self._apply_wrappers(child, list(reversed(node.stages)))
+        if has_agg:
+            out = self._aggregate_once(
+                node.agg.keys, node.agg.aggs, None, out,
+                out.row_mask(self.device), out.nrows_known,
+            )
+        return out
+
     def _exec_limit(self, node: P.Limit) -> Table:
+        # top-k: ORDER BY .. LIMIT n computes the sort order but gathers
+        # only the first bucket_cap(n) sorted rows of each column, not the
+        # whole permutation. Needs the rewrite pass's single-consumer
+        # annotation (fuse.mark_pipelines sets _topk_safe): a shared Sort's
+        # full result must compute once and serve every consumer.
+        if (
+            isinstance(node.child, P.Sort)
+            and getattr(node.child, "_topk_safe", False)
+            and id(node.child) not in self._cte_cache
+        ):
+            sort = node.child
+            child = self._pack_sparse(self.execute(sort.child))
+            n = min(node.n, child.nrows)
+            cap = bucket_cap(max(n, 1))
+            if child.nrows_known != 0:
+                order = self._sort_perm_route(
+                    self._sort_order_words(sort, child))
+                return self._take(child, order[:cap], n)
+            return Table(
+                {
+                    name: Column(
+                        c.data[:cap], c.dtype,
+                        None if c.valid is None else c.valid[:cap],
+                        c.dictionary, c.subset_stats(),
+                    )
+                    for name, c in child.compacted().columns.items()
+                },
+                n,
+            )
         child = self.execute(node.child).compacted()
         n = min(node.n, child.nrows)
         cap = bucket_cap(n)
@@ -491,8 +620,24 @@ class Executor:
 
     def _exec_multijoin(self, node: P.MultiJoin) -> Table:
         tables = self._execute_relations_batched(node.relations)
+        # join-order replay ACROSS statements: the greedy cost scan reads
+        # joined-intermediate row counts, one blocking device->host sync
+        # per join step after the first. Reruns and repeated stream queries
+        # replay the recorded order instead (same fingerprint => same query
+        # text and literals; any order is correct regardless).
+        trace = None
+        session = getattr(self.catalog, "session", None)
+        if (
+            session is not None
+            and session.conf.get("engine.join_order_cache", "on") != "off"
+        ):
+            with session.cache_lock:
+                trace = session.join_order_cache.setdefault(
+                    self._fp(node), {}
+                )
         return self._multijoin_over_tables(
-            tables, node.edges, spill_parts=self._spill_parts_for(node)
+            tables, node.edges, trace=trace,
+            spill_parts=self._spill_parts_for(node),
         )
 
     def _multijoin_over_tables(self, tables, edges, trace=None,
@@ -1111,15 +1256,68 @@ class Executor:
         }
 
     def _apply_wrappers(self, t: Table, wrappers) -> Table:
-        """Apply a top-down Filter/Project wrapper list, innermost first
-        (unfused: the JAX executor's _apply_wrappers_fused is ROADMAP.md
-        queue 1 item 11)."""
+        """Apply a top-down Filter/Project wrapper list, innermost first."""
         for w in reversed(wrappers):
             if isinstance(w, P.Filter):
                 t = self._masked(t, self._predicate_mask(t, w.predicate))
             else:
                 t = self._project_table(t, w.items)
         return t
+
+    def _apply_wrappers_fused(self, t: Table, wrappers, memo) -> Table:
+        """Apply a top-down wrapper list through ONE fused entry: the
+        blocked union aggregation's per-window path. Every window of a
+        branch has the same input signature, so the first window builds
+        the entry and the others ride it instead of an eager pass per
+        wrapper per window. `memo` (per blocked context) keeps the detached
+        stage list and fingerprint per wrapper chain. The exact eager
+        per-wrapper path runs when fusion is off, a stage is unfusible, or
+        the signature is pinned."""
+        if not wrappers:
+            return t
+        session = getattr(self.catalog, "session", None)
+        if (
+            session is None
+            or session.conf.get("engine.fuse", "on") == "off"
+            or not t.columns
+            or t.cap == 0
+        ):
+            return self._apply_wrappers(t, wrappers)
+        key = tuple(id(w) for w in wrappers)
+        info = memo.get(key)
+        if info is None:
+            stages = []
+            for w in reversed(wrappers):  # execution order
+                if not fuse._stage_fusible(w):
+                    stages = None
+                    break
+                if isinstance(w, P.Filter):
+                    stages.append(P.Filter(predicate=w.predicate, child=None))
+                else:
+                    stages.append(P.Project(items=list(w.items), child=None))
+            if stages and not fuse._chain_worth_fusing(stages):
+                # pure rename/subset wrappers: the eager path reuses the
+                # window's column objects outright (mark_pipelines' gate)
+                stages = None
+            fp = (
+                P.fingerprint(P.Pipeline(stages=stages, child=None))
+                if stages
+                else None
+            )
+            info = memo[key] = (fp, stages)
+        fp, stages = info
+        if fp is None:
+            return self._apply_wrappers(t, wrappers)
+        sig = fuse.input_signature(t)
+        aot, conf_sig = self._aot_build_args(session)
+        with session.cache_lock:
+            entry, _ = session.exec_cache.lookup(
+                fp, sig, t.cap,
+                lambda: fuse.build_entry(stages, None, t, aot, fp, conf_sig),
+            )
+        if entry is None:
+            return self._apply_wrappers(t, wrappers)
+        return entry.call(t, False)  # windows alias the branch's buffers
 
     def _blocked_union_once(self, node: P.Aggregate, ctx, subset):
         """One aggregation level (grouping-set `subset`, or None for the
@@ -1143,7 +1341,10 @@ class Executor:
                      for ci, (name, fn) in enumerate(aligner)},
                     w.nrows_lazy, live=w.live,
                 )
-                t = self._apply_wrappers(t, ctx["inner_wrappers"])
+                t = self._apply_wrappers_fused(
+                    t, ctx["inner_wrappers"],
+                    ctx.setdefault("wrapper_memo", {}),
+                )
                 if ctx["join"] is not None:
                     edges, uidx, others = ctx["join"]
                     t = self._multijoin_over_tables(
@@ -1151,7 +1352,10 @@ class Executor:
                         edges, trace=ctx["join_trace"],
                     )
                     ctx["max_table_cap"] = max(ctx["max_table_cap"], t.cap)
-                t = self._apply_wrappers(t, ctx["outer_wrappers"])
+                t = self._apply_wrappers_fused(
+                    t, ctx["outer_wrappers"],
+                    ctx.setdefault("wrapper_memo", {}),
+                )
                 part = self._aggregate_once(
                     node.keys, ctx["base_aggs"], subset, t,
                     t.row_mask(self.device), t.nrows_known,
@@ -1889,9 +2093,23 @@ class Executor:
         return GK.dense_build(rkey, rnn, rmin, table_cap)
 
     def _promotion_rec(self, key):
-        """The memoized promotion verdict for `key` (session memo only; the
-        persistent promotion store is not ported). None = unmeasured."""
-        return self.catalog.session.pallas_promotions.get(key)
+        """The memoized promotion verdict for `key`: the session memo
+        first, then the persistent store (engine/aotcache.py
+        PromotionStore: verdicts any earlier process measured in this
+        environment), loaded into the memo on a hit. None = unmeasured."""
+        session = self.catalog.session
+        rec = session.pallas_promotions.get(key)
+        if rec is not None:
+            return rec
+        store = getattr(session, "promotion_store", None)
+        if store is None:
+            return None
+        rec = store.get(AOTC.promotion_key_str(key, self.device))
+        if rec is not None and "use" in rec:
+            with session.cache_lock:
+                session.pallas_promotions[key] = rec
+            return rec
+        return None
 
     def _measure_promotion(self, key, run_plain, run_kernel):
         """One-time measured A/B for a (kernel, shape) slot: warm both
@@ -1916,6 +2134,11 @@ class Executor:
                 "kernel_ms": round(kernel_ms, 3),
                 "use": kernel_ms < plain_ms,
             }
+            store = getattr(session, "promotion_store", None)
+            if store is not None:
+                # measured once per environment: the verdict outlives
+                # this process
+                store.record(AOTC.promotion_key_str(key, self.device), rec)
         return rec
 
     def _pallas_promoted(self, fn, sdata, gid, weight, gcap, pvals,
@@ -1945,6 +2168,14 @@ class Executor:
     def _scalar_value(self, e: E.ScalarSubquery):
         key = id(e.plan)
         if key not in self._scalar_cache:
+            cache = self._session_cache()
+            if cache is not None:
+                with self.catalog.session.cache_lock:
+                    hit = cache.scalars.get(self._fp(e.plan) + ":" +
+                                            e.out_name)
+                if hit is not None:
+                    self._scalar_cache[key] = hit
+                    return hit
             t = self.execute(e.plan).compacted()
             col = t.columns[e.out_name]
             if t.nrows == 0:
@@ -1955,6 +2186,11 @@ class Executor:
                 self._scalar_cache[key] = (
                     v.item() if valid else None, col.dtype, col.dictionary,
                 )
+            if cache is not None:
+                with self.catalog.session.cache_lock:
+                    cache.scalars[self._fp(e.plan) + ":" + e.out_name] = (
+                        self._scalar_cache[key]
+                    )
         return self._scalar_cache[key]
 
     def _masked(self, table: Table, mask) -> Table:

@@ -27,7 +27,10 @@ from ..dtypes import BOOL, DATE, DType, FLOAT64, INT32, INT64, STRING
 from .columnar import (
     Column,
     Table,
-    _lut_gather,
+    device_lut,
+    host_product,
+    host_read_guard,
+    lut_take,
     sort_dictionary,
     torch_dtype,
     unify_dictionaries,
@@ -319,7 +322,7 @@ class Evaluator:
         if dtype.is_string:
             import pyarrow as pa
 
-            d = pa.array([value], type=pa.string())
+            d = host_product(lambda: pa.array([value], type=pa.string()))
             return Column(torch.zeros(cap, dtype=torch.int32, device=dev),
                           STRING, None, d)
         if dtype.kind == "date":
@@ -500,9 +503,12 @@ class Evaluator:
             import pyarrow.compute as pc
 
             d = a.dictionary
-            hit = pc.is_in(d.cast(pa.string()),
-                           value_set=pa.array(values, pa.string()))
-            data = _lut_gather(hit.to_numpy(zero_copy_only=False), a.data)
+            lut = host_product(lambda: device_lut(
+                pc.is_in(d.cast(pa.string()),
+                         value_set=pa.array(values, pa.string())
+                         ).to_numpy(zero_copy_only=False),
+                a.data.device))
+            data = lut_take(lut, a.data)
         else:
             data = self._zeros_bool()
             for v in values:
@@ -525,11 +531,11 @@ class Evaluator:
         a = self.eval(e.operand)
         if not a.dtype.is_string:
             raise TypeError("LIKE on non-string")
-        d = a.dictionary.cast(pa.string())
-        hit = pc.match_like(d, e.pattern)
-        data = _lut_gather(
-            hit.to_numpy(zero_copy_only=False).astype(bool), a.data
-        )
+        lut = host_product(lambda: device_lut(
+            pc.match_like(a.dictionary.cast(pa.string()), e.pattern)
+            .to_numpy(zero_copy_only=False).astype(bool),
+            a.data.device))
+        data = lut_take(lut, a.data)
         if e.negated:
             data = ~data
         return Column(data, BOOL, a.valid)
@@ -655,11 +661,15 @@ class Evaluator:
         a = self.eval(arg)
         if not a.dtype.is_string:
             raise TypeError("string function on non-string")
-        d = a.dictionary.cast(pa.string())
-        enc = pc.dictionary_encode(fn(d))
-        remap = enc.indices.to_numpy(zero_copy_only=False).astype(np.int32)
-        return Column(_lut_gather(remap, a.data), STRING, a.valid,
-                      enc.dictionary)
+
+        def build():
+            enc = pc.dictionary_encode(fn(a.dictionary.cast(pa.string())))
+            remap = enc.indices.to_numpy(zero_copy_only=False)
+            return device_lut(remap.astype(np.int32), a.data.device), \
+                enc.dictionary
+
+        remap, dictionary = host_product(build)
+        return Column(lut_take(remap, a.data), STRING, a.valid, dictionary)
 
     def _eval_concat(self, e: BinOp) -> Column:
         return self._concat_cols(self.eval(e.left), self.eval(e.right))
@@ -671,25 +681,29 @@ class Evaluator:
         valid = _and_valid(a.valid, b.valid)
         if a.dtype.is_string and b.dictionary is None and not b.dtype.is_string:
             raise TypeError("concat with non-string")
+        dev = a.data.device
+        na, nb = len(a.dictionary), len(b.dictionary)
+        if na * nb <= 65536:
+            # small cross-product: build the pairwise dictionary on host
+            def build():
+                da = np.asarray(a.dictionary.cast(pa.string()))
+                db = np.asarray(b.dictionary.cast(pa.string()))
+                cross = pc.binary_join_element_wise(
+                    pa.array(np.repeat(da, nb)), pa.array(np.tile(db, na)),
+                    "",
+                )
+                enc = pc.dictionary_encode(cross)
+                idx = enc.indices.to_numpy(zero_copy_only=False)
+                return device_lut(idx.astype(np.int32), dev), enc.dictionary
+
+            remap, dictionary = host_product(build)
+            ia = a.data.clamp(0, na - 1).long()
+            ib = b.data.clamp(0, nb - 1).long()
+            return Column(remap[ia * nb + ib], STRING, valid, dictionary)
+        # large: materialize row-wise on host (rare path)
+        host_read_guard("string concat past the pairwise dictionary")
         da = a.dictionary.cast(pa.string())
         db = b.dictionary.cast(pa.string())
-        dev = a.data.device
-        if len(da) * len(db) <= 65536:
-            # small cross-product: build the pairwise dictionary on host
-            cross = pc.binary_join_element_wise(
-                pa.array(np.repeat(np.asarray(da), len(db))),
-                pa.array(np.tile(np.asarray(db), len(da))),
-                "",
-            )
-            enc = pc.dictionary_encode(cross)
-            remap = torch.from_numpy(
-                enc.indices.to_numpy(zero_copy_only=False).astype(np.int32)
-            ).to(dev)
-            ia = a.data.clamp(0, len(da) - 1).long()
-            ib = b.data.clamp(0, len(db) - 1).long()
-            return Column(remap[ia * len(db) + ib], STRING, valid,
-                          enc.dictionary)
-        # large: materialize row-wise on host (rare path)
         ha = a.data.cpu().numpy()
         hb = b.data.cpu().numpy()
         av = np.asarray(da)[np.clip(ha, 0, len(da) - 1)]
@@ -748,6 +762,7 @@ def _cast_column(c: Column, target: DType, cap: int) -> Column:
         import pyarrow as pa
         import pyarrow.compute as pc
 
+        host_read_guard(f"cast of {src} to a string")
         arr = c.data.cpu().numpy()
         if src.is_decimal:
             vals = arr / 10**src.scale
@@ -763,45 +778,17 @@ def _cast_column(c: Column, target: DType, cap: int) -> Column:
     if src.is_string:
         # string -> numeric/date: parse the dictionary on host, gather codes.
         # Unparseable entries become NULL (Spark cast semantics), not 0.
-        import pyarrow as pa
-
-        d = c.dictionary.cast(pa.string())
-        entries = np.asarray(d).tolist()
-        npdt = (
-            np.int32
-            if target.kind == "date"
-            else np.int64 if target.is_decimal else target.device_np_dtype()
-        )
-        if not entries:
+        prod = host_product(lambda: _parse_dictionary(c.dictionary, target,
+                                                      dev))
+        if prod is None:
             n = c.data.shape[0]
             return Column(
                 torch.zeros(n, dtype=torch_dtype(target), device=dev),
                 target, torch.zeros(n, dtype=torch.bool, device=dev),
             )
-        lut = []
-        lut_ok = []
-        for s in entries:
-            try:
-                if s is None or (isinstance(s, str) and not s.strip()):
-                    raise ValueError
-                s = s.strip() if isinstance(s, str) else s
-                if target.kind == "date":
-                    if not _DATE_RE.match(s):
-                        raise ValueError
-                    v = date_to_days(s)
-                elif target.is_decimal:
-                    v = int(round(float(s) * 10**target.scale))
-                else:
-                    v = target.device_np_dtype()(float(s))
-                lut.append(v)
-                lut_ok.append(True)
-            except (ValueError, TypeError):
-                lut.append(0)
-                lut_ok.append(False)
-        lut = np.asarray(lut, dtype=npdt)
-        lut_ok = np.asarray(lut_ok, dtype=bool)
-        data = _lut_gather(lut, c.data)
-        parsed = _lut_gather(lut_ok, c.data) if not lut_ok.all() else None
+        lut, lut_ok = prod
+        data = lut_take(lut, c.data)
+        parsed = lut_take(lut_ok, c.data) if lut_ok is not None else None
         return Column(data, target, _and_valid(c.valid, parsed))
     if target.is_decimal:
         if src.is_decimal:
@@ -825,23 +812,71 @@ def _cast_column(c: Column, target: DType, cap: int) -> Column:
     return Column(c.data.to(torch_dtype(target)), target, c.valid)
 
 
+def _parse_dictionary(dictionary, target: DType, dev):
+    """(value table, parsed-ok table or None) of a string dictionary cast to
+    a number or date on `dev`, or None for an empty dictionary.
+    Unparseable entries become NULL (Spark cast semantics), not 0."""
+    import pyarrow as pa
+
+    entries = np.asarray(dictionary.cast(pa.string())).tolist()
+    if not entries:
+        return None
+    npdt = (
+        np.int32
+        if target.kind == "date"
+        else np.int64 if target.is_decimal else target.device_np_dtype()
+    )
+    lut = []
+    lut_ok = []
+    for s in entries:
+        try:
+            if s is None or (isinstance(s, str) and not s.strip()):
+                raise ValueError
+            s = s.strip() if isinstance(s, str) else s
+            if target.kind == "date":
+                if not _DATE_RE.match(s):
+                    raise ValueError
+                v = date_to_days(s)
+            elif target.is_decimal:
+                v = int(round(float(s) * 10**target.scale))
+            else:
+                v = target.device_np_dtype()(float(s))
+            lut.append(v)
+            lut_ok.append(True)
+        except (ValueError, TypeError):
+            lut.append(0)
+            lut_ok.append(False)
+    lut_ok = np.asarray(lut_ok, dtype=bool)
+    return (device_lut(np.asarray(lut, dtype=npdt), dev),
+            None if lut_ok.all() else device_lut(lut_ok, dev))
+
+
 def _share_dictionary(cols):
     """Remap string columns onto one merged dictionary (CASE/COALESCE)."""
-    import pyarrow as pa
-    import pyarrow.compute as pc
+    dev = cols[0].data.device
 
-    dicts = [
-        (c.dictionary if c.dictionary is not None
-         else pa.array([], pa.string())).cast(pa.string())
-        for c in cols
+    def build():
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        dicts = [
+            (c.dictionary if c.dictionary is not None
+             else pa.array([], pa.string())).cast(pa.string())
+            for c in cols
+        ]
+        unified = pc.unique(pa.concat_arrays(dicts))
+        luts = [
+            None if len(d) == 0 else device_lut(
+                pc.index_in(d, unified).to_numpy(zero_copy_only=False)
+                .astype(np.int32), dev)
+            for d in dicts
+        ]
+        return luts, unified
+
+    luts, unified = host_product(build)
+    out = [
+        Column(c.data if lut is None else lut_take(lut, c.data), STRING,
+               c.valid, unified)
+        for c, lut in zip(cols, luts)
     ]
-    unified = pc.unique(pa.concat_arrays(dicts))
-    out = []
-    for c, d in zip(cols, dicts):
-        if len(d) == 0:
-            out.append(Column(c.data, STRING, c.valid, unified))
-            continue
-        remap = pc.index_in(d, unified).to_numpy(zero_copy_only=False)
-        out.append(Column(_lut_gather(remap.astype(np.int32), c.data),
-                          STRING, c.valid, unified))
     return out, unified

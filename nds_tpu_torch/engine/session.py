@@ -5,9 +5,15 @@ A Session owns a catalog of named tables (parquet, orc and transcoded csv
 datasets read lazily column by column, lakehouse tables pinned to one
 snapshot per statement and pruned file by file by their zone maps,
 in-memory Arrow tables, or device tables built with `table_from_numpy`),
-parses + binds + prunes SQL, executes it with the unfused operator path
-(whatever `engine.fuse` says: fusion is not ported), and returns Arrow
-tables. CREATE / DROP (TEMP) VIEW registers or drops an Arrow entry;
+parses + binds + prunes SQL, executes it, and returns Arrow tables. As
+in the JAX package, Filter/Project chains and plain aggregates run fused
+(engine/fuse.py; `engine.fuse`, `engine.fuse_agg`), ORDER BY .. LIMIT
+gathers only its top k, repeated subtrees and scalar subqueries come from
+a cross-statement plan / result cache (`engine.plan_cache`,
+`engine.plan_cache_bytes`), MultiJoins replay their recorded join order
+(`engine.join_order_cache`), and fused entries and kernel promotion
+verdicts persist in an AOT directory (engine/aotcache.py;
+`engine.aot_cache_dir` / NDS_AOT_CACHE_DIR). CREATE / DROP (TEMP) VIEW registers or drops an Arrow entry;
 INSERT, DELETE, CREATE TABLE AS and CALL rollback_to_timestamp run over
 lakehouse tables through lakehouse/dml.py (the Data Maintenance phase).
 
@@ -57,6 +63,7 @@ from ..schema import (
     get_maintenance_schemas,
     get_schemas,
 )
+from . import aotcache as AOTC
 from . import expr as E
 from . import plan as P
 from . import spill as SP
@@ -199,6 +206,48 @@ def resolve_device(device=None) -> torch.device:
             )
         ensure_expandable_segments()
     return dev
+
+
+class _PlanResultCache:
+    """Byte-budgeted LRU of executed plan subtrees, keyed by structural
+    fingerprint (plan.fingerprint): repeated CTE / subquery text reuses its
+    device tables ACROSS statements (query14_part1 and _part2 share their
+    cross_items / avg_sales CTEs), and scalar subquery values ride along.
+    Cleared whenever the catalog changes (any registration, drop or
+    invalidation)."""
+
+    def __init__(self, budget_bytes: int):
+        from collections import OrderedDict
+
+        self.budget = budget_bytes
+        self.map = OrderedDict()  # fp -> (table, nbytes)
+        self.nbytes = 0
+        self.scalars = {}  # fp -> (value, dtype, dictionary)
+
+    def get(self, fp):
+        hit = self.map.get(fp)
+        if hit is None:
+            return None
+        self.map.move_to_end(fp)
+        return hit[0]
+
+    def put(self, fp, table):
+        if fp in self.map:
+            self.map.move_to_end(fp)
+            return
+        nb = table_device_bytes(table)
+        if nb > self.budget:
+            return
+        self.map[fp] = (table, nb)
+        self.nbytes += nb
+        while self.nbytes > self.budget and len(self.map) > 1:
+            _, (_, old_nb) = self.map.popitem(last=False)
+            self.nbytes -= old_nb
+
+    def clear(self):
+        self.map.clear()
+        self.scalars.clear()
+        self.nbytes = 0
 
 
 class _Entry:
@@ -550,12 +599,12 @@ class Catalog:
         return renewed
 
     def invalidate(self, name):
-        """Drop an entry's cached columns, row count, PK memo and snapshot
+        """Clear the session's plan / result and join-order caches, then
+        drop an entry's cached columns, row count, PK memo and snapshot
         pin, releasing its reader lease: the next statement re-resolves
         (and re-leases) the head at its own plan time. A DML commit calls
-        it (lakehouse/dml.py). The JAX package's also clears the session's
-        plan and result caches; the port has none until ROADMAP.md queue 1
-        item 11, which must clear them here."""
+        it (lakehouse/dml.py)."""
+        self.session._catalog_changed()
         e = self.entries.get(name)
         if e is None:
             return
@@ -582,11 +631,16 @@ class Result:
         self.session = session
         self.plan = plan_node
         self._table = None
+        # this execution's executor: its per-statement stats
+        # (last_blocked_union, last_spill) read without racing other
+        # threads' statements on the session
+        self.executor = None
 
     def table(self) -> Table:
         """Execute (memoized)."""
         if self._table is None:
-            self._table = self.session._executor().execute(self.plan)
+            self.executor = self.session._executor()
+            self._table = self.executor.execute(self.plan)
         return self._table
 
     def collect(self):
@@ -654,7 +708,39 @@ class Session:
         # kernel promotion memo (engine.pallas_*=auto): per (kernel, shape)
         # the measured plain-vs-kernel A/B and the winning route
         self.pallas_promotions = {}
+        # one lock guards every session-level cache mutation (plan_cache,
+        # exec_cache, join_order_cache, pallas_promotions, the spill pool)
         self.cache_lock = threading.RLock()
+        self.plan_cache = _PlanResultCache(
+            int(self.conf.get("engine.plan_cache_bytes", 1 << 30))
+        )
+        # fused entries (engine/fuse.py): they survive catalog changes on
+        # purpose — keyed by stage structure, dtypes and dictionary
+        # identity, a stale entry can never be hit, and a power stream's
+        # per-query view churn must not evict them
+        from .fuse import ExecutableCache
+
+        self.exec_cache = ExecutableCache(
+            int(self.conf.get("engine.exec_cache_entries", 512))
+        )
+        # MultiJoin greedy-order memo: fingerprint -> recorded join steps
+        # (exec._multijoin_greedy); a replay skips the cost scan's row
+        # count syncs
+        self.join_order_cache = {}
+        # the persistent cache (engine/aotcache.py): fused entries' build
+        # products and pins, and the kernel promotion verdicts, shared on
+        # disk by every process of the directory. Off with
+        # NDS_AOT_CACHE_DIR=0 / engine.aot_cache_dir="".
+        self.aot_cache = None
+        self.promotion_store = None
+        aot_dir = AOTC.resolve_aot_cache_dir(self.conf)
+        if aot_dir:
+            AOTC.sweep_at_session_start(aot_dir)
+            self.promotion_store = AOTC.PromotionStore(aot_dir)
+            self.aot_cache = AOTC.AotCache(
+                aot_dir, AOTC.resolve_aot_cache_bytes(self.conf, aot_dir),
+                self.device,
+            )
         # stats of the most recent blocked union aggregation (windows,
         # window rows and cap, total rows, largest table cap), or None
         self.last_blocked_union = None
@@ -710,18 +796,29 @@ class Session:
         return B.default_window_rows(row_bytes,
                                      self.catalog.DEVICE_BUDGET_BYTES)
 
+    def _catalog_changed(self):
+        """Any registration, drop or invalidation: cached plan results
+        may now be stale, and a recorded join order may have turned
+        pathological — drop them all."""
+        with self.cache_lock:
+            self.plan_cache.clear()
+            self.join_order_cache.clear()
+
     # ---- registration ----------------------------------------------------
     def register_arrow(self, name, arrow, schema=None):
+        self._catalog_changed()
         self.catalog.entries[name.lower()] = _Entry(schema=schema, arrow=arrow)
 
     def register_parquet(self, name, path, schema=None):
         """A parquet dataset directory (hive-partitioned or not), read
         lazily: each column is read and uploaded on first use."""
+        self._catalog_changed()
         self.catalog.entries[name.lower()] = _Entry(
             schema=schema, path=path, fmt="parquet"
         )
 
     def register_orc(self, name, path, schema=None):
+        self._catalog_changed()
         self.catalog.entries[name.lower()] = _Entry(
             schema=schema, path=path, fmt="orc"
         )
@@ -738,6 +835,7 @@ class Session:
         """A transcoded csv warehouse directory (comma-delimited part files
         with a header, possibly hive-partitioned), read lazily like
         parquet."""
+        self._catalog_changed()
         self.catalog.entries[name.lower()] = _Entry(
             schema=schema, path=path, fmt="csv"
         )
@@ -750,6 +848,7 @@ class Session:
         from ..lakehouse.table import sweep_table_at_session_start
 
         sweep_table_at_session_start(path)
+        self._catalog_changed()
         self.catalog.entries[name.lower()] = _Entry(
             schema=schema, path=path, fmt="lakehouse"
         )
@@ -771,6 +870,7 @@ class Session:
         fs, root = get_fs(data_root)
         if fmt == "lakehouse":
             from ..lakehouse.table import sweep_table_at_session_start
+        self._catalog_changed()
         for tname, schema in schemas.items():
             if fs.exists(posixpath.join(root, tname)):
                 path = fs_join(data_root, tname)
@@ -789,14 +889,18 @@ class Session:
                     f"table {name!r} lives on {c.data.device}, the session "
                     f"on {self.device}"
                 )
+        self._catalog_changed()
         self.catalog.entries[name.lower()] = _Entry(table=table)
 
     def drop(self, name):
+        self._catalog_changed()
         self.catalog.entries.pop(name.lower(), None)
 
     # ---- memory recovery -------------------------------------------------
     def recover_memory(self, reason: str = "device OOM"):
-        """Drop every recoverable device allocation: the cached columns of
+        """Drop every recoverable device allocation: the plan / result
+        cache, the fused entries (their lookup tables live on the device),
+        the join-order memo, and the cached columns of
         every catalog entry with a host source (parquet, Arrow), which the
         next scan reloads. A `register_table` entry has no host source and
         keeps its columns: dropping them would lose the table. Then collect
@@ -805,6 +909,10 @@ class Session:
         segments a retry would otherwise still see the old reservation),
         and notify the listeners. The report ladder calls it after a device
         OOM mid-execution, and the catalog after one while loading."""
+        with self.cache_lock:
+            self.plan_cache.clear()
+            self.exec_cache.clear()
+            self.join_order_cache.clear()
         for e in self.catalog.entries.values():
             if e.table is None:
                 e.device_cols = {}
@@ -840,9 +948,9 @@ class Session:
         """The post-bind rewrites: prune scans, pin each lakehouse scan's
         snapshot and prune its files by zone maps (before the budgeter, so
         pruning, budgeting and execution see one manifest version),
-        annotate blocked union aggregates, then the static plan budgeter
-        (no fusion pass: the port runs unfused, ROADMAP.md queue 1 item
-        11).
+        annotate blocked union aggregates, fuse Filter/Project chains and
+        plain aggregates into Pipelines (`engine.fuse`, `engine.fuse_agg`),
+        then the static plan budgeter.
 
         With `engine.verify_plans` / NDS_VERIFY_PLANS set (off by default,
         one dict lookup when off) the PlanVerifier re-checks the plan's
@@ -873,6 +981,22 @@ class Session:
         P.mark_blocked_union_aggs(plan)
         if every:
             verify(plan, "mark_blocked_union_aggs")
+        if self.conf.get("engine.fuse", "on") != "off":
+            from .fuse import mark_pipelines
+
+            plan, _ = mark_pipelines(
+                plan,
+                # a kernel route for aggregates (on / auto) hooks the eager
+                # per-aggregate seam, so the aggregate stays a separate
+                # node and the segment kernels launch; its feeding chain
+                # still fuses
+                fuse_aggs=(
+                    self.conf.get("engine.fuse_agg", "on") != "off"
+                    and self.conf.get("engine.pallas_agg", "off") == "off"
+                ),
+            )
+            if every:
+                verify(plan, "mark_pipelines")
         B.budget_plan(plan, self)
         if every:
             verify(plan, "plan_budget")

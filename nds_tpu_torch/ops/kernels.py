@@ -594,12 +594,20 @@ def direct_gid(keys, valids, mins, ranges, live):
     return torch.where(live, gid, 0)
 
 
+def occupied(gid, live, domain_cap):
+    """Occupied cell mask. Dead and out-of-range lanes write to the spare
+    slots, not to one shared cell: on a GPU, stores that all land on one
+    address serialise."""
+    idx = _seg_index(gid, domain_cap, live)
+    occ = torch.zeros(domain_cap + SPARE_SLOTS, dtype=torch.bool,
+                      device=gid.device)
+    occ[idx] = True  # every write stores True: races are harmless
+    return occ[:domain_cap]
+
+
 def occupancy_map(gid, live, domain_cap):
     """Occupied cell mask + dense renumbering (cell -> 0..ngroups-1)."""
-    idx = torch.where(live & (gid >= 0) & (gid < domain_cap), gid, domain_cap)
-    occ = torch.zeros(domain_cap + 1, dtype=torch.bool, device=gid.device)
-    occ[idx] = True  # every write stores True: races are harmless
-    occ = occ[:domain_cap]
+    occ = occupied(gid, live, domain_cap)
     dense = torch.cumsum(occ.to(I64), 0) - 1
     return occ, dense
 

@@ -2,8 +2,9 @@
 against the JAX package's (nds_tpu/analysis/budget.py).
 
 All 99 TPC-DS templates bind in both packages on schema-only sessions
-(the JAX one with fusion off, so both plans have the same nodes) and go
-through both budgeters at SF 1, 10 and 100 with the reference's 4 GiB
+(both with fusion off, and both with fusion on: Pipeline nodes and their
+aggregate tails) and go through both budgeters at SF 1, 10 and 100 with
+the reference's 4 GiB
 working-set and 14 GiB reject lines: the verdict, both peaks, the window,
 the partition count, the spillable flag and every node's rows, width,
 capacity and bytes must be EQUAL (the byte model is copied unchanged;
@@ -52,8 +53,8 @@ def _jax_schema_session(**conf):
 
 
 def _torch_schema_session(**conf):
-    s = TorchSession(conf={"engine.plan_budget": "off", **conf},
-                     device="cpu")
+    s = TorchSession(conf={"engine.plan_budget": "off", "engine.fuse": "off",
+                           **conf}, device="cpu")
     for name, schema in torch_schemas(True).items():
         s.catalog.entries[name] = TorchEntry(schema=schema)
     return s
@@ -82,10 +83,14 @@ def schema_sessions():
     return _jax_schema_session(), _torch_schema_session()
 
 
-@pytest.mark.parametrize("sf", [1.0, 10.0, 100.0])
-@pytest.mark.parametrize("qnum", available_templates())
-def test_template_budget_matches_jax(schema_sessions, qnum, sf):
-    j, t = schema_sessions
+@pytest.fixture(scope="module")
+def fused_schema_sessions():
+    return (_jax_schema_session(**{"engine.fuse": "on"}),
+            _torch_schema_session(**{"engine.fuse": "on"}))
+
+
+def _same_template_budget(sessions, qnum, sf):
+    j, t = sessions
     jplans = _plans(j, jax_parse, qnum, sf)
     tplans = _plans(t, torch_parse, qnum, sf)
     assert len(jplans) == len(tplans)
@@ -93,6 +98,23 @@ def test_template_budget_matches_jax(schema_sessions, qnum, sf):
         jb = JB.analyze_plan(jp, j.catalog, scale_factor=sf, **LINES)
         tb = TB.analyze_plan(tp, t.catalog, scale_factor=sf, **LINES)
         _same_budget(jb, tb, f"query{qnum}[{i}] at SF{sf:g}")
+    return tplans
+
+
+@pytest.mark.parametrize("sf", [1.0, 10.0, 100.0])
+@pytest.mark.parametrize("qnum", available_templates())
+def test_template_budget_matches_jax(schema_sessions, qnum, sf):
+    _same_template_budget(schema_sessions, qnum, sf)
+
+
+@pytest.mark.parametrize("sf", [1.0, 10.0, 100.0])
+@pytest.mark.parametrize("qnum", available_templates())
+def test_template_budget_matches_jax_fused(fused_schema_sessions, qnum, sf):
+    """The JAX package's defaults: every template plans Pipelines (PERF.md:
+    all 99 have one), and the verdicts and modeled peaks stay exact."""
+    tplans = _same_template_budget(fused_schema_sessions, qnum, sf)
+    assert any(isinstance(n, TP.Pipeline)
+               for p in tplans for n in TP.walk_plan(p))
 
 
 # ---------------------------------------------------------------------------

@@ -422,3 +422,23 @@ def test_views_match_jax(tmp_path):
                        s.catalog.entries["v2"].arrow)
     assert out["port"][:3] == out["jax"][:3] == ([{"c": 2}], False, True)
     assert out["port"][3].equals(out["jax"][3])
+
+
+def test_commit_empties_the_plan_cache(tmp_path):
+    """A DML commit clears the session's plan / result and join-order
+    caches (Catalog.invalidate -> Session._catalog_changed, as in the JAX
+    package), so the next statement answers from the new head."""
+    p = PKGS["port"]
+    s, path = _lake(p, str(tmp_path), "t", _ints(1, 2, 3))
+    q = "select a, count(*) c from t group by a order by a"
+    assert s.sql(q).to_pylist() == [{"a": v, "c": 1} for v in (1, 2, 3)]
+    assert s.plan_cache.map
+    s.join_order_cache["x"] = {"steps": []}
+    s.sql("insert into t (select a * 10 a from t)")
+    assert not s.plan_cache.map and not s.plan_cache.scalars
+    assert s.join_order_cache == {}
+    assert [r["a"] for r in s.sql(q).to_pylist()] == [1, 2, 3, 10, 20, 30]
+    assert s.plan_cache.map
+    s.sql("delete from t where a > 5")
+    assert not s.plan_cache.map
+    assert [r["a"] for r in s.sql(q).to_pylist()] == [1, 2, 3]

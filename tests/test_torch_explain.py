@@ -3,10 +3,8 @@ package's (nds_tpu.cli.explain): the plan text, and with `--budget` the
 per-node estimate table and the verdict line, schema-only at SF100.
 
 The port runs with `--device cpu`, whose budget lines are the reference's
-(4 GiB working set, 14 GiB reject). The reference explains the plans its
-Session makes, fused by default; the port does not fuse (ROADMAP.md queue
-1 item 11), so the reference's explain session runs here with
-`engine.fuse=off`, as the budgeter parity tests run it.
+(4 GiB working set, 14 GiB reject). Both explain the plans their Sessions
+make, fused by default (Pipeline nodes with their `+A` aggregate tails).
 
 Tolerance: exact (the text, line for line, and the exit code).
 """
@@ -36,11 +34,11 @@ def _clean(monkeypatch):
     monkeypatch.setenv("NDS_FLIGHT_RECORDER", "off")
     orig = JX._build_session
 
-    def unfused(args):
+    def uncached(args):
         s = orig(args)
-        s.conf.update({"engine.fuse": "off", "engine.plan_cache": "off"})
+        s.conf.update({"engine.plan_cache": "off"})
         return s
-    monkeypatch.setattr(JX, "_build_session", unfused)
+    monkeypatch.setattr(JX, "_build_session", uncached)
 
 
 def _both(argv, capsys):

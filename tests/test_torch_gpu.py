@@ -968,3 +968,69 @@ def test_bench_cli_on_card(cuda, tmp_path):
         for s in summaries:
             assert s["queryStatus"] == ["Completed"], (folder, s["query"])
             assert s["env"]["engineConf"]["torch.device"].startswith("cuda")
+
+
+# ---------------------------------------------------------------------------
+# Fused pipelines, top-k and the persistent cache (engine/fuse.py,
+# engine/aotcache.py) on the card against the same port session on the CPU
+# ---------------------------------------------------------------------------
+
+FUSE_SQL = {
+    "order": None, "minmax": None, "q3": None,
+    "topk": ("select ss_item_sk, ss_quantity from store_sales where "
+             "ss_quantity > 50 order by ss_quantity desc, ss_item_sk "
+             "limit 10"),
+}
+
+
+def _fuse_sql(q):
+    return FUSE_SQL[q] or _join_cases().CS.QUERIES[q]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", sorted(FUSE_SQL))
+def test_fused_paths_on_card_match_cpu(cuda, q, tmp_path):
+    """With the kernel routes off (so aggregates fuse): the same fused
+    paths (chains, aggregate tails, top-k), pins and answers on both
+    devices."""
+    from nds_tpu_torch.engine import exec as TX
+    from nds_tpu_torch.engine import fuse as TF
+    from nds_tpu_torch.engine import plan as TP
+
+    C = _join_cases()
+    star = C.CS.make_star(0, 1e-4)
+    tables = {n: C.arrow_table(c) for n, c in star.items()}
+    out, kinds, pins = [], [], []
+    for dev in (cuda, "cpu"):
+        s = _port_sessions(dev, tables, "off", {
+            "engine.aot_cache_dir": str(tmp_path / str(dev))})
+        events, restore = C.CS.fuse_spy(TF, TX, TP)
+        try:
+            out.append(s.sql(_fuse_sql(q)).collect())
+        finally:
+            restore()
+        kinds.append(sorted(e["kind"] for e in events))
+        pins.append(s.exec_cache.pins)
+    assert kinds[0] == kinds[1] and pins[0] == pins[1]
+    assert any(k in ("chain", "agg", "topk") for k in kinds[0])
+    C.assert_same(out[0], out[1], q, ordered=q in ("order", "topk"))
+
+
+@pytest.mark.gpu
+def test_persistent_cache_round_trip_on_card(cuda, tmp_path):
+    """A second CUDA session loads every entry the first built (no
+    builds) and answers the same (floats within the epsilon: the card's
+    float sums add in no fixed order)."""
+    C = _join_cases()
+    star = C.CS.make_star(0, 1e-4)
+    tables = {n: C.arrow_table(c) for n, c in star.items()}
+    conf = {"engine.aot_cache_dir": str(tmp_path / "aot")}
+    res = []
+    for _ in range(2):
+        s = _port_sessions(cuda, tables, "off", conf)
+        res.append([s.sql(_fuse_sql(q)).collect() for q in sorted(FUSE_SQL)])
+        res[-1].append((s.exec_cache.builds, s.exec_cache.loads))
+    (b0, l0), (b1, l1) = res[0][-1], res[1][-1]
+    assert b0 > 0 and l0 == 0 and b1 == 0 and l1 == b0
+    for q, a, b in zip(sorted(FUSE_SQL), res[0][:-1], res[1][:-1]):
+        C.assert_same(a, b, q, ordered=q in ("order", "topk"))

@@ -346,7 +346,9 @@ def test_auto_mode_measures_and_matches(tables, sessions):
 
 def test_q3_routes_through_every_kernel_wrapper(sessions, monkeypatch):
     """With the kernels on, the slice reaches each wrapper (here on CPU
-    tensors, so their plain versions); with them off, none."""
+    tensors, so their plain versions); with them off, none. The plan cache
+    is off: an earlier test's run of the same statements would otherwise
+    answer their aggregates."""
     from nds_tpu_torch.ops import gpu_kernels as GK
 
     calls = []
@@ -361,6 +363,7 @@ def test_q3_routes_through_every_kernel_wrapper(sessions, monkeypatch):
             "segment_sums", "segment_extreme", "dense_build", "sort_perm"})):
         calls.clear()
         t = sessions[mode][1]
+        monkeypatch.setitem(t.conf, "engine.plan_cache", "off")
         for q in ("star_agg_q3", "minmax_by_store", "order_one_word"):
             t.sql(QUERIES[q]).collect()
         assert set(calls) == expect, mode
@@ -504,9 +507,9 @@ def test_unported_conf_knobs_raise(key, env, on, off, item, monkeypatch):
 
 def test_ported_conf_knobs_are_accepted():
     """Forced spill, fault injection, plan verification, and feedback
-    accepted with nothing recorded; fusion, the plan cache and the AOT
-    cache keys change no answer and are accepted (the port runs
-    unfused)."""
+    accepted with nothing recorded; the fusion, donation, plan cache,
+    join-order cache and AOT cache keys are accepted and honoured
+    (engine/fuse.py, engine/aotcache.py)."""
     from nds_tpu_torch import faults
 
     try:
@@ -516,6 +519,10 @@ def test_ported_conf_knobs_are_accepted():
                      {"engine.fault_spec": "io:nowhere:1"},
                      {"engine.verify_plans": "all"},
                      {"engine.fuse": "on"}, {"engine.plan_cache": "on"},
+                     {"engine.fuse": "off"}, {"engine.fuse_agg": "off"},
+                     {"engine.fuse_donate": "on"},
+                     {"engine.join_order_cache": "off"},
+                     {"engine.plan_cache_bytes": 1 << 20},
                      {"engine.aot_cache_dir": ""}):
             assert TorchSession(conf=conf, device="cpu").conf == conf
     finally:
@@ -606,6 +613,9 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "tools/torch_maintenance_phase.py",
             "nds_tpu_torch/full_bench.py",
             "nds_tpu_torch/cli/bench.py",
+            "nds_tpu_torch/engine/fuse.py",
+            "nds_tpu_torch/engine/aotcache.py",
+            "nds_tpu_torch/cli/cache.py",
             "tools/torch_bench_phase.py"} <= rel
     for path in files:
         for mod, level in _imports(path):

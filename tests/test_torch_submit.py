@@ -35,7 +35,7 @@ TEMPLATES = {
 
 #: the verbs the port has not ported -> the ROADMAP.md item that ports them
 UNPORTED_VERBS = {"profile": 12, "lint": 15, "serve": 12, "catalog": 12,
-                  "route": 12, "cache": 11}
+                  "route": 12}
 
 PROBE = "import json, sys\nprint(json.dumps(sys.argv[1:]))\n"
 
@@ -125,4 +125,5 @@ def test_no_template_or_verb_names_the_jax_package():
                          if not line.lstrip().startswith("#"))
         assert not re.search(r"\bnds_tpu\.", code), code
     modules = re.findall(r"python -m (\S+)", texts[0])
-    assert modules == ["nds_tpu_torch.cli.explain", '"$MODULE"'], modules
+    assert modules == ["nds_tpu_torch.cli.explain", "nds_tpu_torch.cli.cache",
+                       '"$MODULE"'], modules

@@ -193,7 +193,69 @@ def _setop_names(P, E):
     return u, ()
 
 
+def _qty_filter(P, E):
+    return P.Filter(E.BinOp(">", _col(E, "ss.ss_quantity"), E.Lit(1)), None)
+
+
+def _pipeline_no_stages(P, E):
+    return P.Pipeline([], _scan(P)), ()
+
+
+def _pipeline_over_pipeline(P, E):
+    inner = P.Pipeline([_qty_filter(P, E)], _scan(P))
+    return P.Pipeline([_qty_filter(P, E)], inner), ()
+
+
+def _pipeline_attached_stage(P, E):
+    stage = P.Filter(E.BinOp(">", _col(E, "ss.ss_quantity"), E.Lit(1)),
+                     _scan(P))
+    return P.Pipeline([stage], _scan(P)), ()
+
+
+def _pipeline_unfusible(P, E):
+    sub = E.ScalarSubquery(P.Aggregate(
+        [], [(E.Agg("max", _col(E, "i.i_item_sk")), "m")],
+        _scan(P, "item", "i", ("i_item_sk", "i_brand_id"))), "m")
+    stage = P.Filter(E.BinOp(">", _col(E, "ss.ss_item_sk"), sub), None)
+    return P.Pipeline([stage], _scan(P)), ()
+
+
+def _pipeline_donate_scan(P, E):
+    return P.Pipeline([_qty_filter(P, E)], _scan(P), donate_ok=True), ()
+
+
+def _pipeline_donate_shared(P, E):
+    mj = P.MultiJoin(
+        [_scan(P), _scan(P, "item", "i", ("i_item_sk", "i_brand_id"))],
+        [(0, 1, _col(E, "ss.ss_item_sk"), _col(E, "i.i_item_sk"))])
+    a = P.Pipeline([_qty_filter(P, E)], mj, donate_ok=True)
+    b = P.Pipeline([_qty_filter(P, E)], mj)
+    return P.SetOp("union_all", a, b), ()
+
+
+def _pipeline_agg_distinct(P, E):
+    agg = P.Aggregate([(_col(E, "ss.ss_item_sk"), "k")],
+                      [(E.Agg("count", _col(E, "ss.ss_quantity"), True),
+                        "c")], None)
+    return P.Pipeline([_qty_filter(P, E)], _scan(P), agg=agg), ()
+
+
+def _pipeline_agg_attached(P, E):
+    agg = P.Aggregate([(_col(E, "ss.ss_item_sk"), "k")],
+                      [(E.Agg("sum", _col(E, "ss.ss_quantity")), "s")],
+                      _scan(P))
+    return P.Pipeline([], _scan(P), agg=agg), ()
+
+
 RULES = {
+    "pipeline-no-stages": (_pipeline_no_stages, "pipeline"),
+    "pipeline-not-maximal": (_pipeline_over_pipeline, "pipeline"),
+    "pipeline-attached-stage": (_pipeline_attached_stage, "pipeline"),
+    "pipeline-unfusible": (_pipeline_unfusible, "pipeline"),
+    "pipeline-donate-scan": (_pipeline_donate_scan, "donate"),
+    "pipeline-donate-shared": (_pipeline_donate_shared, "donate"),
+    "pipeline-agg-distinct": (_pipeline_agg_distinct, "pipeline-agg"),
+    "pipeline-agg-attached": (_pipeline_agg_attached, "pipeline-agg"),
     "annotation-topk": (_topk_on_filter, "physical-annotation"),
     "annotation-donate": (_donate_on_project, "physical-annotation"),
     "annotation-window-rows": (_window_rows_on_plain_agg,
@@ -284,11 +346,14 @@ def test_mesh_raises_naming_item_13():
                        mesh=object())
 
 
-def test_pipeline_raises_naming_item_11():
-    plan = TPL.Pipeline([TPL.Filter(TE.BinOp(">", _col(TE, "ss.ss_quantity"),
-                                             TE.Lit(1)))], _scan(TPL))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TV.verify_plan(plan, _Catalog(torch_schemas))
+def test_clean_pipelines_verify_in_both():
+    """A fused chain and a fused aggregate tail over it pass both."""
+    for P, E, V, schemas in (JAX, TORCH):
+        agg = P.Aggregate([(_col(E, "ss.ss_item_sk"), "k")],
+                          [(E.Agg("sum", _col(E, "ss.ss_quantity")), "s")],
+                          None)
+        plan = P.Pipeline([_qty_filter(P, E)], _scan(P), agg=agg)
+        V.verify_plan(plan, _Catalog(schemas))
 
 
 def test_count_plan_refs_matches_jax():
@@ -350,12 +415,30 @@ def test_template_verifies_at_all_in_both(qnum, monkeypatch):
         jplans = [j.run_stmt(s).plan for s in jax_parse(text)]
         tplans = [t.run_stmt(s).plan for s in torch_parse(text)]
         assert len(jplans) == len(tplans) > 0
-    # the port's stages are the reference's, less mark_pipelines (the port
-    # does not fuse)
-    assert stages["torch"] == [s for s in stages["jax"]
-                               if s != "mark_pipelines"]
+    # the port's stages are the reference's, the fusion pass included
+    assert stages["torch"] == stages["jax"]
     assert set(stages["torch"]) == {"bind", "prune_columns",
-                                    "mark_blocked_union_aggs", "plan_budget"}
+                                    "mark_blocked_union_aggs",
+                                    "mark_pipelines", "plan_budget"}
+
+
+@pytest.mark.parametrize("qnum", available_templates())
+def test_template_verifies_at_all_unfused(qnum):
+    """`engine.fuse=off` in both: the same plans less the fusion pass."""
+    from nds_tpu.engine.sql.parser import parse_script as jax_parse
+    from nds_tpu_torch.engine.sql.parser import parse_script as torch_parse
+
+    for sf, conf in SCALES:
+        conf = {**conf, "engine.verify_plans": "all", "engine.fuse": "off"}
+        text = instantiate(qnum, np.random.default_rng(
+            np.random.SeedSequence([0, 0])), sf)
+        j, t = _jax_session(**conf), _torch_session(**conf)
+        jplans = [j.run_stmt(s).plan for s in jax_parse(text)]
+        tplans = [t.run_stmt(s).plan for s in torch_parse(text)]
+        assert [JPL.explain(p) for p in jplans] == [
+            TPL.explain(p) for p in tplans]
+        assert not any(isinstance(n, TPL.Pipeline)
+                       for p in tplans for n in TPL.walk_plan(p))
 
 
 def _corrupting(mod):

@@ -24,11 +24,18 @@ import chip_smoke as CS  # noqa: E402,F401
 EPS = 1e-5  # nds_tpu/validate.py compare's relative epsilon
 
 
-@pytest.fixture(autouse=True)
-def strict_budget(monkeypatch):
+@pytest.fixture(autouse=True, scope="module")
+def strict_budget():
     """A plan-budgeter fault fails the statement instead of being recorded
-    as `verdict="error"` (import this fixture into a test module)."""
-    monkeypatch.setenv("NDS_PLAN_BUDGET_STRICT", "1")
+    as `verdict="error"`, and no session of either package without its own
+    `engine.aot_cache_dir` reads or writes a persistent cache in the
+    user's home (import this fixture into a test module; the cache's own
+    tests give each session a private directory). Module-scoped, so that
+    it holds for the module's fixtures too."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NDS_PLAN_BUDGET_STRICT", "1")
+        mp.setenv("NDS_AOT_CACHE_DIR", "0")
+        yield
 #: a key domain past the dense join's reach (domain > 2^14 and > 8 x rows):
 #: single-key joins on f_key take the packed or the hash path
 KEY_SPAN = 9_000_000
