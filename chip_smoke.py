@@ -32,6 +32,19 @@ Phases, each printing one JSON line:
            ORDER BY (counting sort). Launch counts are zeroed just before the
            three cold runs and read just after; results must equal the same
            session with the kernels off, and q3 must equal a numpy reference
+  obs      the observability layer (nds_tpu_torch/obs/) over q3: a
+           session with a trace directory, metrics_port=0, trace_kernels
+           on and engine.pallas_agg / pallas_join `auto` runs q3 once; its
+           trace must hold a kernel_span per call of a traced
+           ops/kernels.py entry point outside a fused chain (`n` the call's
+           leading length) and the A/B's segment_sum / dense_build `:jnp`
+           and `:pallas` pairs. Then OBS_RUNS steady runs each, alternated
+           in one call, of q3 untraced (the flight recorder off), traced,
+           and traced with kernel spans, each a BenchReport: equal answers
+           exactly; /metrics and /statusz scraped over HTTP, every event
+           family's counter equal to its kind's count in the trace. One
+           `obs` line: medians, the tracer's and the kernel spans' cost
+           against untraced (ms and %), the trace's event and span counts
   profile  torch.profiler over one steady run of each query: device time by
            kernel and the device's busy share of the wall time
   kernels  each kernel's wrapper on the inputs the main path gave it, held
@@ -126,7 +139,12 @@ Phases, each printing one JSON line:
            must show a torch OutOfMemoryError first, only device_oom rungs
            in the reference's order, q97 recovered (its check) or Failed as
            device_oom, q3 completed with its check, and allocated memory
-           back to the ballast plus the catalog within 1 GiB. Then the
+           back to the ballast plus the catalog within 1 GiB. The stream
+           runs with the flight recorder on: q97's failure bundle (the
+           harness's on a terminal failure, else taken on demand as
+           /debug/flight?write=1 takes it) must pass `profile --check`,
+           name device_oom in its ring's ladder rungs and hold q97's plan
+           (the line's `flight`). Then the
            injected drills (`power_drill`, POWER_DRILLS): oom, io on
            store_sales, io on a spill write, and a hang under a 2 s
            watchdog, each against the summaries the reference's tests
@@ -151,8 +169,15 @@ Phases, each printing one JSON line:
            the same steps, the stream on the card with the kernels on and
            on the CPU (a process of its own, beside leg A's card runs
            and the throughput phase), validated with the floats
-           carve-out. Both SFs are cut from the SF10 / SF1 the phase was
-           made for, and each leg runs the first STREAM_TEMPLATES templates
+           carve-out. Leg A's kernels-on run is traced (a trace directory
+           and the flight recorder on in its property file): cli/profile.py
+           over its trace with --json, --critical-path --json and --check
+           must exit 0, every completed statement have its query_span and
+           an op_span, every summary a memoryHighWater within the card's
+           memory (`obs_stream`: the critical path's attributed share per
+           statement, printed, not gated). Both SFs are cut from the SF10
+           / SF1 the phase was made for, and each leg runs the first
+           STREAM_TEMPLATES templates
            of its stream 0 and its STREAM_GATE_TEMPLATES (`reduced` says
            so). Every
            statement must be Completed or CompletedWithTaskFailures but
@@ -264,7 +289,13 @@ Phases, each printing one JSON line:
            as the script re-derives them from the phases' own reports and
            the composite metric of TPC-DS Spec 7.6.3 over them; every
            statement and refresh function Completed, each on the card
-           (the summaries' torch.device and device name). One
+           (the summaries' torch.device and device name). The power_test
+           property file names a trace directory: the crashed
+           orchestrator's events must have begun the three host phases and
+           power_test and give the failure kind its log's InjectedCrash
+           classifies to, and --resume's must end every phase ok or
+           skipped; metrics.csv then carries the plan-feedback headline at
+           its default (None). One
            `bench_phase` line per orchestrator phase (seconds, attempts)
            and a `bench` line (the times, perf_metric, the card's peak
            memory in use while step 2 ran, `reduced`). No kernel gate:
@@ -295,6 +326,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import contextlib
 import functools
 import gc
@@ -3618,8 +3650,12 @@ def oom_drill(torch, TP, faults, dev, root, wh, on, checks, per_query):
     avail = (free + torch.cuda.memory_reserved(dev)
              - torch.cuda.memory_allocated(dev))
     ballast = torch.empty(avail - target, dtype=torch.uint8, device=dev)
-    session, s, seconds = oom_stream(torch, TP, dev, root, wh, on, "oom",
-                                     per_query, POWER_OOM_QUERIES)
+    # the flight recorder on, its bundles in a directory of the drill's
+    flight_dir = os.path.join(root, "oom_flight")
+    session, s, seconds = oom_stream(
+        torch, TP, dev, root, wh, {**on, "engine.flight_recorder": "on",
+                                   "engine.flight_dir": flight_dir},
+        "oom", per_query, POWER_OOM_QUERIES)
     first, second = s["query97"], s["query3"]
     if not first["exceptions"] or not first["exceptions"][0].startswith(
             "OutOfMemoryError: CUDA out of memory"):
@@ -3655,6 +3691,17 @@ def oom_drill(torch, TP, faults, dev, root, wh, on, checks, per_query):
     if second["queryStatus"][0] not in ("Completed",
                                         "CompletedWithTaskFailures"):
         fail(f"oom drill: {q_next} after the OOM gave {brief(second)}")
+    if first["queryStatus"] != ["Failed"]:
+        # recovered: the harness flushes a bundle on a terminal failure
+        # only, so the black box is taken on demand, as /debug/flight's
+        # ?write=1 takes it from a live process
+        from nds_tpu_torch.obs import flight as FL
+
+        FL.recorder(session.conf).flush(
+            "on_demand", query=POWER_OOM_TAGS[0], ladder=first.get("ladder"),
+            conf=session.conf, out_dir=flight_dir)
+    rec["flight"] = flight_bundle_check(flight_dir, POWER_OOM_TAGS[0],
+                                        faults.DEVICE_OOM)
     rec["next_query"] = q_next
     rec["next_status"] = second["queryStatus"][0]
     rec["next_rungs"] = [r["rung"] for r in second.get("ladder", [])]
@@ -4209,7 +4256,12 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
             keep_raw=lake is not None)
         names_a = cut("A", stream_a, names_a)
         runs = {}
-        for run, conf in (("A_on", on), ("A_off", off)):
+        # the kernels-on run traced: its event files and the flight
+        # recorder's bundles under trace_a (obs_stream reads them)
+        trace_a = os.path.join(ra, "trace_A_on")
+        traced = {**on, "engine.trace_dir": trace_a,
+                  "engine.flight_recorder": "on"}
+        for run, conf in (("A_on", traced), ("A_off", off)):
             runs[run] = stream_card_run(torch, GK, TP, dev, run, ra, wh_a,
                                         stream_a, names_a, conf, False)
             stream_queries(run, runs[run][0], runs[run][2])
@@ -4227,6 +4279,8 @@ def stream_phase(torch, GK, dev, on, off, scale, then=None, lake=None,
                                "A_off" if run == "A_on" else "A_on", v_s,
                                reduced)
             a_on = a_on or line
+        obs_stream(trace_a, runs["A_on"][0], names_a,
+                   torch.cuda.get_device_properties(dev).total_memory)
         if then is not None:
             # beside the rest of leg B's CPU run, which is the longer
             gc.collect()
@@ -5786,8 +5840,10 @@ def bench_config(root, sf, streams, on, templates=None, under_load=None,
                                   "stream_output_path": j("streams"),
                                   "skip": False},
         "power_test": {"report_path": j("power.csv"),
-                       "property_path": property_file(j("bench.properties"),
-                                                      on),
+                       # the orchestrator's tracer reads its trace dir here
+                       "property_path": property_file(
+                           j("bench.properties"),
+                           {**on, "engine.trace_dir": j("trace")}),
                        "output_path": None, "sub_queries": sub,
                        "json_summary_folder": j("json", "power"),
                        "skip": False},
@@ -5843,6 +5899,20 @@ def bench_state(params):
                         "bench_state.json")
     with open(path) as f:
         return json.load(f)["phases"]
+
+
+def bench_orchestrator_events(trace):
+    """[(event file, its events)] of the orchestrator runs that wrote to
+    `trace`: the files whose events hold `phase` events (the phases'
+    processes write files of their own there too)."""
+    from nds_tpu_torch.obs import reader as TR
+
+    out = []
+    for f in TR.discover_event_files(trace):
+        events = TR.read_events([f], strict=False)
+        if any(e["kind"] == "phase" for e in events):
+            out.append((f, events))
+    return out
 
 
 def bench_phase_lines(step, phases, t0_ms, log):
@@ -5954,8 +6024,10 @@ def bench_phase(st, device, reduced, sample=True, beside=None):
     and refresh function Completed on `device`. Emits the `bench_phase`
     lines and the `bench` line (`beside`: what ran beside step 2, which
     the card's memory in use includes); returns the latter."""
+    from nds_tpu_torch import faults as TF
     from nds_tpu_torch import power as TP
     from nds_tpu_torch.maintenance import DM_FUNCS
+    from nds_tpu_torch.obs import reader as TR
 
     params, root = st["params"], st["root"]
     rc = st["proc"].wait()
@@ -5969,6 +6041,22 @@ def bench_phase(st, device, reduced, sample=True, beside=None):
     if os.path.exists(params["metrics_report_path"]):
         fail("bench: the crashed run wrote metrics.csv")
     seconds = bench_phase_lines("crash", phases, st["t0_ms"], crash_log)
+    trace = os.path.join(root, "trace")
+    crashed = bench_orchestrator_events(trace)
+    if len(crashed) != 1:
+        fail(f"bench: {len(crashed)} orchestrator event files after the "
+             f"crash")
+    crash_file, crash_events = crashed[0]
+    crash_kind = TR.failure_kind_from_files([crash_file])
+    crash_line = next((ln for ln in crash_log.splitlines()
+                       if "InjectedCrash" in ln), "")
+    if crash_kind != TF.classify(crash_line.strip()):
+        fail(f"bench: the crash's events say {crash_kind}, its log "
+             f"{TF.classify(crash_line.strip())} ({crash_line!r})")
+    begun = [e["phase"] for e in crash_events
+             if e["kind"] == "phase" and e["event"] == "begin"]
+    if begun != list(BENCH_HOST_PHASES) + ["power_test"]:
+        fail(f"bench: the crashed orchestrator began {begun}")
     # step 2, with no fault spec
     log = os.path.join(root, "bench_resume.log")
     t0_ms = time.time() * 1000
@@ -5986,6 +6074,15 @@ def bench_phase(st, device, reduced, sample=True, beside=None):
         text = f.read()
     if rc != 0:
         fail(f"bench: --resume exited {rc}:\n{text[-3000:]}")
+    resumed = [(f, e) for f, e in bench_orchestrator_events(trace)
+               if f != crash_file]
+    if len(resumed) != 1:
+        fail(f"bench: {len(resumed)} orchestrator event files of --resume")
+    ends = {e["phase"]: e["status"] for e in resumed[0][1]
+            if e["kind"] == "phase" and e["event"] == "end"}
+    if sorted(ends) != sorted(BENCH_PHASES) or set(ends.values()) - {
+            "ok", "skipped"}:
+        fail(f"bench: --resume's phase events {ends}")
     skipped = re.findall(r"phase (\w+): skipped \(checkpoint\)", text)
     if sorted(skipped) != sorted(BENCH_HOST_PHASES):
         fail(f"bench: --resume skipped {skipped} from the checkpoint")
@@ -6008,7 +6105,11 @@ def bench_phase(st, device, reduced, sample=True, beside=None):
     with open(params["metrics_report_path"]) as f:
         got = dict(line.split(",", 1) for line in f.read().splitlines())
     derived = bench_rederive(params, st["streams"])
-    if list(got) != ["scale_factor", "num_streams", *derived]:
+    # the trace directory adds the plan-feedback headline, at its default
+    # until cardinality feedback (ROADMAP.md queue 1 item 14)
+    feedback = ["feedback_hit_rate", "budget_err_median"]
+    if list(got) != ["scale_factor", "num_streams", *derived, *feedback] \
+            or {got[k] for k in feedback} != {"None"}:
         fail(f"bench: metrics.csv {got}")
     for k, v in derived.items():
         if (int if k == "perf_metric" else float)(got[k]) != v:
@@ -6054,6 +6155,10 @@ def bench_phase(st, device, reduced, sample=True, beside=None):
            "metrics_csv": got, "phase_seconds": seconds,
            "resume_seconds": resume_s, "peak_used_mib": peak,
            "beside": beside,
+           "crash_failure_kind": crash_kind,
+           "crash_events": len(crash_events),
+           "resume_phase_events": ends,
+           "trace_files": len(TR.discover_event_files(trace)),
            "summaries": counts, "ran_on": list(device),
            "under_load": under_load, "reduced": reduced}
     emit(rec)
@@ -6172,6 +6277,366 @@ def profile_query(torch, run_once, q, top=10, match=None):
 
 
 # ---------------------------------------------------------------------------
+# obs: the observability layer (nds_tpu_torch/obs/, cli/profile.py), on
+# the card inside runs the script already makes
+# ---------------------------------------------------------------------------
+
+#: steady q3 runs of each session in the obs step's alternated rounds
+OBS_RUNS = 3
+#: the entry points of ops/kernels.py that emit `kernel_span` events
+KTRACED = ("compact_indices", "sort_by_words", "group_by_words",
+           "build_sort_words", "segment_reduce", "segment_reduce_with_count",
+           "batched_min_max", "join_candidates", "member_lookup",
+           "verify_pairs", "dense_build", "dense_probe", "direct_gid",
+           "occupancy_map")
+#: the `auto` A/B's measurements q3 must leave in its trace, under the
+#: reference's names (`:pallas` is the hand-written CUDA kernel, `:jnp`
+#: the plain torch route)
+OBS_AB_SPANS = ("segment_sum:jnp", "segment_sum:pallas", "dense_build:jnp",
+                "dense_build:pallas")
+
+
+def _lead_len(args):
+    """The leading input's length: the first argument, or the first
+    element of a list or tuple argument, that has a shape."""
+    for a in args:
+        if isinstance(a, (list, tuple)) and a:
+            a = a[0]
+        shape = getattr(a, "shape", None)
+        if shape:
+            return int(shape[0])
+    return 0
+
+
+def lead_recorder(K, calls):
+    """Wrap each KTRACED entry point at ops/kernels.py's module attribute
+    (the executor's calls and the module's own calls both look it up
+    there) to append (name, leading length) for every call made outside a
+    fused chain. Returns the function that restores them."""
+    originals = {n: getattr(K, n) for n in KTRACED}
+
+    def wrap(name, fn):
+        def wrapped(*a, **kw):
+            if not K._in_fused_chain():
+                calls.append((name, _lead_len(a)))
+            return fn(*a, **kw)
+        return wrapped
+
+    for n, fn in originals.items():
+        setattr(K, n, wrap(n, fn))
+
+    def restore():
+        for n, fn in originals.items():
+            setattr(K, n, fn)
+    return restore
+
+
+def scrape(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        return resp.read().decode("utf-8")
+
+
+def metric_totals(text):
+    """{metric family: the sum of its series} of a Prometheus text
+    exposition."""
+    out = collections.Counter()
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        out[name.split("{", 1)[0]] += float(value)
+    return out
+
+
+def obs_q3(torch, Session, tables, dev, on, refused):
+    """The observability layer on the main path's SF100 q3. One session
+    with engine.trace_dir, engine.metrics_port=0, engine.trace_kernels=on
+    and engine.pallas_agg / pallas_join `auto` (no persistent cache, so
+    the A/B is measured) runs q3 once: its trace must hold a kernel_span
+    for every call of a KTRACED entry point outside a fused chain, with
+    `n` the call's leading length, and OBS_AB_SPANS. Then, in one call,
+    OBS_RUNS steady runs each (after one warm-up each) of four sessions
+    of the main path's conf, alternated: untraced (the flight recorder
+    off: no tracer), the default (the flight recorder's ring only),
+    traced (trace dir and metrics port) and traced with kernel spans,
+    each run a BenchReport as the Power Run makes it. Their
+    answers must equal the untraced one's exactly. /metrics and /statusz
+    are scraped over HTTP from the process's endpoint: each event
+    family's counter must equal its kind's count in the trace. Emits the
+    `obs` line (medians, the ring's, the tracer's and the kernel spans'
+    cost against untraced, emit_costs, the trace's event and span counts)
+    and returns it."""
+    from nds_tpu_torch import report as TREP
+    from nds_tpu_torch.obs import metrics as TM
+    from nds_tpu_torch.obs import reader as TR
+    from nds_tpu_torch.obs import trace as TOT
+    from nds_tpu_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="nds_obs_")
+    # the endpoint serves this host only
+    os.environ["NDS_METRICS_HOST"] = "127.0.0.1"
+    trace = os.path.join(root, "trace")
+    obs = {"engine.trace_dir": trace, "engine.metrics_port": "0"}
+    sql = QUERIES["q3"]
+
+    def report_run(s):
+        box = []
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        with TOT.bind(s.tracer), admitted(s, refused):
+            summary = TREP.BenchReport(s).report_on(
+                lambda: box.append(s.sql(sql).collect()), retry_oom=True,
+                name="q3")
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        if summary["queryStatus"] != ["Completed"]:
+            fail(f"obs: q3 ended {brief(summary)}")
+        return ms, box[0]
+
+    try:
+        # -- the A/B session: kernel spans and the :jnp / :pallas pairs --
+        s_ab = Session(conf={**on, **obs, "engine.trace_kernels": "on",
+                             "engine.pallas_agg": "auto",
+                             "engine.pallas_join": "auto",
+                             "engine.aot_cache_dir": ""})
+        for name, t in tables.items():
+            s_ab.register_table(name, t)
+        calls = []
+        restore = lead_recorder(K, calls)
+        try:
+            report_run(s_ab)
+        finally:
+            restore()
+        ab_app = s_ab.tracer.app_id
+        promotions = {"/".join(str(x) for x in k): v
+                      for k, v in s_ab.pallas_promotions.items()}
+        s_ab.tracer.close()
+        del s_ab
+
+        # -- untraced / the default ring / traced / kernel spans ----------
+        sessions = {
+            "untraced": Session(conf={**on, "engine.flight_recorder": "off"}),
+            # the default: no trace dir, the flight recorder's ring only
+            "ring": Session(conf=dict(on)),
+            "traced": Session(conf={**on, **obs}),
+            "kernel_spans": Session(conf={**on, **obs,
+                                          "engine.trace_kernels": "on"}),
+        }
+        if sessions["untraced"].tracer is not None:
+            fail("obs: the untraced session has a tracer")
+        for s in sessions.values():
+            for name, t in tables.items():
+                s.register_table(name, t)
+            report_run(s)  # warm-up: the fused builds of this session
+        times = {k: [] for k in sessions}
+        ref = None
+        for _ in range(OBS_RUNS):
+            for k, s in sessions.items():
+                ms, res = report_run(s)
+                times[k].append(ms)
+                if ref is None:
+                    ref = res
+                elif not res.equals(ref):
+                    fail(f"obs: q3's answer {k} differs from untraced")
+        port = TM.active_server().port
+        metrics_text = scrape(port, "/metrics")
+        statusz = json.loads(scrape(port, "/statusz"))
+        emit_us, sample_us = emit_costs(root)
+        for s in sessions.values():
+            if s.tracer is not None:
+                s.tracer.close()
+        del sessions
+
+        # -- the trace against the recorder and the endpoint --------------
+        events = TR.read_events(trace, strict=True)
+        problems = TR.validate_events(events)
+        if problems:
+            fail(f"obs: the trace breaks the schema: {problems[:3]}")
+        kinds = collections.Counter(e["kind"] for e in events)
+        ab = [e for e in events
+              if e["kind"] == "kernel_span" and e["app"] == ab_app]
+        got = collections.Counter((e["kernel"], e["n"]) for e in ab
+                                  if e["kernel"] in KTRACED)
+        want = collections.Counter(calls)
+        if not want or got != want:
+            fail(f"obs: kernel spans {sorted(got.items())[:8]} against the "
+                 f"calls {sorted(want.items())[:8]}")
+        names = {e["kernel"] for e in ab}
+        missing = [k for k in OBS_AB_SPANS if k not in names]
+        if missing:
+            fail(f"obs: q3's auto A/B left no {missing} span")
+        totals = metric_totals(metrics_text)
+        checked = {}
+        for kind, n in kinds.items():
+            family = f"nds_{kind}_total"
+            if TM.METRIC_KINDS.get(family) != kind:
+                continue
+            checked[family] = totals.get(family, 0.0)
+            if checked[family] != n:
+                fail(f"obs: /metrics {family} {checked[family]} against "
+                     f"{n} {kind} events in the trace")
+        completed = sum(1 for e in events if e["kind"] == "query_span"
+                        and e["status"] == "Completed")
+        if statusz.get("queries_completed") != completed:
+            fail(f"obs: /statusz counts {statusz.get('queries_completed')} "
+                 f"completed queries, the trace {completed}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    base = med["untraced"]
+    return emit({
+        "phase": "obs", "query": "q3", "runs": OBS_RUNS,
+        "untraced_ms": base, "ring_ms": med["ring"],
+        "traced_ms": med["traced"], "kernel_spans_ms": med["kernel_spans"],
+        "ring_cost_ms": med["ring"] - base,
+        "ring_cost_pct": 100.0 * (med["ring"] - base) / base,
+        "tracer_cost_ms": med["traced"] - base,
+        "tracer_cost_pct": 100.0 * (med["traced"] - base) / base,
+        "kernel_span_cost_ms": med["kernel_spans"] - base,
+        "kernel_span_cost_pct": 100.0 * (med["kernel_spans"] - base) / base,
+        "times_ms": times, "events": len(events), "span_counts": dict(kinds),
+        "ab_spans": sorted(names - set(KTRACED)),
+        "ab_kernel_spans": len(ab), "promotions": promotions,
+        "emit_us": emit_us, "sample_us": sample_us,
+        "metrics_checked": checked,
+        "statusz_queries_completed": statusz.get("queries_completed"),
+        "seconds": time.perf_counter() - t_phase})
+
+
+def emit_costs(root, n=2000):
+    """Host microseconds per `Tracer.emit` of one small event, for each
+    shape a session's tracer takes (a file tracer with no sink, a private
+    metrics sink alone, a private flight ring alone), and per memory
+    sample (`memwatch.device_bytes_per_device`, the allocator's stats):
+    where the tracer's cost on a query comes from."""
+    from nds_tpu_torch.obs import flight as FL
+    from nds_tpu_torch.obs import metrics as TM
+    from nds_tpu_torch.obs import memwatch as MW
+    from nds_tpu_torch.obs import trace as TOT
+
+    shapes = {
+        "file": TOT.Tracer(os.path.join(root, "emit_cost"), ring=False),
+        "sink": TOT.Tracer(None, sink=TM.MetricsSink(), collect=False,
+                           ring=False),
+        "ring": TOT.Tracer(None, collect=False,
+                           ring=FL.FlightRecorder()),
+    }
+    out = {}
+    for name, tr in shapes.items():
+        t = time.perf_counter()
+        for _ in range(n):
+            tr.emit("plan_cache", node="Aggregate", hit=False)
+        out[name] = (time.perf_counter() - t) / n * 1e6
+        tr.close()
+    t = time.perf_counter()
+    for _ in range(n // 10):
+        MW.device_bytes_per_device()
+    return out, (time.perf_counter() - t) / (n // 10) * 1e6
+
+
+def obs_stream(trace, summaries, names, card_bytes):
+    """Leg A's kernels-on stream, traced (engine.trace_dir and
+    engine.flight_recorder=on in its property file): cli/profile.py's
+    `main`, in this process, over its trace directory with --json, with
+    --critical-path --json and with --check must each exit 0; every
+    completed statement must have a `query_span` Completed and at least
+    one `op_span`; every summary a memoryHighWater above 0 and at most the
+    card's memory. Emits the `obs_stream` line with each statement's
+    critical-path attributed share (printed, not gated: op_span wall is
+    host dispatch time on CUDA, ROADMAP.md queue 3) and returns it."""
+    from nds_tpu_torch.cli import profile as TPROF
+    from nds_tpu_torch.obs import reader as TR
+
+    t0 = time.perf_counter()
+
+    def cli(*args):
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                TPROF.main([trace, *args])
+        except SystemExit as exc:
+            if exc.code:
+                fail(f"obs_stream: profile {' '.join(args)} exited "
+                     f"{exc.code}: {buf.getvalue()[-2000:]}")
+        return buf.getvalue()
+
+    prof = json.loads(cli("--json"))
+    crit = json.loads(cli("--critical-path", "--json"))
+    cli("--check")
+    events = TR.read_events(trace, strict=True)
+    spans = collections.Counter(e.get("query") for e in events
+                                if e["kind"] == "op_span")
+    status = {e["query"]: e["status"] for e in events
+              if e["kind"] == "query_span"}
+    completed = [q for q in names if summaries[q]["queryStatus"][0]
+                 in ("Completed", "CompletedWithTaskFailures")]
+    for q in completed:
+        if status.get(q) != summaries[q]["queryStatus"][0]:
+            fail(f"obs_stream: {q}'s query_span {status.get(q)} against "
+                 f"its summary {summaries[q]['queryStatus']}")
+        if not spans[q]:
+            fail(f"obs_stream: {q} has no op_span")
+    hw = {q: s.get("memoryHighWater", {}).get("bytes")
+          for q, s in summaries.items()}
+    bad = {q: b for q, b in hw.items() if not b or b > card_bytes}
+    if bad:
+        fail(f"obs_stream: memoryHighWater outside (0, {card_bytes}]: {bad}")
+    return emit({
+        "phase": "obs_stream", "run": "A_on",
+        "statements": len(names), "completed": len(completed),
+        "events": len(events),
+        "span_counts": dict(collections.Counter(e["kind"] for e in events)),
+        "attributed_share": {q: r.get("attributed_frac")
+                             for q, r in crit["queries"].items()},
+        "profile_queries": sorted(prof["queries"]),
+        "memory_high_water_gib": {q: b / 2**30 for q, b in hw.items()},
+        "memory_source": sorted({s.get("memoryHighWater", {}).get("source")
+                                 for s in summaries.values()}),
+        "seconds": time.perf_counter() - t0})
+
+
+def flight_bundle_check(flight_dir, query, kind):
+    """The failure bundle of `query` in `flight_dir`: `cli/profile.py
+    --check <bundle>` must exit 0, its ring hold a `ladder_rung` of
+    `kind` for the query and its plan section the query's plan note.
+    Returns a summary for the caller's line."""
+    from nds_tpu_torch.cli import profile as TPROF
+    from nds_tpu_torch.obs import flight as FL
+
+    paths = sorted(os.path.join(flight_dir, f) for f in os.listdir(flight_dir)
+                   if FL.is_bundle_path(f)) if os.path.isdir(flight_dir) \
+        else []
+    mine = [p for p in paths if FL.read_bundle(p).get("query") == query]
+    if not mine:
+        fail(f"flight: no failure bundle of {query} in {paths}")
+    path = mine[-1]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            TPROF.main(["--check", path])
+    except SystemExit as exc:
+        if exc.code:
+            fail(f"flight: profile --check {path} exited {exc.code}: "
+                 f"{buf.getvalue()[-2000:]}")
+    bundle = FL.read_bundle(path)
+    rungs = [e for e in bundle["events"] if e["kind"] == "ladder_rung"
+             and e.get("query") == query]
+    if not any(e.get("failure_kind") == kind for e in rungs):
+        fail(f"flight: {query}'s bundle has no {kind} ladder_rung")
+    plan = bundle.get("plan")
+    if not plan or "Scan" not in json.dumps(plan):
+        fail(f"flight: {query}'s bundle holds no plan note: {plan!r:.300}")
+    return {"bundle": os.path.basename(path), "reason": bundle["reason"],
+            "events": len(bundle["events"]),
+            "rungs": [e["rung"] for e in rungs],
+            "failure_kinds": sorted({e.get("failure_kind") for e in rungs})}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -6192,6 +6657,11 @@ def main(argv=None):
     aot_dir = tempfile.mkdtemp(prefix="nds_aot_")
     atexit.register(shutil.rmtree, aot_dir, True)
     os.environ["NDS_AOT_CACHE_DIR"] = aot_dir
+    # the flight recorder's failure bundles of this process and its
+    # children, where no conf names a directory: one of the script's own
+    flight_dir = tempfile.mkdtemp(prefix="nds_flight_")
+    atexit.register(shutil.rmtree, flight_dir, True)
+    os.environ["NDS_FLIGHT_DIR"] = flight_dir
     import torch
 
     if not torch.cuda.is_available():
@@ -6381,6 +6851,11 @@ def main(argv=None):
         emit(rec)
     emit({"phase": "slice", "launches": launches, "peak_gib": peak,
           "steady_runs": STEADY_RUNS, "reduced": STEADY_CUT})
+
+    # -- obs (the observability layer over q3) ----------------------------
+    obs_q3(torch, Session, tables, dev, on_steady, refused["q3"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- profile ---------------------------------------------------------
     for q in QUERIES:

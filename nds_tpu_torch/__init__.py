@@ -12,6 +12,8 @@ counterpart is easy to find:
   ops                 - relational primitives in torch (ops/kernels.py) and
                         the hand-written Hopper kernels (ops/gpu_kernels.py,
                         ops/csrc/*.cu, built by ops/_build.py)
+  obs                 - event tracing, live metrics, the flight recorder and
+                        the post-run profiler's readers (cli/profile.py)
 """
 
 __version__ = "0.1.0"

@@ -41,9 +41,9 @@ NDS_PLAN_BUDGET_BYTES, conf `engine.plan_budget_reject_bytes` / env
 NDS_PLAN_BUDGET_REJECT_BYTES, env NDS_CATALOG_BUDGET_BYTES (the catalog
 residency budget the union windows are sized against), and conf
 `engine.plan_budget_sf` (schema-only sessions: base-table rows from the
-TPC-DS scale model). Not ported: the mesh's per-device model (ROADMAP.md
-queue 1 item 13), cardinality feedback (item 14), and the `plan_budget`
-trace event (item 12).
+TPC-DS scale model). Each budgeted statement emits a `plan_budget` trace
+event (emit_budget_event). Not ported: the mesh's per-device model
+(ROADMAP.md queue 1 item 13) and cardinality feedback (item 14).
 """
 
 from __future__ import annotations
@@ -594,6 +594,25 @@ def _fmt_bytes(b: int) -> str:
 
 
 
+def emit_budget_event(tracer, pb: PlanBudget) -> None:
+    """The one `plan_budget` event payload (the EVENT_SCHEMA contract),
+    shared by the plan-time hook and the explain CLI. No-op without a
+    tracer. `mesh_devices` is None: the single-device model."""
+    if tracer is None:
+        return
+    tracer.emit(
+        "plan_budget",
+        verdict=pb.verdict,
+        peak_bytes=pb.peak_bytes,
+        budget_bytes=pb.budget_bytes,
+        peak_blocked_bytes=pb.peak_blocked_bytes,
+        window_rows=pb.window_rows,
+        spill_partitions=pb.spill_partitions,
+        mesh_devices=None,
+        nodes=len(pb.nodes),
+    )
+
+
 class PlanBudgeter:
     """Walks a bound plan bottom-up, producing NodeEstimates.
 
@@ -1050,6 +1069,7 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
         session.last_plan_budget = {"verdict": "error", "error": str(exc)}
         session.notify_failure(f"plan budgeter failed: {str(exc)[:200]}")
         return None
+    emit_budget_event(getattr(session, "tracer", None), pb)
     # `warn` is observe-only: record, but never annotate or reject
     annotate = (
         mode == "on"

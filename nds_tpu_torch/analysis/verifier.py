@@ -998,13 +998,19 @@ def verify_plan(
     catalog=None,
     stage: str = "final",
     promotions=(),
+    tracer=None,
     mesh=None,
 ) -> None:
-    """Run the PlanVerifier; raise PlanVerifyError (classified `planner` by
-    faults.classify) on any violation. A `mesh` raises NotImplementedError
-    (the sharding family is ROADMAP.md queue 1 item 13)."""
+    """Run the PlanVerifier; emit a `plan_verify` trace event; raise
+    PlanVerifyError (classified `planner` by faults.classify) on any
+    violation. A `mesh` raises NotImplementedError (the sharding family is
+    ROADMAP.md queue 1 item 13)."""
     violations = PlanVerifier(catalog).verify(plan, promotions, mesh=mesh)
-    # the reference emits a `plan_verify` trace event here: tracing is
-    # ROADMAP.md queue 1 item 12, and the port emits none
+    if tracer is not None:
+        ev = {"stage": stage, "ok": not violations}
+        if violations:
+            ev["violations"] = len(violations)
+            ev["first"] = violations[0][:200]
+        tracer.emit("plan_verify", **ev)
     if violations:
         raise PlanVerifyError(stage, violations)

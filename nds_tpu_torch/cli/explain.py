@@ -136,8 +136,7 @@ def main(argv=None) -> int:
                 reject_bytes=B.resolve_reject_bytes(sess.conf, sess.device),
             )
             print(pb.table(limit=args.top))
-            # the reference emits a `plan_budget` trace event here: tracing
-            # is ROADMAP.md queue 1 item 12
+            B.emit_budget_event(sess.tracer, pb)
             if pb.verdict == "reject":
                 rejected += 1
     return 2 if rejected else 0

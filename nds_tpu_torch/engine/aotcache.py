@@ -40,9 +40,10 @@ Production treatment (the spill pool / lakehouse patterns):
     budget, not on every store (other processes' stores count at its
     next scan);
   * crash-orphan sweep at session start (once per process per directory);
-  * hit / miss / store / quarantine counters on the cache object (`stats`;
-    the JAX package's `aot_cache` trace events wait for the port's
-    tracing, ROADMAP.md queue 1 item 12);
+  * hit / miss / store / quarantine counters on the cache object
+    (`stats`), and an `aot_cache` trace event for each load, store,
+    eviction and vacuum (a `load` / `hit` in a fresh process is the trace's
+    evidence that a build came from disk);
   * `aot:write` / `aot:read` fault-injection sites (io/crash kinds):
     injected faults keep their classifiable identity, while REAL
     filesystem errors degrade the cache (stores disabled / entry
@@ -222,9 +223,14 @@ class AotCache:
     Across processes no lock is needed: readers only ever see fully
     renamed entries, and an eviction's unlink reads as a miss."""
 
-    def __init__(self, cache_dir: str, budget_bytes: int, device=None):
+    def __init__(self, cache_dir: str, budget_bytes: int, device=None,
+                 tracer=None):
         self.dir = str(cache_dir)
         self.budget = int(budget_bytes)
+        # callable returning the live tracer (a session's tracer may be
+        # closed and replaced; a captured object would emit into a closed
+        # file)
+        self._tracer = tracer if callable(tracer) else (lambda: tracer)
         self._lock = threading.Lock()
         self._env = environment_key(device)
         # bounded LRU: the tuple's strong dictionary ref keeps the id()
@@ -245,6 +251,13 @@ class AotCache:
     def _count(self, name: str, n: int = 1):
         with self._lock:
             self.stats[name] += n
+
+    def _emit(self, op: str, result: str, **extra):
+        from ..obs import trace as obs_trace
+
+        tracer = obs_trace.current() or self._tracer()
+        if tracer is not None:
+            tracer.emit("aot_cache", op=op, result=result, **extra)
 
     # -- keying ----------------------------------------------------------
     def entry_key(self, kind: str, fp: str, content_sig, avals,
@@ -303,12 +316,14 @@ class AotCache:
         errors are a miss."""
         path = os.path.join(self.dir, _entry_name(key))
         self._count("lookups")
+        t0 = time.perf_counter()
         faults.maybe_fire("aot:read", kinds=("io", "crash"))
         try:
             with open(path, "rb") as f:
                 raw = f.read()
         except OSError:
             self._count("misses")
+            self._emit("load", "miss")
             return None
         body = self._parse_entry(raw, key, path)
         if body is None:
@@ -328,6 +343,11 @@ class AotCache:
         except OSError:
             pass
         self._count("disk_hits")
+        self._emit(
+            "load", "hit", bytes=len(raw),
+            dur_ms=round((time.perf_counter() - t0) * 1000.0, 3),
+            key=_entry_name(key),
+        )
         return payload
 
     def _parse_entry(self, raw: bytes, key: dict, path: str):
@@ -350,6 +370,7 @@ class AotCache:
                 # a filename-hash collision or a foreign entry: a clean
                 # miss and NOT a quarantine (it may be someone else's
                 # perfectly valid entry)
+                self._emit("load", "key_mismatch")
                 return None
             if len(body) != int(header.get("body_bytes", -1)) or (
                 hashlib.sha256(body).hexdigest() != header.get("body_sha256")
@@ -374,6 +395,7 @@ class AotCache:
         except OSError:
             pass
         self._count("quarantined")
+        self._emit("load", "quarantined", error=reason[:160])
 
     def store(self, key: dict, payload: dict) -> bool:
         """Pickle and atomically publish one payload. Injected `aot:write`
@@ -385,6 +407,7 @@ class AotCache:
         if self._store_disabled:
             return False
         faults.maybe_fire("aot:write", kinds=("io", "crash"))
+        t0 = time.perf_counter()
         body = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
         header = canonical_key_bytes({
             "key": json.loads(canonical_key_bytes(key).decode("utf-8")),
@@ -416,9 +439,15 @@ class AotCache:
                 self._store_disabled = True
             if disabled_now:
                 print(f"aot: disabling stores ({exc})")
+            self._emit("store", "io_error", error=str(exc)[:160])
             return False
         self._count("stores")
         size = len(_MAGIC) + 8 + len(header) + len(body)
+        self._emit(
+            "store", "stored", bytes=size,
+            dur_ms=round((time.perf_counter() - t0) * 1000.0, 3),
+            key=_entry_name(key),
+        )
         with self._lock:
             scan = self._usage is None or self._usage + size > self.budget
             if not scan:
@@ -482,6 +511,7 @@ class AotCache:
             self._usage = total
         if evicted:
             self._count("evictions", evicted)
+            self._emit("evict", "evicted", entries=evicted)
 
     def vacuum(self, drop_all: bool = False):
         """Hygiene pass: dead-pid temp orphans and quarantine files go,
@@ -505,6 +535,7 @@ class AotCache:
                     pass
         if not drop_all:
             self._enforce_budget()
+        self._emit("vacuum", "done", removed=removed)
         return removed
 
 

@@ -26,6 +26,7 @@ fallback); none returns a different answer.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import replace as _dc_replace
 from time import perf_counter as _perf
 
@@ -45,11 +46,15 @@ from .columnar import (
     Table,
     bucket_cap,
     sort_dictionary,
+    table_device_bytes,
     torch_dtype,
     unify_dictionaries,
     window_slice,
 )
 from .expr import Evaluator, _cast_column, _common_dtype, _share_dictionary
+
+#: op_span exec ids: one per traced executor (statement) in the process
+_EXEC_IDS = itertools.count(1)
 
 
 class ExecError(Exception):
@@ -226,8 +231,16 @@ class _ExecEvaluator(Evaluator):
 class Executor:
     def __init__(self, catalog, device):
         """catalog: object with .load(table_name, columns) -> Table and a
-        `.session` (conf, promotion memo). device: where constants and
-        column-less tables live."""
+        `.session` (conf, promotion memo, tracer). device: where constants
+        and column-less tables live.
+
+        With the session's tracer every executed plan node records an
+        `op_span` event with inclusive wall time, output rows and
+        estimated output bytes. On a CUDA device the wall time is host
+        dispatch time, not device time: a span ends when its node's
+        launches are queued (and any host sync inside it has waited).
+        Span state (exec id, seq, depth) is per executor, and every
+        statement builds its own."""
         self.catalog = catalog
         self.device = torch.device(device)
         self._cte_cache = {}  # id(plan) -> Table
@@ -244,6 +257,11 @@ class Executor:
         # partitions, pool bytes in / out, evictions
         self.last_spill = None
         self._fault_checked = False
+        self.tracer = tracer = getattr(
+            getattr(catalog, "session", None), "tracer", None)
+        self._span_depth = 0
+        self._span_seq = 0
+        self._exec_id = next(_EXEC_IDS) if tracer is not None else 0
 
     # ------------------------------------------------------------------
     def execute(self, node: P.PlanNode) -> Table:
@@ -266,13 +284,49 @@ class Executor:
             isinstance(node, P.Pipeline) and node.agg is not None
         )
         cache = self._session_cache() if cacheable else None
+        tracer = self.tracer
         if cache is not None:
             with self.catalog.session.cache_lock:
                 hit = cache.get(self._fp(node))
+            if tracer is not None:
+                tracer.emit(
+                    "plan_cache", node=type(node).__name__,
+                    hit=hit is not None,
+                )
             if hit is not None:
                 self._cte_cache[key] = hit
                 return hit
-        out = getattr(self, f"_exec_{type(node).__name__.lower()}")(node)
+        m = getattr(self, f"_exec_{type(node).__name__.lower()}")
+        if tracer is not None:
+            # INCLUSIVE wall time (children execute inside this frame);
+            # repeated visits are cte-cache hits, so each node records once
+            # per executor. Spans emit in completion (post-) order with
+            # (exec_id, seq, depth), from which the profiler rebuilds the
+            # tree and derives exclusive times.
+            depth = self._span_depth
+            self._span_depth = depth + 1
+            t0 = _perf()
+            try:
+                out = m(node)
+            finally:
+                self._span_depth = depth
+            dur_ms = (_perf() - t0) * 1000.0
+            self._span_seq += 1
+            tracer.emit(
+                "op_span",
+                exec_id=self._exec_id,
+                seq=self._span_seq,
+                depth=depth,
+                node=type(node).__name__,
+                explain=P.node_desc(node)[:90],
+                dur_ms=round(dur_ms, 3),
+                # nrows_known only: forcing a queued count would add a
+                # device sync to every traced node
+                rows=out.nrows_known,
+                est_bytes=table_device_bytes(out),
+            )
+        else:
+            out = m(node)
         self._cte_cache[key] = out
         if cache is not None:
             with self.catalog.session.cache_lock:
@@ -378,6 +432,10 @@ class Executor:
     def _exec_pipeline(self, node: P.Pipeline) -> Table:
         child = self.execute(node.child)
         session = getattr(self.catalog, "session", None)
+        tracer = self.tracer
+        t0 = _perf() if tracer is not None else 0.0
+        out = None
+        fused = False
         has_agg = node.agg is not None
         if (
             session is not None
@@ -401,23 +459,39 @@ class Executor:
             sig = fuse.input_signature(child, with_stats=has_agg)
             aot, conf_sig = self._aot_build_args(session)
             with session.cache_lock:
-                entry, _ = session.exec_cache.lookup(
+                entry, hit = session.exec_cache.lookup(
                     fp, sig, child.cap,
                     lambda: fuse.build_entry(node.stages, node.agg, child,
                                              aot, fp, conf_sig),
+                )
+            if tracer is not None:
+                tracer.emit(
+                    "exec_cache", pipeline=fp[:12], bucket=child.cap,
+                    hit=hit, fused=entry is not None,
                 )
             if entry is not None:
                 donate = (
                     node.donate_ok
                     and session.conf.get("engine.fuse_donate", "off") == "on"
                 )
-                return entry.call(child, donate)
-        # eager per-stage path (_apply_wrappers wants top-down order)
-        out = self._apply_wrappers(child, list(reversed(node.stages)))
-        if has_agg:
-            out = self._aggregate_once(
-                node.agg.keys, node.agg.aggs, None, out,
-                out.row_mask(self.device), out.nrows_known,
+                out = entry.call(child, donate)
+                fused = True
+        if out is None:
+            # eager per-stage path (_apply_wrappers wants top-down order)
+            out = self._apply_wrappers(child, list(reversed(node.stages)))
+            if has_agg:
+                out = self._aggregate_once(
+                    node.agg.keys, node.agg.aggs, None, out,
+                    out.row_mask(self.device), out.nrows_known,
+                )
+        if tracer is not None:
+            tracer.emit(
+                "pipeline_span",
+                stages=len(node.stages),
+                fused=fused,
+                agg=has_agg,
+                dur_ms=round((_perf() - t0) * 1000.0, 3),
+                rows=out.nrows_known,
             )
         return out
 
@@ -1311,9 +1385,14 @@ class Executor:
         sig = fuse.input_signature(t)
         aot, conf_sig = self._aot_build_args(session)
         with session.cache_lock:
-            entry, _ = session.exec_cache.lookup(
+            entry, hit = session.exec_cache.lookup(
                 fp, sig, t.cap,
                 lambda: fuse.build_entry(stages, None, t, aot, fp, conf_sig),
+            )
+        if self.tracer is not None:
+            self.tracer.emit(
+                "exec_cache", pipeline=fp[:12], bucket=t.cap, hit=hit,
+                fused=entry is not None,
             )
         if entry is None:
             return self._apply_wrappers(t, wrappers)
@@ -1327,10 +1406,29 @@ class Executor:
         key_merge = [(E.Col(name), name) for _, name in node.keys]
         merged = None
         empty_partial = None
-        wcap = ctx["window_cap"]
+        session = getattr(self.catalog, "session", None)
         for b, aligner in zip(ctx["branches"], ctx["aligners"]):
-            for start in range(0, b.nrows, wcap):
+            start = 0
+            while start < b.nrows:
+                wcap = ctx["window_cap"]
+                if (
+                    session is not None
+                    and getattr(session, "_mem_pressure", False)
+                    and wcap > 4096
+                ):
+                    # host-RSS watermark pre-emption (report.py through
+                    # obs.memwatch): shrink the remaining windows before
+                    # the allocator fails. Halving a power-of-two cap
+                    # keeps `start` aligned (a multiple of every earlier
+                    # cap, all powers of two at least the new one).
+                    session._mem_pressure = False
+                    wcap = ctx["window_cap"] = max(wcap // 2, 4096)
+                    session.notify_failure(
+                        f"host memory watermark: blocked-union window "
+                        f"shrunk to {wcap} rows mid-query"
+                    )
                 w = window_slice(b, start, wcap)
+                start += wcap
                 ctx["windows"] += 1
                 ctx["max_table_cap"] = max(ctx["max_table_cap"], w.cap)
                 # branch-to-union alignment (rename, cast, dictionary
@@ -1397,6 +1495,8 @@ class Executor:
                                 "total_rows", "max_table_cap")
         }
         self.catalog.session.last_blocked_union = self.last_blocked_union
+        if self.tracer is not None:
+            self.tracer.emit("blocked_union", **self.last_blocked_union)
 
     def _union_branch_aligners(self, tables):
         """Per-branch window aligners: unify column names (the leftmost
@@ -2068,6 +2168,7 @@ class Executor:
                     key,
                     lambda: K.sort_by_words(words),
                     lambda: GK.sort_perm(w, domain),
+                    "sort_perm",
                 )
             if not rec["use"]:
                 return K.sort_by_words(words)
@@ -2087,6 +2188,7 @@ class Executor:
                     key,
                     lambda: K.dense_build(rkey, rnn, rmin, table_cap),
                     lambda: GK.dense_build(rkey, rnn, rmin, table_cap),
+                    "dense_build",
                 )
             if not rec["use"]:
                 return K.dense_build(rkey, rnn, rmin, table_cap)
@@ -2111,11 +2213,14 @@ class Executor:
             return rec
         return None
 
-    def _measure_promotion(self, key, run_plain, run_kernel):
+    def _measure_promotion(self, key, run_plain, run_kernel, kname):
         """One-time measured A/B for a (kernel, shape) slot: warm both
-        paths, time one synchronized call each, memoize the winner. A
-        kernel failure propagates: on a CUDA tensor a broken kernel must
-        raise, never lose the A/B quietly."""
+        paths, time one synchronized call each, memoize the winner, and
+        emit both measurements as `kernel_span` events under the
+        reference's names: `<kname>:jnp` is the plain torch route and
+        `<kname>:pallas` the hand-written CUDA kernel (`n` is the slot's
+        row count). A kernel failure propagates: on a CUDA tensor a broken
+        kernel must raise, never lose the A/B quietly."""
         session = self.catalog.session
 
         def timed(run):
@@ -2139,6 +2244,15 @@ class Executor:
                 # measured once per environment: the verdict outlives
                 # this process
                 store.record(AOTC.promotion_key_str(key, self.device), rec)
+        if self.tracer is not None:
+            self.tracer.emit(
+                "kernel_span", kernel=f"{kname}:jnp",
+                dur_ms=rec["plain_ms"], n=key[1],
+            )
+            self.tracer.emit(
+                "kernel_span", kernel=f"{kname}:pallas",
+                dur_ms=rec["kernel_ms"], n=key[1],
+            )
         return rec
 
     def _pallas_promoted(self, fn, sdata, gid, weight, gcap, pvals,
@@ -2158,7 +2272,8 @@ class Executor:
                 def run_kernel():
                     return GK.segment_extreme(pvals, pgid, gcap, fn == "max")
 
-            rec = self._measure_promotion(key, run_plain, run_kernel)
+            rec = self._measure_promotion(key, run_plain, run_kernel,
+                                          f"segment_{fn}")
         return rec["use"]
 
     # ------------------------------------------------------------------
@@ -2272,16 +2387,21 @@ class Executor:
         except (TypeError, ValueError):
             return 0
 
-    def _spill_finish(self, parts, pool, before, segments) -> Table:
+    def _spill_finish(self, op, parts, pool, before, segments,
+                      t0=None) -> Table:
         """Assemble a spilled operator's segments into one table on the
         session's device, record the statement's spill evidence (the
-        executor's and the session's `last_spill`) and release the
-        segments. (The JAX engine's `spill` trace event is ROADMAP.md
-        queue 1 item 12.)"""
+        executor's and the session's `last_spill`, and a `spill` trace
+        event with the out-of-core step's wall when the caller timed it,
+        the critical path's spill-io cause) and release the segments."""
         try:
             out = SP.assemble_segments(pool, segments, self.device)
         finally:
             pool.release(segments)
+        delta = {
+            k: pool.stats[k] - before.get(k, 0)
+            for k in ("bytes_in", "bytes_out", "evictions")
+        }
         note = self.last_spill or {
             "ops": 0, "partitions": 0, "bytes_in": 0, "bytes_out": 0,
             "evictions": 0,
@@ -2289,8 +2409,16 @@ class Executor:
         note["ops"] += 1
         note["partitions"] = max(note["partitions"], parts)
         for k in ("bytes_in", "bytes_out", "evictions"):
-            note[k] += pool.stats[k] - before.get(k, 0)
+            note[k] += delta[k]
         self.last_spill = self.catalog.session.last_spill = note
+        if self.tracer is not None:
+            self.tracer.emit(
+                "spill", op=op, partitions=parts,
+                bytes_in=delta["bytes_in"], bytes_out=delta["bytes_out"],
+                evictions=delta["evictions"], rows=out.nrows_known,
+                **({"dur_ms": round((_perf() - t0) * 1000.0, 3)}
+                   if t0 is not None else {}),
+            )
         return out
 
     def _spilled_join(self, left, right, kind, left_keys, right_keys,
@@ -2306,6 +2434,7 @@ class Executor:
         session = self.catalog.session
         pool = session.spill_pool
         before = dict(pool.stats)
+        sp_t0 = _perf()
         lp = K.hash_columns(lk, lv) % parts
         rp = K.hash_columns(rk, rv) % parts
         segments = []
@@ -2322,7 +2451,8 @@ class Executor:
                 )
                 segments.append(pool.put(out))
                 session.spill_progress()
-            return self._spill_finish(parts, pool, before, segments)
+            return self._spill_finish("join", parts, pool, before, segments,
+                                      t0=sp_t0)
         except BaseException:
             pool.release(segments)
             raise
@@ -2341,6 +2471,7 @@ class Executor:
         session = self.catalog.session
         pool = session.spill_pool
         before = dict(pool.stats)
+        sp_t0 = _perf()
         nrows = child.nrows
         segments = []
         try:
@@ -2361,7 +2492,8 @@ class Executor:
                 }
                 segments.append(pool.put(Table(cols, n_w)))
                 session.spill_progress()
-            return self._spill_finish(parts, pool, before, segments)
+            return self._spill_finish(op, parts, pool, before, segments,
+                                      t0=sp_t0)
         except BaseException:
             pool.release(segments)
             raise
@@ -2379,6 +2511,7 @@ class Executor:
         session = self.catalog.session
         pool = session.spill_pool
         before = dict(pool.stats)
+        sp_t0 = _perf()
         live = t.row_mask(self.device)
         h = K.hash_columns(
             [c.data for c in t.columns.values()],
@@ -2394,7 +2527,8 @@ class Executor:
                     continue
                 segments.append(pool.put(self._distinct_table(part)))
                 session.spill_progress()
-            out = self._spill_finish(parts, pool, before, segments)
+            out = self._spill_finish("distinct", parts, pool, before,
+                                     segments, t0=sp_t0)
         except BaseException:
             pool.release(segments)
             raise

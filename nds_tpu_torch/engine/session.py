@@ -48,6 +48,7 @@ import gc
 import os
 import threading
 from time import monotonic as _monotonic
+from time import perf_counter as _perf
 from typing import Optional
 
 import torch
@@ -80,16 +81,6 @@ from .sql import ast as A
 from .sql.parser import parse_script, parse_sql
 
 
-def _on_unless(key, env, off):
-    """A knob's resolver: conf `key`, else the environment knob `env`, is on
-    unless empty or one of `off` (the trace, metrics and watermark knobs)."""
-
-    def on(conf):
-        v = conf.get(key) or os.environ.get(env)
-        return bool(v) and str(v).lower() not in off
-    return on
-
-
 def _conf_else_env(conf, key, env):
     """The value of conf `key`, else of the environment knob `env` (None
     when neither is set), as the reference's resolvers read it."""
@@ -102,21 +93,6 @@ def _lock_debug_on(conf):
     v = _conf_else_env(conf, "engine.lock_debug", "NDS_LOCK_DEBUG")
     return v is not None and str(v).strip().lower() in (
         "1", "true", "yes", "on")
-
-
-def _flight_recorder_on(conf):
-    # nds_tpu/obs/flight.py resolve_enabled turns the recorder on when the
-    # knob is unset; the port has none, so only an explicit "on" raises
-    v = _conf_else_env(conf, "engine.flight_recorder",
-                       "NDS_FLIGHT_RECORDER")
-    return v is not None and str(v).strip().lower() not in (
-        "0", "off", "false", "no")
-
-
-def _trace_kernels_on(conf):
-    # nds_tpu/obs/trace.py resolve_kernel_trace
-    v = _conf_else_env(conf, "engine.trace_kernels", "NDS_TRACE_KERNELS")
-    return v is not None and str(v).lower() in ("1", "on", "true")
 
 
 def _tcp_catalog_on(conf):
@@ -135,27 +111,10 @@ def _mesh_devices_on(conf):
 
 #: (conf key, environment knob, resolver of conf -> on, the ROADMAP.md item
 #: that ports the layer) of layers the port has not ported: a knob that
-#: turns its layer on, by the reference's own resolver, raises. "0" is off
-#: only for the watermark: a metrics port of 0 binds an ephemeral port, and
-#: a trace_dir of 0 names a directory.
+#: turns its layer on, by the reference's own resolver, raises.
 _UNPORTED_KNOBS = (
-    ("engine.trace_dir", "NDS_TRACE_DIR",
-     _on_unless("engine.trace_dir", "NDS_TRACE_DIR", ("off",)),
-     "queue 1 item 12 (serve/obs)"),
-    ("engine.metrics_port", "NDS_METRICS_PORT",
-     _on_unless("engine.metrics_port", "NDS_METRICS_PORT", ("off",)),
-     "queue 1 item 12 (serve/obs)"),
-    # the watermark's sampler is obs/memwatch
-    ("engine.host_rss_watermark", "NDS_HOST_RSS_WATERMARK",
-     _on_unless("engine.host_rss_watermark", "NDS_HOST_RSS_WATERMARK",
-                ("off", "0")),
-     "queue 1 item 12 (serve/obs)"),
-    ("engine.flight_recorder", "NDS_FLIGHT_RECORDER", _flight_recorder_on,
-     "queue 1 item 12 (serve/obs)"),
-    ("engine.trace_kernels", "NDS_TRACE_KERNELS", _trace_kernels_on,
-     "queue 1 item 12 (serve/obs)"),
     ("engine.lake_catalog", "NDS_LAKE_CATALOG", _tcp_catalog_on,
-     "queue 1 item 12 (serve/obs: the tcp catalog)"),
+     "queue 1 item 12b (serve: the tcp catalog)"),
     ("engine.mesh_devices", None, _mesh_devices_on,
      "queue 1 item 13 (parallel/)"),
     ("engine.lock_debug", "NDS_LOCK_DEBUG", _lock_debug_on,
@@ -490,6 +449,13 @@ class Catalog:
         if faults.active():
             faults.maybe_fire(f"load:{name}")
             faults.maybe_fire(name)
+        # the thread-bound tracer wins over the session's: a caller that
+        # binds a forwarding tracer around the execution (obs_trace.bind)
+        # gets this load's event on its stream
+        from ..obs import trace as _obs_trace
+
+        tracer = _obs_trace.current() or getattr(self.session, "tracer", None)
+        t0 = _perf() if tracer is not None else 0.0
         if e.table is not None:
             e.device_cols = e.table.columns
             e.nrows = e.table.nrows
@@ -560,12 +526,33 @@ class Catalog:
                 # alone (its columns belong to the entry's pin)
                 if set(missing) != set(columns):
                     t = _load(columns)
+                if tracer is not None:
+                    tracer.emit(
+                        "catalog_load", table=name, columns=len(columns),
+                        loaded=len(columns), rows=t.nrows,
+                        dur_ms=round((_perf() - t0) * 1000.0, 3),
+                        cache="miss",
+                    )
                 return Table({c: t.columns[c] for c in columns}, t.nrows)
             e.nrows = t.nrows
             e.device_cols.update(t.columns)
             self._evict_to_budget(keep_name=name)
         if e.nrows is None:
             e.nrows = 0
+        if tracer is not None:
+            tracer.emit(
+                "catalog_load",
+                table=name,
+                columns=len(columns),
+                loaded=len(missing),
+                rows=e.nrows,
+                dur_ms=round((_perf() - t0) * 1000.0, 3),
+                cache=(
+                    "hit" if not missing
+                    else "miss" if len(missing) == len(columns)
+                    else "partial"
+                ),
+            )
         out = Table({c: e.device_cols[c] for c in columns}, e.nrows)
         pk = TABLE_PRIMARY_KEYS.get(name)
         if pk is not None and all(c in columns for c in pk):
@@ -701,6 +688,19 @@ class Session:
         # NDS_FAULT_SPEC); idempotent for an unchanged spec, so the sessions
         # of one run share one fire budget
         faults.install_from_env(self.conf)
+        # observability (obs/trace.py): a trace dir (engine.trace_dir /
+        # NDS_TRACE_DIR) gives this session its own events-<appid>.jsonl
+        # (rotating at engine.trace_rotate_bytes); a metrics port alone a
+        # tracer that feeds the /metrics + /statusz endpoint; neither, the
+        # flight recorder's ring-only tracer; engine.flight_recorder=off
+        # with neither, None (every event site one `is None` check)
+        from ..obs.trace import tracer_from_conf
+
+        self.tracer = tracer_from_conf(self.conf)
+        # live telemetry: tracer_from_conf started the process-wide
+        # endpoint and attached its MetricsSink to the tracer, so
+        # session.metrics and tracer.sink never disagree
+        self.metrics = getattr(self.tracer, "sink", None)
         self.catalog = Catalog(self)
         # task-failure observers (report.BenchReport registers one per
         # query)
@@ -739,11 +739,19 @@ class Session:
             self.promotion_store = AOTC.PromotionStore(aot_dir)
             self.aot_cache = AOTC.AotCache(
                 aot_dir, AOTC.resolve_aot_cache_bytes(self.conf, aot_dir),
-                self.device,
+                self.device, tracer=lambda: self.tracer,
             )
         # stats of the most recent blocked union aggregation (windows,
         # window rows and cap, total rows, largest table cap), or None
         self.last_blocked_union = None
+        # host-RSS watermark pre-emption flag (obs.memwatch -> report.py):
+        # the blocked-union window loop polls it between windows and
+        # shrinks the remaining windows when set
+        self._mem_pressure = False
+        # watermark hysteresis latch (report.py): True while the RSS
+        # excursion that last fired the watermark is still above it, so one
+        # crossing shrinks the window once, not once per query
+        self._rss_above_watermark = False
         # the plan budgeter's record of the most recent statement
         # (analysis/budget.py budget_plan: the JAX session's keys)
         self.last_plan_budget = None
@@ -771,6 +779,7 @@ class Session:
                     self._spill_pool = SP.SpillPool(
                         budget_bytes=SP.resolve_pool_bytes(self.conf),
                         spill_dir=SP.resolve_spill_dir(self.conf),
+                        app_id=getattr(self.tracer, "app_id", None),
                     )
         return self._spill_pool
 
@@ -968,7 +977,8 @@ class Session:
 
             def verify(p, stage):
                 _verifier.verify_plan(p, self.catalog, stage=stage,
-                                      promotions=promotions)
+                                      promotions=promotions,
+                                      tracer=self.tracer)
 
         every = verify is not None and level == "all"
         if every:
@@ -1053,12 +1063,21 @@ class Session:
             preds = _zone_preds(n.predicate, scan.alias)
             if not preds:
                 continue
+            t0 = _perf()
             keep, pruned_rows = prune_files(snap.rel_files, stats, preds)
-            if len(keep) < len(snap.rel_files):
+            n_total = len(snap.rel_files)
+            if len(keep) < n_total:
                 scan.lake_files = tuple(keep)
                 total = snap.num_rows()
                 if total >= 0:
                     scan.prune_rows = max(total - pruned_rows, 0)
+            if self.tracer is not None:
+                self.tracer.emit(
+                    "scan_prune", table=scan.table, files_total=n_total,
+                    files_pruned=n_total - len(keep),
+                    rows_bound=scan.prune_rows,
+                    dur_ms=round((_perf() - t0) * 1000.0, 3),
+                )
         return plan
 
     def sql(self, text: str) -> Result:
@@ -1079,6 +1098,18 @@ class Session:
         if isinstance(stmt, A.SelectStmt):
             binder = Binder(self.catalog)
             plan = self._finish_plan(binder.bind(stmt), binder.promotions)
+            if self.tracer is not None:
+                # flight-recorder context: this statement's plan, so that a
+                # failure bundle carries the failing query's plan. Noted as
+                # a lazy thunk: P.explain renders only if a bundle flushes
+                from ..obs import flight as _obs_flight
+
+                rec = _obs_flight.recorder(self.conf)
+                if rec is not None:
+                    rec.note_plan(
+                        faults.current_scope(),
+                        lambda p=plan: P.explain(p),
+                    )
             return Result(self, plan)
         if isinstance(stmt, A.CreateViewStmt):
             binder = Binder(self.catalog)

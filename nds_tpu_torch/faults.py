@@ -40,8 +40,9 @@ the report layer passes.
 
 The registry is a module singleton; with no spec installed every
 injection point is one `is None` check. Counts decrement under a lock, so
-concurrent streams share one deterministic budget. A fired rule emits no
-trace event: the tracer is ROADMAP.md queue 1 item 12.
+concurrent streams share one deterministic budget. A fired rule emits a
+`fault_injected` event into the thread-bound tracer before it takes
+effect, and a crash rule flushes the flight recorder first.
 """
 
 from __future__ import annotations
@@ -261,6 +262,15 @@ class FaultRegistry:
         r = self._claim(site, substring, kinds)
         if r is None:
             return
+        # observability: record the injection in the bound tracer's stream
+        # before the fault takes effect (a crash rule still leaves its own
+        # evidence behind: parents classify child deaths from it). Lazy
+        # import: the registry reaches here only when a rule fires.
+        from .obs import trace as _obs_trace
+
+        tracer = _obs_trace.current()
+        if tracer is not None:
+            tracer.emit("fault_injected", site=site, fault_kind=r.kind)
         if r.kind == "hang":
             print(f"faults: injected hang at {site!r} for {r.arg:.0f}s")
             time.sleep(r.arg)
@@ -274,6 +284,27 @@ class FaultRegistry:
         if r.kind == "io":
             raise TransientIOError(f"injected transient io failure at {site!r}")
         if r.kind == "crash":
+            # simulated process death: flush the flight-recorder ring
+            # before raising, as a real crash handler would leave one
+            try:
+                from .obs import flight as _obs_flight
+
+                # the bound tracer's ring honours a conf-tier
+                # engine.flight_recorder=off of the crashing session; the
+                # module recorder serves session-less sites
+                if tracer is not None:
+                    rec = getattr(tracer, "ring", None)
+                else:
+                    rec = _obs_flight.recorder()
+                if rec is not None:
+                    ctx = getattr(tracer, "context", None)
+                    rec.flush(
+                        "crash",
+                        trace_id=getattr(ctx, "trace_id", None),
+                        query=current_scope(),
+                    )
+            except Exception:
+                pass  # forensics must never mask the injected death
             raise InjectedCrash(f"injected crash at {site!r}")
 
 

@@ -31,10 +31,11 @@ budget (NDS_PHASE_RETRIES), and every phase runner is a fault-injection
 site (e.g. `crash:power_test` in NDS_FAULT_SPEC) so the resume path is
 deterministically testable.
 
-Tracing (the orchestrator's phase events, the per-phase trace context,
-the failure classification from child event files and the plan-feedback
-headline) waits for ROADMAP.md queue 1 item 12: a trace directory raises
-before the first phase runs.
+Tracing: with a trace directory (NDS_TRACE_DIR, else `engine.trace_dir`
+in the power_test property file) the orchestrator writes `phase` begin /
+end events, mints a trace context per phase that its subprocesses adopt
+(NDS_TRACE_CONTEXT), and classifies an opaque phase failure (a
+subprocess exit code) from the event files the phase's children wrote.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ import yaml
 
 from . import faults
 from .io.fs import fs_open, fs_open_atomic, get_fs, is_remote
+from .obs import reader as obs_reader
+from .obs import trace as obs_trace
 from .throughput import round_up_to_nearest_10_percent
 
 
@@ -278,7 +281,7 @@ def _summary_args(folder, subdirs=()):
     """`--json_summary_folder <folder>` where a device phase's section names
     `json_summary_folder`, a key of the port's: each statement's status,
     retries and device land in a JSON summary (the reference reads them
-    from its trace directory, ROADMAP.md queue 1 item 12). The phase's
+    from its trace directory, which the port writes too). The phase's
     summary directories (its `subdirs` of the folder, else the folder) are
     emptied before each attempt, as the CLIs overwrite their time logs."""
     if not folder:
@@ -456,73 +459,139 @@ def _bench_trace_conf(params):
         return None
 
 
-def _refuse_tracing(params):
-    """The reference's orchestrator turns on its tracer (phase events,
-    failure classification from child event files, the plan-feedback
-    headline) when a trace directory or a metrics port resolves, from the
-    environment or the power_test property file. The port has no tracer
-    until ROADMAP.md queue 1 item 12, so such a knob raises here, before
-    the first phase runs, by the port's own resolver (engine/session.py)."""
-    from .engine.session import _UNPORTED_KNOBS
+def _phase_failure_kind(exc, trace_dir, pre_existing, launch=None) -> str:
+    """Classify a phase failure; when the exception itself is opaque (a
+    subprocess CalledProcessError carries only the exit code) fall back to
+    the event files the phase's child processes wrote before dying.
 
-    conf = _bench_trace_conf(params) or {}
-    for key, env, on, item in _UNPORTED_KNOBS:
-        if key in ("engine.trace_dir", "engine.metrics_port") and on(conf):
-            raise NotImplementedError(
-                f"{key} / {env} is not ported to nds_tpu_torch yet: the "
-                f"orchestrator's tracer waits for ROADMAP.md {item}"
-            )
+    `launch` is the phase's launch record ({"trace_id", "ts_ms"}): a
+    candidate file's `trace_meta` must belong to this phase's context (its
+    trace_id, or a child parented to it) or at least postdate the launch,
+    so a leftover file of an unrelated process is never blamed."""
+    kind = faults.classify(exc)
+    if kind != faults.UNKNOWN or not trace_dir:
+        return kind
+    new = [
+        f
+        for f in obs_reader.discover_event_files(trace_dir)
+        if f not in pre_existing
+    ]
+    if launch:
+        verified = []
+        for f in new:
+            meta = obs_reader.trace_meta_of(f)
+            if meta is None:
+                continue
+            tid = launch.get("trace_id")
+            if tid and meta.get("trace_id") is not None:
+                if meta["trace_id"] == tid or meta.get("parent") == tid:
+                    verified.append(f)
+                continue
+            if obs_reader.meta_matches_launch(
+                meta, launch_ts_ms=launch.get("ts_ms")
+            ):
+                verified.append(f)
+        new = verified
+    if not new:
+        return kind
+    from_events = obs_reader.failure_kind_from_files(new)
+    return from_events or kind
 
 
-def _phase_failure_kind(exc) -> str:
-    """Classify a phase failure. The reference falls back to the event
-    files the phase's child processes wrote when the exception itself is
-    opaque (a CalledProcessError carries only the exit code); that waits
-    for the tracer, ROADMAP.md queue 1 item 12."""
-    return faults.classify(exc)
-
-
-def _run_phase(state: BenchState, name: str, skip, fn):
+def _run_phase(state: BenchState, name: str, skip, fn, tracer=None,
+               trace_dir=None):
     """Run one phase with checkpointing and bounded transient retries.
 
     Phase CLIs are rerun-idempotent (they overwrite their outputs), so a
     classified-transient failure retries up to NDS_PHASE_RETRIES times
-    with backoff. Deterministic failures raise immediately
+    with backoff. Deterministic failures raise immediately; an
+    unclassifiable subprocess exit is first re-classified from the event
+    files its children wrote (NDS_TRACE_DIR), so a child that died on
+    transient IO retries while a planner bug fails fast
     (NDS_PHASE_RETRY_UNKNOWN=1 opts opaque exits into retries). An
     injected crash (BaseException) sails through: the process dies with
-    the checkpoint recording every phase completed before it.
-
-    The reference mints a per-phase trace context here and exports it to
-    the phase's subprocesses; that waits for ROADMAP.md queue 1 item 12."""
+    the checkpoint recording every phase completed before it."""
     if skip or state.is_done(name):
         why = "config" if skip else "checkpoint"
         print(f"====== phase {name}: skipped ({why}) ======", flush=True)
+        if tracer is not None:
+            tracer.emit("phase", phase=name, event="end", status="skipped",
+                        reason=why)
         return
     retries = int(os.environ.get("NDS_PHASE_RETRIES", "1"))
     retry_unknown = os.environ.get("NDS_PHASE_RETRY_UNKNOWN") == "1"
     base = float(os.environ.get("NDS_PHASE_BACKOFF", "1.0"))
     delays = faults.backoff_delays(retries, base)
+    if trace_dir is None:
+        trace_dir = obs_trace.resolve_trace_dir()
+    # per-phase trace context: a child of the orchestrator's, exported
+    # through the environment so that every subprocess of the phase adopts
+    # or parents to it; the failure classifier then verifies candidate
+    # event files against this launch record. Phases run one at a time,
+    # so the environment change races no sibling.
+    parent_ctx = (
+        getattr(tracer, "context", None)
+        or obs_trace.resolve_trace_context("full_bench")
+    )
+    phase_ctx = parent_ctx.child(name)
+    prev_env_ctx = os.environ.get(obs_trace.TRACE_CONTEXT_ENV)
+    os.environ[obs_trace.TRACE_CONTEXT_ENV] = phase_ctx.to_env_value()
     attempt = 0
-    while True:
-        attempt += 1
-        try:
-            faults.maybe_fire(name)
-            fn()
-            break
-        except Exception as exc:
-            kind = _phase_failure_kind(exc)
-            transient = kind in faults.RETRYABLE or (
-                kind == faults.UNKNOWN and retry_unknown
-            )
-            delay = next(delays, None) if transient else None
-            if delay is None:
-                raise PhaseError(name, kind, attempt, exc) from exc
-            print(
-                f"====== phase {name}: attempt {attempt} failed "
-                f"({kind}: {exc}); retrying in {delay:.1f}s ======",
-                flush=True,
-            )
-            time.sleep(delay)
+    t0 = time.perf_counter()
+    if tracer is not None:
+        # index / total let the live /statusz phase view render progress
+        idx = PHASES.index(name) + 1 if name in PHASES else None
+        tracer.emit(
+            "phase", phase=name, event="begin",
+            **({"index": idx, "total": len(PHASES)} if idx else {}),
+        )
+    try:
+        while True:
+            attempt += 1
+            launch = {
+                "trace_id": phase_ctx.trace_id,
+                "ts_ms": int(time.time() * 1000),
+            }
+            pre_existing = set(obs_reader.discover_event_files(trace_dir))
+            try:
+                faults.maybe_fire(name)
+                fn()
+                break
+            except Exception as exc:
+                kind = _phase_failure_kind(
+                    exc, trace_dir, pre_existing, launch=launch
+                )
+                transient = kind in faults.RETRYABLE or (
+                    kind == faults.UNKNOWN and retry_unknown
+                )
+                delay = next(delays, None) if transient else None
+                if delay is None:
+                    if tracer is not None:
+                        tracer.emit(
+                            "phase", phase=name, event="end", status="failed",
+                            failure_kind=kind, attempts=attempt,
+                            dur_ms=round(
+                                (time.perf_counter() - t0) * 1000, 3
+                            ),
+                        )
+                    raise PhaseError(name, kind, attempt, exc) from exc
+                print(
+                    f"====== phase {name}: attempt {attempt} failed "
+                    f"({kind}: {exc}); retrying in {delay:.1f}s ======",
+                    flush=True,
+                )
+                time.sleep(delay)
+    finally:
+        # restore the orchestrator-level context for the next phase
+        if prev_env_ctx is None:
+            os.environ.pop(obs_trace.TRACE_CONTEXT_ENV, None)
+        else:
+            os.environ[obs_trace.TRACE_CONTEXT_ENV] = prev_env_ctx
+    if tracer is not None:
+        tracer.emit(
+            "phase", phase=name, event="end", status="ok", attempts=attempt,
+            dur_ms=round((time.perf_counter() - t0) * 1000, 3),
+        )
     state.mark_done(name)
 
 
@@ -537,23 +606,39 @@ def run_full_bench(params, resume: bool = False, device=None):
             f"non-empty throughput sets; Spec 4.3.2 wants 2*S+1, S>=4), "
             f"got {num_streams}"
         )
-    _refuse_tracing(params)
     faults.install_from_env()  # arm orchestrator-level injection sites
-    return _run_full_bench_phases(params, resume, num_streams, device)
+    # orchestrator event log: per-phase begin / end events, orchestrator-
+    # level fault injections through the thread-local binding, and the
+    # trace dir the phase-failure classifier scans for child event files
+    # (NDS_TRACE_DIR, else engine.trace_dir of the power_test property
+    # file); subprocesses inherit the environment and write their own
+    trace_conf = _bench_trace_conf(params)
+    tracer = obs_trace.tracer_from_conf(trace_conf)
+    trace_dir = obs_trace.resolve_trace_dir(trace_conf)
+    try:
+        with obs_trace.bind(tracer):
+            return _run_full_bench_phases(
+                params, resume, num_streams, device, tracer, trace_dir
+            )
+    finally:
+        if tracer is not None:
+            tracer.close()
 
 
-def _run_full_bench_phases(params, resume, num_streams, device):
+def _run_full_bench_phases(params, resume, num_streams, device, tracer,
+                           trace_dir):
     state = BenchState.load(params) if resume else BenchState.fresh(params)
     sq = num_streams // 2  # streams per Throughput Test
     # the device phases' runners get `device` only when one is named
     dev = {"device": device} if device else {}
+    tr = {"tracer": tracer, "trace_dir": trace_dir}
     _run_phase(
         state, "data_gen", params["data_gen"].get("skip"),
-        lambda: run_data_gen(params, num_streams),
+        lambda: run_data_gen(params, num_streams), **tr,
     )
     _run_phase(
         state, "load_test", params["load_test"].get("skip"),
-        lambda: run_load_test(params),
+        lambda: run_load_test(params), **tr,
     )
     load_report = params["load_test"]["report_path"]
     tload = get_load_time(load_report)
@@ -562,34 +647,35 @@ def _run_full_bench_phases(params, resume, num_streams, device):
         lambda: gen_streams(
             params, num_streams, get_load_end_timestamp(load_report)
         ),
+        **tr,
     )
     _run_phase(
         state, "power_test", params["power_test"].get("skip"),
-        lambda: power_test(params, **dev),
+        lambda: power_test(params, **dev), **tr,
     )
     tpower = get_power_time(params["power_test"]["report_path"])
     tt_cfg = params["throughput_test"]
     dm_cfg = params["maintenance_test"]
     _run_phase(
         state, "throughput_test_1", tt_cfg.get("skip"),
-        lambda: throughput_test(params, num_streams, 1, **dev),
+        lambda: throughput_test(params, num_streams, 1, **dev), **tr,
     )
     ttt1 = get_throughput_time(tt_cfg["report_base_path"], num_streams, 1)
     _run_phase(
         state, "maintenance_test_1", dm_cfg.get("skip"),
-        lambda: maintenance_test(params, num_streams, 1, **dev),
+        lambda: maintenance_test(params, num_streams, 1, **dev), **tr,
     )
     tdm1 = get_maintenance_time(
         dm_cfg["maintenance_report_base_path"], num_streams, 1
     )
     _run_phase(
         state, "throughput_test_2", tt_cfg.get("skip"),
-        lambda: throughput_test(params, num_streams, 2, **dev),
+        lambda: throughput_test(params, num_streams, 2, **dev), **tr,
     )
     ttt2 = get_throughput_time(tt_cfg["report_base_path"], num_streams, 2)
     _run_phase(
         state, "maintenance_test_2", dm_cfg.get("skip"),
-        lambda: maintenance_test(params, num_streams, 2, **dev),
+        lambda: maintenance_test(params, num_streams, 2, **dev), **tr,
     )
     tdm2 = get_maintenance_time(
         dm_cfg["maintenance_report_base_path"], num_streams, 2
@@ -604,6 +690,7 @@ def _run_full_bench_phases(params, resume, num_streams, device):
         _run_phase(
             state, "maintenance_under_load", not mul_cfg.get("enabled"),
             lambda: maintenance_under_load_test(params, num_streams, **dev),
+            **tr,
         )
     except PhaseError as exc:
         mul_error = str(exc)
@@ -626,10 +713,37 @@ def _run_full_bench_phases(params, resume, num_streams, device):
     }
     if mul_error:
         metrics["maintenance_under_load_error"] = mul_error
-    # the reference adds feedback_hit_rate and budget_err_median from the
-    # trace directory's plan_feedback events here; with no trace directory
-    # (the only case the port runs) it leaves both keys out, as here. They
-    # wait for ROADMAP.md queue 1 items 12 (the trace) and 14 (feedback).
+    # budgeter-accuracy headline beside the composite metric, from the
+    # trace directory's plan_feedback events (fail-soft: a torn trace file
+    # must not cost a finished benchmark). The port emits no plan_feedback
+    # event until cardinality feedback (ROADMAP.md queue 1 item 14), so
+    # both keys stay at that item's default, None, as the reference's do
+    # with feedback off.
+    if trace_dir:
+        errs = []
+
+        def _collect(events):
+            errs.extend(
+                float(e["abs_log_err"]) for e in events
+                if e.get("kind") == "plan_feedback"
+                and e.get("abs_log_err") is not None
+            )
+
+        try:
+            prof = obs_reader.load_profile(
+                [trace_dir], strict=False, events_hook=_collect
+            )
+            rate = obs_reader.feedback_hit_rate(prof)
+            metrics["feedback_hit_rate"] = (
+                None if rate is None else round(rate, 4)
+            )
+            errs.sort()
+            metrics["budget_err_median"] = (
+                round(errs[len(errs) // 2], 4) if errs else None
+            )
+        except Exception:
+            metrics["feedback_hit_rate"] = None
+            metrics["budget_err_median"] = None
     print(metrics)
     write_metrics_report(params["metrics_report_path"], metrics)
     return metrics

@@ -12,8 +12,8 @@ Remote opens retry transient errors with exponential backoff and full
 jitter (NDS_IO_RETRIES / NDS_IO_BACKOFF); `fs_open_atomic` writes through
 a temp name + rename, so that a crash mid-write never leaves a torn report
 or time log behind; every open is a fault-injection point
-(faults.maybe_fire_path). A retry emits no trace event: the tracer is
-ROADMAP.md queue 1 item 12.
+(faults.maybe_fire_path). A retry emits an `io_retry` event into the
+thread-bound tracer.
 """
 
 from __future__ import annotations
@@ -135,6 +135,16 @@ def _open_remote_with_retries(path, mode):
                 f"fs: transient io failure opening {path} ({exc}); "
                 f"retrying in {delay:.2f}s"
             )
+            # observability: the retry in the bound stream's event log
+            # (lazy import, on the already-slow retry path only)
+            from ..obs import trace as _obs_trace
+
+            tracer = _obs_trace.current()
+            if tracer is not None:
+                tracer.emit(
+                    "io_retry", path=str(path), error=str(exc)[:200],
+                    delay_s=round(delay, 3),
+                )
             time.sleep(delay)
 
 

@@ -10,7 +10,7 @@ tmp + rename. Arbitration is airtight where `put_if_absent` is atomic
 by a fence re-check just before the publish rename. The reference's tcp
 backend (`engine.lake_catalog=http://host:port`, its coordinator and
 `cli/catalog.py`) rides the serve layer's HTTP server and is not ported:
-such a value raises NotImplementedError (ROADMAP.md queue 1 item 12).
+such a value raises NotImplementedError (ROADMAP.md queue 1 item 12b).
 
 **Epoch fencing (the zombie-writer contract).** Every writer registers a
 TTL-bounded writer lease and receives a monotone *epoch*; its staged data
@@ -23,8 +23,8 @@ a commit carrying a fenced epoch is refused at publish. A stale writer
 manifest referencing files vacuum reclaimed.
 
 Fault sites `catalog:commit`, `catalog:lease` and `catalog:fence`
-(io/hang/crash) are the reference's. The reference's `catalog_commit` and
-`catalog_lease` trace events are not emitted: the tracer is item 12.
+(io/hang/crash) are the reference's, and so are the `catalog_commit` and
+`catalog_lease` events emitted into the thread-bound tracer.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ _EPOCH_FILE = "epoch.json"
 #: wedged writer ever expires
 DEFAULT_WRITER_TTL_S = 300.0
 
-_ITEM12 = "ROADMAP.md queue 1 item 12 (serve/obs: the tcp catalog)"
+_ITEM12 = "ROADMAP.md queue 1 item 12b (serve: the tcp catalog)"
 
 
 class CatalogError(Exception):
@@ -136,6 +136,14 @@ def reset_clients():
     """Drop cached backend clients (test isolation)."""
     with _CLIENTS_LOCK:
         _CLIENTS.clear()
+
+
+def _tracer():
+    # lazy import, as lakehouse/table.py: the thread-local binding is how
+    # session-less layers find their stream's tracer
+    from ..obs import trace as _obs_trace
+
+    return _obs_trace.current()
 
 
 def _now_ms() -> int:
@@ -248,6 +256,12 @@ class FsCatalog:
             "pid": os.getpid(),
             "host": socket.gethostname(),
         })
+        tr = _tracer()
+        if tr is not None:
+            tr.emit(
+                "catalog_lease", op="writer_register", backend=self.backend,
+                outcome="ok", table=t.name, epoch=epoch,
+            )
         return {"id": wid, "epoch": epoch}
 
     def writer_renew(self, t, token: dict, ttl_s: float) -> bool:
@@ -290,6 +304,13 @@ class FsCatalog:
         new = max(cur, min(live) if live else self._next_epoch(t))
         if new != cur:
             self._write_json(t, _FENCE_FILE, {"fence": new})
+        tr = _tracer()
+        if tr is not None:
+            tr.emit(
+                "catalog_lease", op="fence_bump", backend=self.backend,
+                outcome="ok", table=t.name, fence=new,
+                live_writers=len(live),
+            )
         return new
 
     # -- commit -----------------------------------------------------------
@@ -303,8 +324,10 @@ class FsCatalog:
             # holds the publish open for a kill, crash dies between intent
             # and publish
             faults.maybe_fire("catalog:commit", kinds=("io", "hang", "crash"))
+        t0 = time.perf_counter()
         version = int(manifest["version"])
         if epoch is not None and epoch < self.read_fence(t):
+            self._emit_commit(t, version, "fenced", t0)
             raise CatalogFencedError(
                 f"{t.path}: writer epoch {epoch} fenced by catalog "
                 f"(fence {self.read_fence(t)}); the transaction must "
@@ -322,12 +345,24 @@ class FsCatalog:
                 t.fs.rm_file(tmp)
             except OSError:
                 pass
+            self._emit_commit(t, version, "fenced", t0)
             raise CatalogFencedError(
                 f"{t.path}: writer epoch {epoch} fenced by catalog "
                 f"mid-publish; the transaction must re-run"
             )
         dest = posixpath.join(t.manifest_dir, f"v{version:06d}.json")
-        return put_if_absent(t.fs, tmp, dest)
+        ok = put_if_absent(t.fs, tmp, dest)
+        self._emit_commit(t, version, "ok" if ok else "conflict", t0)
+        return ok
+
+    def _emit_commit(self, t, version, outcome, t0):
+        tr = _tracer()
+        if tr is not None:
+            tr.emit(
+                "catalog_commit", table=t.name, backend=self.backend,
+                version=version, outcome=outcome,
+                dur_ms=round((time.perf_counter() - t0) * 1000.0, 3),
+            )
 
     # -- reader leases -----------------------------------------------------
     def lease_acquire(self, t, version: int, files, ttl_s: float):
@@ -347,6 +382,12 @@ class FsCatalog:
             })
         except OSError:
             return None
+        tr = _tracer()
+        if tr is not None:
+            tr.emit(
+                "catalog_lease", op="acquire", backend=self.backend,
+                outcome="ok", table=t.name, version=int(version),
+            )
         return RemoteLease(self, _TableRef(t.path), lid)
 
     def lease_renew(self, ref, lease_id: str, ttl_s: float) -> bool:
@@ -362,7 +403,14 @@ class FsCatalog:
         return True
 
     def lease_release(self, ref, lease_id: str) -> bool:
-        return self._rm(ref, f"{_LEASE_DIR}/{lease_id}.json")
+        ok = self._rm(ref, f"{_LEASE_DIR}/{lease_id}.json")
+        tr = _tracer()
+        if tr is not None:
+            tr.emit(
+                "catalog_lease", op="release", backend=self.backend,
+                outcome="ok" if ok else "gone", table=ref.name,
+            )
+        return ok
 
     def _live_leases(self, t):
         now = _now_ms()
@@ -400,4 +448,11 @@ class FsCatalog:
             if rec is not None and int(rec.get("expires_ms") or 0) <= now:
                 if self._rm(t, f"{_LEASE_DIR}/{base}"):
                     removed += 1
+        if removed:
+            tr = _tracer()
+            if tr is not None:
+                tr.emit(
+                    "catalog_lease", op="sweep", backend=self.backend,
+                    outcome="ok", table=t.name, removed=removed,
+                )
         return removed

@@ -2,8 +2,9 @@
 surface; the port of nds_tpu/lakehouse/table.py. The on-disk format (data
 files, manifests, zone maps, the ingest ledger, catalog state) is the
 reference's, so either package reads the other's tables. pyarrow is
-imported inside the functions that use it, and no trace event is emitted
-(`lake_commit`, `lake_vacuum`: the tracer is ROADMAP.md queue 1 item 12).
+imported inside the functions that use it. A publish attempt's outcome
+and a vacuum emit `lake_commit` and `lake_vacuum` into the thread-bound
+tracer.
 
 The reference runs Data Maintenance against Iceberg or Delta Lake warehouses
 (reference: nds/nds_maintenance.py:118-202, nds/nds_rollback.py:46-51). The
@@ -24,7 +25,7 @@ rewritten, matching Iceberg's rollback_to_timestamp semantics.
 Fleet concurrency: with `engine.lake_catalog` configured the publish,
 reader-lease registration, and vacuum fence route through the catalog
 service (lakehouse/catalog.py: fs CAS; the reference's tcp coordinator
-is ROADMAP.md queue 1 item 12), giving
+is ROADMAP.md queue 1 item 12b), giving
 multi-HOST writers commit arbitration, cross-host lease visibility, and
 epoch fencing (a stale zombie writer can never publish). Off by default:
 everything below then describes the process-concurrent behavior exactly.
@@ -198,6 +199,14 @@ def resolve_conflict_retries() -> int:
         )
     except ValueError:
         return 2
+
+
+def _tracer():
+    # lazy import: the thread-local binding is how session-less layers find
+    # their stream's tracer (as faults.FaultRegistry.fire does)
+    from ..obs import trace as _obs_trace
+
+    return _obs_trace.current()
 
 
 class TableSnapshot:
@@ -697,6 +706,13 @@ class LakehouseTable:
                 published = put_if_absent(self.fs, tmp, dest)
             if published:
                 self._release_writer()
+                tracer = _tracer()
+                if tracer is not None:
+                    tracer.emit(
+                        "lake_commit", table=self.name, operation=operation,
+                        version=version, attempts=attempts,
+                        rebased=attempts > 1,
+                    )
                 return version
             # lost the race. Overwrite-style transactions (explicit base
             # file list) abort: their writes no longer describe the head.
@@ -704,6 +720,12 @@ class LakehouseTable:
                 next(delays, None) if base_files is None else None
             )
             if delay is None:
+                tracer = _tracer()
+                if tracer is not None:
+                    tracer.emit(
+                        "lake_commit", table=self.name, operation=operation,
+                        version=version, attempts=attempts, conflict=True,
+                    )
                 why = (
                     f"rebase budget ({retries}) exhausted"
                     if base_files is None
@@ -988,6 +1010,13 @@ class LakehouseTable:
             removed.append(rel)
             if isinstance(ent, dict):
                 bytes_removed += int(ent.get("size") or 0)
+        tracer = _tracer()
+        if tracer is not None:
+            tracer.emit(
+                "lake_vacuum", table=self.name, files_removed=len(removed),
+                manifests_removed=len(expired), files_leased=leased_kept,
+                bytes_removed=bytes_removed,
+            )
         return {
             "table": self.name,
             "files_removed": len(removed),

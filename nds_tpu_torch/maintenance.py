@@ -7,9 +7,9 @@ replace_date :75-96, get_maintenance_queries :118-144, run_query :204-265,
 register_temp_views :267-271). The warehouse is the snapshot-manifest
 lakehouse (lakehouse/table.py); the refresh staging tables register from
 the generated `--update` data. The sessions run on the card unless the
-caller passes `device="cpu"`. The JAX package binds each session's tracer
-around the timed loops and closes it at the end: tracing is ROADMAP.md
-queue 1 item 12, and its knobs raise in the port's Session until then.
+caller passes `device="cpu"`. Each session's tracer is bound around the
+timed loops (so the lakehouse commit and vacuum events, fault injections
+and fs retries reach its stream) and closed at the end.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from . import faults
 from .check import check_json_summary_folder
 from .engine.session import Session
 from .io.fs import fs_open_atomic
+from .obs import trace as obs_trace
 from .power import load_properties
 from .report import BenchReport, use_system_arrow_pool
 from .schema import get_maintenance_schemas
@@ -318,12 +319,18 @@ def run_maintenance(
         conf.update(load_properties(property_file))
     check_json_summary_folder(json_summary_folder)
     session = Session(use_decimal=use_decimal, conf=conf, device=device)
-    return _run_maintenance_body(
-        session, warehouse_path, refresh_data_path,
-        time_log_output_path, json_summary_folder, property_file,
-        valid_queries, maintenance_sql_dir, vacuum_after,
-        optimize_after,
-    )
+    try:
+        return _run_maintenance_body(
+            session, warehouse_path, refresh_data_path,
+            time_log_output_path, json_summary_folder, property_file,
+            valid_queries, maintenance_sql_dir, vacuum_after,
+            optimize_after,
+        )
+    finally:
+        # this run is its tracer's only emitter: closing here (success or
+        # crash) flushes the final line, as power.run_query_stream does
+        if session.tracer is not None:
+            session.tracer.close()
 
 
 def _run_maintenance_body(
@@ -344,23 +351,27 @@ def _run_maintenance_body(
     execution_time_list = []
     total_time_start = datetime.now()
     dm_start = datetime.now()
-    for query_name, q_content in query_dict.items():
-        print(f"====== Run {query_name} ======")
-        q_report = BenchReport(session)
-        summary = q_report.report_on(
-            run_dm_query, session, q_content, query_name
-        )
-        print(f"Time taken: {summary['queryTimes']} millis for {query_name}")
-        execution_time_list.append((app_id, query_name, summary["queryTimes"]))
-        if json_summary_folder:
-            if property_file:
-                summary_prefix = os.path.join(
-                    json_summary_folder,
-                    os.path.basename(property_file).split(".")[0],
-                )
-            else:
-                summary_prefix = os.path.join(json_summary_folder, "")
-            q_report.write_summary(query_name, prefix=summary_prefix)
+    # bind the session tracer to this thread: session-less layers (the
+    # lakehouse commit and vacuum events, fault registry, fs retries) find
+    # it through the thread-local binding
+    with obs_trace.bind(session.tracer):
+        for query_name, q_content in query_dict.items():
+            print(f"====== Run {query_name} ======")
+            q_report = BenchReport(session)
+            summary = q_report.report_on(
+                run_dm_query, session, q_content, query_name, name=query_name
+            )
+            print(f"Time taken: {summary['queryTimes']} millis for {query_name}")
+            execution_time_list.append((app_id, query_name, summary["queryTimes"]))
+            if json_summary_folder:
+                if property_file:
+                    summary_prefix = os.path.join(
+                        json_summary_folder,
+                        os.path.basename(property_file).split(".")[0],
+                    )
+                else:
+                    summary_prefix = os.path.join(json_summary_folder, "")
+                q_report.write_summary(query_name, prefix=summary_prefix)
     if optimize_after:
         o_start = time.perf_counter()
         optimize_warehouse(warehouse_path, conf=session.conf)
@@ -428,7 +439,7 @@ def run_maintenance_under_load(
     report dict (also written to `report_path` atomically, where given).
     A failure of the maintenance thread is raised after the report is
     written."""
-    from .power import gen_sql_from_stream, get_query_subset, run_one_query
+    from .power import gen_sql_from_stream, get_query_subset
 
     valid_queries = get_valid_query_names(spec_queries)
     conf = {
@@ -450,6 +461,24 @@ def run_maintenance_under_load(
     qsession = Session(use_decimal=use_decimal, conf=qconf, device=device)
     msession = Session(use_decimal=use_decimal, conf=dict(conf),
                        device=device)
+    try:
+        return _run_under_load_body(
+            qsession, msession, warehouse_path, refresh_data_path,
+            valid_queries, query_dict, app_id, vacuum_retain,
+            time_log_output_path, report_path,
+        )
+    finally:
+        # both sessions own their tracers: close them on any exit
+        for s in (qsession, msession):
+            if s.tracer is not None:
+                s.tracer.close()
+
+
+def _run_under_load_body(qsession, msession, warehouse_path,
+                         refresh_data_path, valid_queries, query_dict, app_id,
+                         vacuum_retain, time_log_output_path, report_path):
+    from .power import run_one_query
+
     qsession.register_nds_tables(warehouse_path, fmt="lakehouse")
     msession.register_nds_tables(warehouse_path, fmt="lakehouse")
     register_refresh_views(msession, refresh_data_path, valid_queries)
@@ -460,18 +489,19 @@ def run_maintenance_under_load(
 
     def run_stream(tag):
         times, failed = [], 0
-        for qname, qtext in query_dict.items():
-            rep = BenchReport(qsession)
-            s = rep.report_on(
-                run_one_query, qsession, qtext, qname, None, "parquet",
-                retry_oom=True,
-            )
-            ms = s["queryTimes"][0]
-            rows.append((app_id, f"{tag}:{qname}", ms))
-            if s["queryStatus"][-1] == "Failed":
-                failed += 1
-            else:
-                times.append(float(ms))
+        with obs_trace.bind(qsession.tracer):
+            for qname, qtext in query_dict.items():
+                rep = BenchReport(qsession)
+                s = rep.report_on(
+                    run_one_query, qsession, qtext, qname, None, "parquet",
+                    retry_oom=True, name=qname,
+                )
+                ms = s["queryTimes"][0]
+                rows.append((app_id, f"{tag}:{qname}", ms))
+                if s["queryStatus"][-1] == "Failed":
+                    failed += 1
+                else:
+                    times.append(float(ms))
         return times, failed
 
     dm_stats = {"functions": 0, "failed": 0, "elapsed_s": None,
@@ -483,21 +513,24 @@ def run_maintenance_under_load(
         # the caller raise
         t0 = time.perf_counter()
         try:
-            for fname, stmts in dm_queries.items():
-                rep = BenchReport(msession)
-                s = rep.report_on(run_dm_query, msession, stmts, fname)
-                rows.append((app_id, f"dm:{fname}", s["queryTimes"][0]))
-                if s["queryStatus"][-1] == "Failed":
-                    dm_stats["failed"] += 1
-                else:
-                    dm_stats["functions"] += 1
-            # vacuum while the stream still reads: the reader leases are
-            # the safety contract under test
-            for res in vacuum_warehouse(
-                warehouse_path, conf=msession.conf, retain_last=vacuum_retain,
-            ):
-                dm_stats["vacuums"] += 1
-                dm_stats["vacuum_files_removed"] += res["files_removed"]
+            with obs_trace.bind(msession.tracer):
+                for fname, stmts in dm_queries.items():
+                    rep = BenchReport(msession)
+                    s = rep.report_on(run_dm_query, msession, stmts, fname,
+                                      name=fname)
+                    rows.append((app_id, f"dm:{fname}", s["queryTimes"][0]))
+                    if s["queryStatus"][-1] == "Failed":
+                        dm_stats["failed"] += 1
+                    else:
+                        dm_stats["functions"] += 1
+                # vacuum while the stream still reads: the reader leases
+                # are the safety contract under test
+                for res in vacuum_warehouse(
+                    warehouse_path, conf=msession.conf,
+                    retain_last=vacuum_retain,
+                ):
+                    dm_stats["vacuums"] += 1
+                    dm_stats["vacuum_files_removed"] += res["files_removed"]
         except BaseException as exc:
             dm_stats["error"] = f"{type(exc).__name__}: {exc}"
         finally:

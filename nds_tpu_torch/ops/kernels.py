@@ -21,7 +21,12 @@ order and output contract, with two deliberate differences of idiom:
 
 from __future__ import annotations
 
+from functools import wraps
+from time import perf_counter as _perf
+
 import torch
+
+from ..obs import trace as _obs_trace
 
 I64 = torch.int64
 I32 = torch.int32
@@ -31,6 +36,84 @@ _I64_MIN = torch.iinfo(torch.int64).min
 
 #: spare slots past the end of a reducing scatter for the lanes it drops
 SPARE_SLOTS = 1024
+
+
+# ---------------------------------------------------------------------------
+# Per-kernel dispatch timing (`kernel_span` events)
+#
+# With kernel tracing on (engine.trace_kernels / NDS_TRACE_KERNELS, the
+# thread-bound Tracer's `kernel_spans` flag) every decorated entry point
+# below times its call to completion and emits one `kernel_span` event
+# (kernel, dur_ms, n = the leading input's length): a call whose output is
+# a CUDA tensor waits for it with torch.cuda.synchronize on that device,
+# trading the card's queueing for attribution (a profiling mode). Off, a
+# call costs one thread-local read and a None check. A call made inside a
+# fused chain (engine/fuse.py), while its build records the chain or while
+# a call replays it, emits nothing: in the JAX package a fused chain is one
+# executable whose trace skips the event and whose calls never enter the
+# decorator.
+# ---------------------------------------------------------------------------
+
+
+def _ktracer():
+    t = _obs_trace.current()
+    if t is not None and getattr(t, "kernel_spans", False):
+        return t
+    return None
+
+
+def _in_fused_chain() -> bool:
+    # lazy import: engine.columnar imports this module
+    from ..engine.columnar import _HOST
+
+    return getattr(_HOST, "tape", None) is not None
+
+
+def _lead_n(args) -> int:
+    """Leading input length for the event's `n` field (best effort)."""
+    for a in args:
+        if isinstance(a, (list, tuple)) and a:
+            a = a[0]
+        shape = getattr(a, "shape", None)
+        if shape:
+            return int(shape[0])
+    return 0
+
+
+def _cuda_device(out):
+    """The device of the first CUDA tensor in `out` (a tensor, or a tuple
+    or list holding tensors), else None."""
+    if isinstance(out, torch.Tensor):
+        return out.device if out.is_cuda else None
+    if isinstance(out, (list, tuple)):
+        for x in out:
+            d = _cuda_device(x)
+            if d is not None:
+                return d
+    return None
+
+
+def _ktraced(name):
+    def deco(fn):
+        @wraps(fn)
+        def wrapped(*args, **kwargs):
+            t = _ktracer()
+            if t is None or _in_fused_chain():
+                return fn(*args, **kwargs)
+            t0 = _perf()
+            out = fn(*args, **kwargs)
+            dev = _cuda_device(out)
+            if dev is not None:
+                torch.cuda.synchronize(dev)
+            t.emit(
+                "kernel_span",
+                kernel=name,
+                dur_ms=round((_perf() - t0) * 1000.0, 3),
+                n=_lead_n(args),
+            )
+            return out
+        return wrapped
+    return deco
 
 
 def _iota(n: int, device, dtype=I64) -> torch.Tensor:
@@ -95,6 +178,7 @@ def _compact_full(mask: torch.Tensor) -> torch.Tensor:
     return out[:n]
 
 
+@_ktraced("compact_indices")
 def compact_indices(mask: torch.Tensor, out_cap: int) -> torch.Tensor:
     """Indices of True entries, padded with 0 to out_cap."""
     full = _compact_full(mask)
@@ -125,6 +209,7 @@ def word_span(word: torch.Tensor) -> torch.Tensor:
     return torch.stack([w.min(), w.max()])
 
 
+@_ktraced("sort_by_words")
 def sort_by_words(words) -> torch.Tensor:
     """Stable lexicographic argsort by a list of words (most significant
     first): LSD passes over the stable kv-sort."""
@@ -152,6 +237,7 @@ def float_key_words(x: torch.Tensor):
     return ew, mw
 
 
+@_ktraced("group_by_words")
 def group_by_words(words, live_mask, nlive=None):
     """Sort, flag group boundaries and number them: (order, gid over the
     sorted rows, live group count). Words must place live rows first."""
@@ -205,6 +291,7 @@ def quantize_width(w: int) -> int:
     return 63  # force standalone
 
 
+@_ktraced("build_sort_words")
 def build_sort_words(spec, live, *arrays):
     """Encode sort keys into words under a static spec (see the JAX
     package's build_sort_words for the field grammar):
@@ -340,6 +427,7 @@ def _seg_index(gid, num_segments, keep=None):
     return torch.where(ok, gid.to(I64), spare)
 
 
+@_ktraced("segment_reduce")
 def segment_reduce(vals, gid, weight, num_segments, op):
     """Segment reduction with a live/validity weight mask.
     op: sum | min | max | count | sumsq. Lanes of weight False add nothing
@@ -376,6 +464,7 @@ def segment_reduce(vals, gid, weight, num_segments, op):
     raise ValueError(op)
 
 
+@_ktraced("segment_reduce_with_count")
 def segment_reduce_with_count(vals, gid, weight, num_segments, op):
     """(reduction, live count) per segment."""
     return (
@@ -384,6 +473,7 @@ def segment_reduce_with_count(vals, gid, weight, num_segments, op):
     )
 
 
+@_ktraced("batched_min_max")
 def batched_min_max(datas, valids, live):
     """Masked (min, max) of several int64 columns, stacked [k, 2]; an empty
     or all-null column yields (0, -1)."""
@@ -477,6 +567,7 @@ def _check_pair_count(total: int):
         )
 
 
+@_ktraced("join_candidates")
 def join_candidates(lkeys, lvalids, llive, rkeys, rvalids, rlive):
     """Hash-match candidate pairs; caller MUST verify real key equality.
     Returns (li, ri, pair_live, total_candidates)."""
@@ -495,6 +586,7 @@ def join_candidates(lkeys, lvalids, llive, rkeys, rvalids, rlive):
     return li, ri, pair_live, total
 
 
+@_ktraced("verify_pairs")
 def verify_pairs(li, ri, pair_live, lkeys, lvalids, llive, rkeys, rvalids,
                  rlive):
     """AND real key equality into the candidate mask (collision shield)."""
@@ -525,6 +617,7 @@ def matched_mask(li, ok, cap):
 # ---------------------------------------------------------------------------
 
 
+@_ktraced("member_lookup")
 def member_lookup(lwords, lnn, rwords, rnn):
     """Exact-word membership probe: for each left row, is its packed key
     word present among the live right words, and at which right row (the
@@ -554,6 +647,7 @@ def _member_probe(rw_sorted, order, lwords, lnn):
 # ---------------------------------------------------------------------------
 
 
+@_ktraced("dense_build")
 def dense_build(rkey, rlive, rmin, table_cap):
     """Presence/row-index tables over the key domain [rmin, rmin+table_cap);
     out-of-range and dead rows go to the spare slot (the jnp drop)."""
@@ -568,6 +662,7 @@ def dense_build(rkey, rlive, rmin, table_cap):
     return presence[:table_cap], rows[:table_cap]
 
 
+@_ktraced("dense_probe")
 def dense_probe(lkey, llive, rmin, presence, rows, table_cap):
     """Per left row: matched flag + matching right row (valid iff matched)."""
     slot = lkey.to(I64) - rmin
@@ -582,6 +677,7 @@ def dense_probe(lkey, llive, rmin, presence, rows, table_cap):
 # ---------------------------------------------------------------------------
 
 
+@_ktraced("direct_gid")
 def direct_gid(keys, valids, mins, ranges, live):
     """Mixed-radix group code per row (code 0 reserved for NULL when the
     key is nullable); dead rows get 0 and are excluded by weights."""
@@ -605,6 +701,7 @@ def occupied(gid, live, domain_cap):
     return occ[:domain_cap]
 
 
+@_ktraced("occupancy_map")
 def occupancy_map(gid, live, domain_cap):
     """Occupied cell mask + dense renumbering (cell -> 0..ngroups-1)."""
     occ = occupied(gid, live, domain_cap)

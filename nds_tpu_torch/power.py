@@ -21,6 +21,7 @@ from . import faults
 from .check import check_json_summary_folder, check_query_subset_exists
 from .engine.session import Session
 from .io.fs import fs_open, fs_open_atomic
+from .obs import trace as obs_trace
 from .report import BenchReport
 from .schema import get_schemas
 
@@ -202,6 +203,28 @@ def run_query_stream(
     check_json_summary_folder(json_summary_folder)
     session = Session(use_decimal=use_decimal, conf=conf, device=device)
     app_id = f"nds-tpu-torch-{os.getpid()}-{int(total_time_start)}"
+    try:
+        return _run_query_stream_body(
+            session, app_id, total_start_mono, input_prefix, property_file,
+            query_dict, time_log_output_path, extra_time_log_output_path,
+            sub_queries, input_format, use_decimal, output_path,
+            output_format, json_summary_folder, keep_session, start_gate,
+            execution_time_list,
+        )
+    finally:
+        # the stream is this tracer's only emitter: closing here (success
+        # or crash) releases the handle after the final line; a later emit
+        # is dropped loudly (obs/trace.py)
+        if not keep_session and session.tracer is not None:
+            session.tracer.close()
+
+
+def _run_query_stream_body(
+    session, app_id, total_start_mono, input_prefix, property_file,
+    query_dict, time_log_output_path, extra_time_log_output_path,
+    sub_queries, input_format, use_decimal, output_path, output_format,
+    json_summary_folder, keep_session, start_gate, execution_time_list,
+):
     execution_time_list = setup_tables(
         session, input_prefix, input_format, use_decimal, execution_time_list,
         app_id
@@ -220,23 +243,30 @@ def run_query_stream(
     # the epoch Power Start/End rows are the time log's contract; elapsed
     # figures are monotonic
     power_start_mono = time.perf_counter()
-    for query_name, q_content in query_dict.items():
-        print(f"====== Run {query_name} ======")
-        q_report = BenchReport(session)
-        summary = q_report.report_on(
-            run_one_query, session, q_content, query_name, output_path,
-            output_format, retry_oom=True,  # read-only: idempotent
-        )
-        print(f"Time taken: {summary['queryTimes']} millis for {query_name}")
-        execution_time_list.append((app_id, query_name, summary["queryTimes"][0]))
-        if json_summary_folder:
-            if property_file:
-                summary_prefix = os.path.join(
-                    json_summary_folder, os.path.basename(property_file).split(".")[0]
-                )
-            else:
-                summary_prefix = os.path.join(json_summary_folder, "")
-            q_report.write_summary(query_name, prefix=summary_prefix)
+    # bind this stream's tracer to the driver thread: session-less layers
+    # (fault registry, fs retries) emit into this stream's event file
+    # (BenchReport re-binds inside its watchdog worker thread itself)
+    with obs_trace.bind(session.tracer):
+        for query_name, q_content in query_dict.items():
+            print(f"====== Run {query_name} ======")
+            q_report = BenchReport(session)
+            summary = q_report.report_on(
+                run_one_query, session, q_content, query_name, output_path,
+                output_format, retry_oom=True,  # read-only: idempotent
+                name=query_name,
+            )
+            print(f"Time taken: {summary['queryTimes']} millis for {query_name}")
+            execution_time_list.append(
+                (app_id, query_name, summary["queryTimes"][0]))
+            if json_summary_folder:
+                if property_file:
+                    summary_prefix = os.path.join(
+                        json_summary_folder,
+                        os.path.basename(property_file).split(".")[0]
+                    )
+                else:
+                    summary_prefix = os.path.join(json_summary_folder, "")
+                q_report.write_summary(query_name, prefix=summary_prefix)
     power_end = int(time.time())
     power_elapse = int((time.perf_counter() - power_start_mono) * 1000)
     total_elapse = int((time.perf_counter() - total_start_mono) * 1000)

@@ -24,18 +24,22 @@ The summary's field set and the `<prefix>-<query>-<startTime>.json`
 filename contract are the reference's: `env.sparkConf` / `env.sparkVersion`
 and their aliases `env.engineConf` / `env.engineVersion` (always equal),
 `queryStatus`, `exceptions`, `ladder`, `retries`, `failureKind`,
-`taskFailures`, `queryTimes`, `startTime`. Tracing, the memory sampler
-(`memoryHighWater`), the host-RSS watermark and the flight recorder are
-ROADMAP.md queue 1 item 12: the summary is what the reference writes with
-NDS_FLIGHT_RECORDER=off.
+`taskFailures`, `queryTimes`, `startTime`, and `memoryHighWater` where
+the memory sampler ran.
 
-While a statement runs on a session with lakehouse entries, a heartbeat
-thread renews the session's reader leases every NDS_HEARTBEAT_INTERVAL_MS
-(default 1000; the reference renews them on its memory sampler's
-heartbeat of that knob), so a
-statement that outlives `engine.lake_lease_ttl_s` never has its pinned
-snapshot vacuumed mid-read. A session without lakehouse entries starts no
-thread.
+Observability: when the session carries a tracer (the flight recorder's
+ring-only one by default, a file tracer with engine.trace_dir),
+report_on emits a `query_span` event per benchmarked callable (status,
+duration, retries, memory high-water), a `ladder_rung` event per recovery
+rung, a `watchdog_fire` event when the watchdog abandons a hung attempt,
+and a `mem_watermark` event when the host-RSS watermark
+(`engine.host_rss_watermark`) pre-empts; a terminal failure flushes the
+flight recorder as a failure bundle. A MemorySampler (obs/memwatch.py)
+records the query's device-memory (or RSS) high-water into both the event
+and the summary. Its heartbeat renews the session's lakehouse reader
+leases every NDS_HEARTBEAT_INTERVAL_MS (default 1000), so a statement
+that outlives `engine.lake_lease_ttl_s` never has its pinned snapshot
+vacuumed mid-read.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ from . import __version__, faults
 from .engine.spill import DEFAULT_FORCE_PARTITIONS as _SPILL_RETRY_PARTS
 from .io.fs import fs_open_atomic, io_retry_budget
 from .lakehouse.table import commit_backoff_base, resolve_conflict_retries
+from .obs import trace as obs_trace
+from .obs.memwatch import MemorySampler
 
 _REDACTED = ("TOKEN", "SECRET", "PASSWORD", "PASSWD", "CREDENTIAL", "KEY")
 
@@ -67,54 +73,6 @@ _DEGRADED_WINDOW_ROWS = 1 << 18
 #: watchdog poll slice: the deadline loop re-checks spill progress at this
 #: granularity, so a timeout still fires within one slice of its budget
 _WATCHDOG_POLL_S = 0.25
-
-
-def heartbeat_seconds() -> float:
-    """Seconds between two heartbeats (NDS_HEARTBEAT_INTERVAL_MS, default
-    1000), read as nds_tpu/obs/memwatch.py reads it."""
-    return max(
-        float(os.environ.get("NDS_HEARTBEAT_INTERVAL_MS", "1000")) / 1000,
-        0.0)
-
-
-class _LeaseHeartbeat:
-    """Renews `catalog`'s lakehouse reader leases on a daemon thread every
-    heartbeat_seconds() while the context is open."""
-
-    def __init__(self, catalog, interval):
-        self.catalog = catalog
-        self.interval = interval
-        self._stop = threading.Event()
-        self._t = threading.Thread(target=self._run, name="nds-lease-heartbeat",
-                                   daemon=True)
-
-    def _run(self):
-        while not self._stop.wait(self.interval):
-            self.catalog.renew_lake_leases()
-
-    def __enter__(self):
-        self._t.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._t.join()
-        return False
-
-
-def _lease_heartbeat(session):
-    """A _LeaseHeartbeat over the session's catalog when it has lakehouse
-    entries and the heartbeat is on (a 0 interval turns it off), else
-    None."""
-    cat = getattr(session, "catalog", None)
-    interval = heartbeat_seconds()
-    if not interval or cat is None or not hasattr(
-            cat, "renew_lake_leases") or not any(
-        getattr(e, "fmt", None) == "lakehouse"
-        for e in getattr(cat, "entries", {}).values()
-    ):
-        return None
-    return _LeaseHeartbeat(cat, interval)
 
 
 def engine_conf(session) -> dict:
@@ -153,6 +111,22 @@ def use_system_arrow_pool() -> None:
         pa.set_memory_pool(pa.system_memory_pool())
 
 
+def host_rss_watermark(session) -> int:
+    """Host-RSS pre-emption watermark in bytes; 0 disables (the default).
+    Conf `engine.host_rss_watermark` wins over NDS_HOST_RSS_WATERMARK.
+    When the process RSS crosses it mid-query, the sampler shrinks the
+    blocked-union window for the remaining windows and later queries and
+    records a `host_watermark_shrink` ladder entry: recovery before the
+    allocator fails, instead of after."""
+    v = getattr(session, "conf", {}).get(
+        "engine.host_rss_watermark"
+    ) or os.environ.get("NDS_HOST_RSS_WATERMARK")
+    try:
+        return max(int(v), 0) if v else 0
+    except (TypeError, ValueError):
+        return 0
+
+
 def query_timeout(session) -> float:
     """Per-query watchdog budget in seconds; 0 disables (the default).
     Conf `engine.query_timeout` wins over the NDS_QUERY_TIMEOUT env knob."""
@@ -170,6 +144,13 @@ class BenchReport:
 
     def __init__(self, session) -> None:
         self.session = session
+        # everything this report (and its sampler thread) emits rides the
+        # session's tracer
+        self.tracer = getattr(session, "tracer", None)
+        # live telemetry (obs/metrics.py): the sink learns query starts
+        # directly (query_span comes only at the end, too late for
+        # /statusz's in-flight view); all else reaches it through emit
+        self.sink = getattr(session, "metrics", None)
         self.summary = {
             "env": {
                 "envVars": {},
@@ -187,6 +168,7 @@ class BenchReport:
             "queryTimes": [],
             "retries": 0,
         }
+        self._name = None  # query/function label for emitted events
 
     # ------------------------------------------------------------------
     # single attempt, optionally under the watchdog
@@ -223,7 +205,11 @@ class BenchReport:
 
         def _worker():
             try:
-                box["err"] = _call()
+                # re-bind the session tracer: thread-locals don't inherit,
+                # and session-less layers (fault registry, fs retries) find
+                # their tracer through the thread-local binding
+                with obs_trace.bind(self.tracer):
+                    box["err"] = _call()
             except BaseException as e:  # InjectedCrash: re-raised on the caller
                 box["crash"] = e
             finally:
@@ -264,6 +250,10 @@ class BenchReport:
             fired = True
             break
         if fired:
+            if self.tracer is not None:
+                self.tracer.emit(
+                    "watchdog_fire", query=self._name, budget_s=timeout,
+                )
             return (
                 f"{_WATCHDOG_MARK}: query exceeded the {timeout:.1f}s budget "
                 f"(engine.query_timeout / NDS_QUERY_TIMEOUT); worker abandoned"
@@ -271,6 +261,38 @@ class BenchReport:
         if "crash" in box:
             raise box["crash"]
         return box.get("err")
+
+    def _flight_flush(self, reason: str, rungs, sampler=None):
+        """Flush the process flight ring as a failure bundle for this
+        query's incident (watchdog fire, ladder exhaustion, terminal
+        failure). Best-effort: forensics must never take the stream down,
+        and a disabled recorder is a no-op."""
+        from .obs import flight as obs_flight
+        from .obs.memwatch import device_bytes_per_device, rss_bytes
+
+        rec = obs_flight.recorder()
+        if rec is None:
+            return
+        conf = getattr(self.session, "conf", {}) or {}
+        budget = getattr(self.session, "last_plan_budget", None)
+        memory = {
+            "rss_bytes": rss_bytes(),
+            "device_bytes_per_device": device_bytes_per_device(),
+            "mem_hw_bytes": getattr(sampler, "peak_bytes", None),
+            "mem_hw_per_device": getattr(sampler, "peak_per_device", None),
+            "mem_source": getattr(sampler, "source", None),
+        }
+        ctx = getattr(self.tracer, "context", None)
+        rec.flush(
+            reason,
+            trace_id=getattr(ctx, "trace_id", None),
+            query=self._name,
+            budget=budget if isinstance(budget, dict) else None,
+            ladder=list(rungs) if rungs else None,
+            memory=memory,
+            conf=conf,
+            out_dir=obs_flight.resolve_flight_dir(conf),
+        )
 
     # ------------------------------------------------------------------
     # degradation ladder
@@ -425,14 +447,19 @@ class BenchReport:
             return {"delay_s": round(delay, 3)}
         return None
 
-    def report_on(self, fn: Callable, *args, retry_oom: bool = False):
+    def report_on(self, fn: Callable, *args, retry_oom: bool = False,
+                  name: str = None):
         """Run fn(*args), recording env (secrets redacted), status and time.
 
         retry_oom: allow the retrying ladder rungs (the caller guarantees
         fn is idempotent: read-only queries yes, DML no). Other callables
         still get classification, the watchdog and full attempt records;
         they just never re-run. The ladder reads the budgeter's record of
-        the statement from the session's `last_plan_budget`."""
+        the statement from the session's `last_plan_budget`.
+
+        name: query/function label for emitted trace events (the summary
+        itself gets its name later, in write_summary)."""
+        self._name = name
         env_vars = {
             k: v
             for k, v in os.environ.items()
@@ -453,14 +480,110 @@ class BenchReport:
         except AttributeError:
             pass
         timeout = query_timeout(self.session)
-        heartbeat = _lease_heartbeat(self.session)
         start_time = int(time.time() * 1000)
+        start_mono = time.perf_counter()
         rungs: list[dict] = []
         attempt_errors: list[str] = []
+        # memory high-water sampling rides with a tracer (the flight
+        # recorder's ring-only one by default, so every reported query
+        # unless NDS_FLIGHT_RECORDER=off with no trace dir), a configured
+        # host-RSS watermark, or lakehouse leases to renew
+        watermark = host_rss_watermark(self.session)
+        if hasattr(self.session, "_mem_pressure"):
+            self.session._mem_pressure = False
+        # hysteresis: RSS rarely drops back once crossed (allocators keep
+        # their pages), so the latch re-arms only after a query starts
+        # below the watermark again: one shrink per excursion
+        if watermark and getattr(self.session, "_rss_above_watermark", False):
+            from .obs.memwatch import rss_bytes
+
+            r = rss_bytes()
+            if r is not None and r < watermark:
+                self.session._rss_above_watermark = False
+
+        def _on_watermark(rss):
+            # sampler-thread callback, at most once per query: shrink the
+            # blocked-union window for the remaining windows (the
+            # executor's window loop polls _mem_pressure) and for every
+            # later statement of the session, and leave ladder evidence
+            session = self.session
+            if getattr(session, "_rss_above_watermark", False):
+                return  # same excursion as an earlier query: shrunk already
+            session._rss_above_watermark = True
+            conf = getattr(session, "conf", None)
+            new = None
+            if conf is not None:
+                cur = self._explicit_window()
+                new = max(int(cur) // 2, 4096) if cur else _DEGRADED_WINDOW_ROWS
+                # never grow past the budgeter's static window
+                rec = (self._budget_prediction() or {}).get("window_rows")
+                if rec:
+                    new = min(new, int(rec))
+                conf["engine.union_agg_window_rows"] = new
+            if hasattr(session, "_mem_pressure"):
+                session._mem_pressure = True
+            # host-tier relief: tier the spill pool's RAM segments to disk
+            # before the allocator fails (only a pool that exists already)
+            spilled = 0
+            pool = getattr(session, "_spill_pool", None)
+            if pool is not None:
+                try:
+                    spilled = pool.evict_host()
+                except Exception:
+                    spilled = 0  # relief is best-effort, never fatal here
+            rungs.append({
+                "rung": "host_watermark_shrink",
+                "kind": faults.HOST_OOM,
+                "rss_bytes": int(rss),
+                **({"window_rows": new} if new else {}),
+                **({"spill_segments_evicted": spilled} if spilled else {}),
+            })
+            if self.tracer is not None:
+                self.tracer.emit(
+                    "mem_watermark", query=self._name, rss_bytes=int(rss),
+                    watermark_bytes=watermark,
+                    **({"window_rows": new} if new else {}),
+                )
+            notify = getattr(session, "notify_failure", None)
+            if notify is not None:
+                notify(
+                    f"host RSS watermark crossed ({rss} >= {watermark}); "
+                    f"blocked-union window shrunk pre-emptively"
+                )
+
+        # lease renewal on the sampler's heartbeat, armed only when the
+        # session serves lakehouse tables (else no thread per statement
+        # unless a tracer or watermark wants one)
+        cat = getattr(self.session, "catalog", None)
+        renews_leases = hasattr(cat, "renew_lake_leases") and any(
+            getattr(e, "fmt", None) == "lakehouse"
+            for e in getattr(cat, "entries", {}).values()
+        )
+        sampler = (
+            MemorySampler(
+                watermark_bytes=watermark or None,
+                on_watermark=_on_watermark if watermark else None,
+                # the sampler thread is the liveness beacon too: it
+                # heartbeats through the tracer (passed explicitly, since
+                # thread-locals don't reach its thread)
+                tracer=self.tracer,
+                query=name,
+                on_heartbeat=cat.renew_lake_leases if renews_leases else None,
+            )
+            if self.tracer is not None or watermark or renews_leases
+            else None
+        )
+        if self.sink is not None:
+            # the app id keys the sink's in-flight record to this stream
+            self.sink.query_started(
+                name, app=getattr(self.tracer, "app_id", None),
+            )
         try:
-            if heartbeat is not None:
-                heartbeat.__enter__()
+            if sampler is not None:
+                sampler.__enter__()
+            att_t0 = time.perf_counter()
             err = self._attempt(fn, args, timeout)
+            att_ms = (time.perf_counter() - att_t0) * 1000.0
             while err is not None:
                 attempt_errors.append(err)
                 kind = faults.classify(err)
@@ -473,19 +596,32 @@ class BenchReport:
                 if detail:
                     entry.update(detail)
                 rungs.append(entry)
+                if self.tracer is not None:
+                    # attempt_ms: the failed attempt's wall this rung
+                    # recovers from (the critical path's ladder-retry cause)
+                    self.tracer.emit(
+                        "ladder_rung", query=name, rung=rung,
+                        failure_kind=kind, attempt_ms=round(att_ms, 3),
+                        **(detail or {}),
+                    )
+                att_t0 = time.perf_counter()
                 err = self._attempt(fn, args, timeout)
+                att_ms = (time.perf_counter() - att_t0) * 1000.0
             if err is not None and faults.classify(err) == faults.DEVICE_OOM:
                 # terminal OOM: drop the caches once more so the failure
                 # cannot poison the rest of the stream
                 if hasattr(self.session, "recover_memory"):
                     self.session.recover_memory("device memory exhausted")
         finally:
-            if heartbeat is not None:
-                heartbeat.__exit__(None, None, None)
+            if sampler is not None:
+                sampler.__exit__(None, None, None)
             if registered:
                 self.session.unregister_listener(failures.append)
         end_time = int(time.time() * 1000)
-        self.summary["retries"] = len(rungs)
+        # watermark pre-emption leaves ladder evidence but is not a retry
+        self.summary["retries"] = sum(
+            1 for r in rungs if r["rung"] != "host_watermark_shrink"
+        )
         if rungs:
             self.summary["ladder"] = rungs
         if err is None:
@@ -501,11 +637,42 @@ class BenchReport:
             self.summary["queryStatus"].append("Failed")
             self.summary["exceptions"].extend(attempt_errors)
             self.summary["failureKind"] = faults.classify(err)
+            # flight recorder: a terminal failure leaves a self-contained
+            # bundle (ring, plan, budget, ladder, memory, conf) even with
+            # no trace dir; the reason names what exhausted
+            kind = self.summary["failureKind"]
+            self._flight_flush(
+                "watchdog" if kind == faults.TIMEOUT
+                else "ladder_exhausted" if rungs
+                else "query_failed",
+                rungs, sampler=sampler,
+            )
         self.summary["startTime"] = start_time
-        # the epoch-ms difference is the queryTimes report contract
+        # the epoch-ms difference is the queryTimes report contract; the
+        # monotonic duration rides the query_span event below
         self.summary["queryTimes"].append(end_time - start_time)
         if failures:
             self.summary["taskFailures"] = list(failures)
+        if sampler is not None and sampler.peak_bytes is not None:
+            self.summary["memoryHighWater"] = {
+                "bytes": sampler.peak_bytes,
+                "source": sampler.source,
+            }
+        if self.tracer is not None:
+            ev = {
+                "query": name,
+                "dur_ms": round((time.perf_counter() - start_mono) * 1000, 3),
+                "status": self.summary["queryStatus"][-1],
+                "retries": self.summary["retries"],
+            }
+            if err is not None:
+                ev["failure_kind"] = self.summary["failureKind"]
+            if sampler is not None and sampler.peak_bytes is not None:
+                ev["mem_hw_bytes"] = sampler.peak_bytes
+                ev["mem_source"] = sampler.source
+                if sampler.peak_per_device is not None:
+                    ev["mem_hw_per_device"] = list(sampler.peak_per_device)
+            self.tracer.emit("query_span", **ev)
         return self.summary
 
     def write_summary(self, query_name: str, prefix: str = "") -> str:

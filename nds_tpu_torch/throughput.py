@@ -28,7 +28,12 @@ import sys
 import threading
 import time
 
-from .power import gen_sql_from_stream, get_query_subset, run_query_stream
+from .power import (
+    gen_sql_from_stream,
+    get_query_subset,
+    load_properties,
+    run_query_stream,
+)
 from .report import use_system_arrow_pool
 
 
@@ -229,6 +234,86 @@ def stream_wait_budget(query_timeout=None, n_queries: int = 103):
     return None
 
 
+def _fold_child_streams(tracer, trace_dir, pre_existing, launches):
+    """Fold the event files the child-stream processes wrote into the
+    parent's own event log: one `child_stream` summary event per stream,
+    plus a best-effort failure classification per stream (the parent only
+    sees an exit code; the child's events say WHY it died). A child that
+    rotated (engine.trace_rotate_bytes) leaves a SEGMENT CHAIN; discovery
+    returns it in rotation order (obs.reader.segment_key) and the filter
+    below preserves that order, so the summary and the classification
+    read the child's whole stream in emission order.
+
+    Attribution is by TRACE CONTEXT, not pid: each file's `trace_meta`
+    line is verified against the stream's LAUNCH RECORD — the trace_id
+    the parent minted and exported (NDS_TRACE_CONTEXT) when authoritative,
+    else pid PLUS emission-time >= launch time. A recycled pid's leftover
+    file from some long-dead process can no longer mis-blame this run's
+    stream (the historical `-<pid>-` filename match trusted the pid
+    alone). `launches` is {stream_num: {"pid", "ts_ms", "trace_id"}}.
+    Returns {stream_num: failure_kind} for streams whose events record a
+    failure."""
+    from .obs import reader as obs_reader
+
+    kinds = {}
+    new = [
+        f
+        for f in obs_reader.discover_event_files(trace_dir)
+        if f not in pre_existing
+    ]
+    metas = {f: obs_reader.trace_meta_of(f) for f in new}
+    for n, rec in sorted(launches.items()):
+        mine = [
+            f for f in new
+            if (
+                obs_reader.meta_matches_launch(
+                    metas[f], pid=rec.get("pid"),
+                    launch_ts_ms=rec.get("ts_ms"),
+                    trace_id=rec.get("trace_id"),
+                )
+                # a NEW file with an unreadable/missing meta line (child
+                # killed before the eager meta landed, or its first line
+                # torn): keep the OLD pid-filename evidence so an
+                # instant death still yields its queries=0 marker — only
+                # files whose meta READS and mismatches are rejected
+                or (
+                    metas[f] is None
+                    and f"-{rec.get('pid')}-" in os.path.basename(f)
+                )
+            )
+        ]
+        if not mine:
+            continue
+        try:
+            events = obs_reader.read_events(mine, strict=False)
+        except OSError as exc:
+            # observability must never take the benchmark down: an
+            # unreadable child file still leaves a fold-in marker
+            tracer.emit(
+                "child_stream", stream=n,
+                files=[os.path.basename(f) for f in mine],
+                queries=0, completed=0, failed={}, failure_kinds=[],
+                error=str(exc)[:200],
+                child_trace_id=rec.get("trace_id"),
+            )
+            continue
+        s = obs_reader.summarize_stream(events)
+        tracer.emit(
+            "child_stream",
+            stream=n,
+            files=[os.path.basename(f) for f in mine],
+            queries=s["queries"],
+            completed=s["completed"],
+            failed=s["failed"],
+            failure_kinds=s["failure_kinds"],
+            child_trace_id=rec.get("trace_id"),
+        )
+        k = obs_reader.failure_kind_from_events(events)
+        if k is not None:
+            kinds[n] = k
+    return kinds
+
+
 def _run_throughput_processes(
     input_prefix, stream_paths, time_log_base, input_format, use_decimal,
     property_file, json_summary_folder, output_path, output_format,
@@ -237,10 +322,31 @@ def _run_throughput_processes(
     """One `nds_tpu_torch.cli.power` subprocess per stream, all concurrent,
     each logging to `<time_log_base>_<n>.out`. A child still running after
     stream_wait_budget is killed; a failed or killed child fails the run
-    with its log's tail."""
+    with its log's tail.
+
+    With a trace directory each child writes its own event file under a
+    trace context the parent minted for it (NDS_TRACE_CONTEXT); the parent
+    folds per-stream summaries into its own event log afterwards and
+    classifies a nonzero exit from the child's events."""
     import subprocess
 
+    from .obs import reader as obs_reader
+    from .obs import trace as obs_trace
+
+    # resolve the trace dir as the children will (the property file's
+    # conf tier, then the environment)
+    conf = load_properties(property_file) if property_file else None
+    trace_dir = obs_trace.resolve_trace_dir(conf)
+    tracer = obs_trace.tracer_from_conf(conf)
+    # the children's trace_ids parent to this context, so a folded log
+    # reads as one run across the process boundary
+    parent_ctx = (
+        getattr(tracer, "context", None)
+        or obs_trace.resolve_trace_context("throughput")
+    )
+    pre_existing = set(obs_reader.discover_event_files(trace_dir))
     procs = {}
+    launches = {}  # stream -> {"pid", "ts_ms", "trace_id"} (fold-in key)
     failures = {}
     try:
         for n, path in sorted(stream_paths.items()):
@@ -271,14 +377,24 @@ def _run_throughput_processes(
             # would block a chatty stream on pipe backpressure, stretching
             # its window and corrupting Ttt
             logf = open(f"{time_log_base}_{n}.out", "w")
+            # per-child trace context: the child adopts this trace_id
+            # (tracer_from_conf reads NDS_TRACE_CONTEXT), and the parent
+            # folds its event files by it instead of by pid
+            ctx = parent_ctx.child(f"stream{n}")
+            env = ctx.export(dict(os.environ))
             try:
                 p = subprocess.Popen(
-                    cmd, stdout=logf, stderr=subprocess.STDOUT,
+                    cmd, stdout=logf, stderr=subprocess.STDOUT, env=env,
                 )
             except BaseException:
                 logf.close()
                 raise
             procs[n] = (p, logf)
+            launches[n] = {
+                "pid": p.pid,
+                "ts_ms": int(time.time() * 1000),
+                "trace_id": ctx.trace_id,
+            }
         budget = stream_wait_budget(
             query_timeout, len(sub_queries) if sub_queries else 103
         )
@@ -308,11 +424,19 @@ def _run_throughput_processes(
                 p.kill()
                 p.wait()
             logf.close()
-    # the reference folds the children's trace events into its own log and
-    # classifies a failed child from them (_fold_child_streams) when a
-    # tracer is configured; tracing is ROADMAP.md queue 1 item 12, and a
-    # child with one configured refuses to start, so there is nothing to
-    # fold here
+    if tracer is not None:
+        try:
+            child_kinds = _fold_child_streams(
+                tracer, trace_dir, pre_existing, launches
+            )
+            for n, kind in child_kinds.items():
+                if n in failures:
+                    failures[n] = (
+                        f"[classified {kind} from the stream's event log] "
+                        f"{failures[n]}"
+                    )
+        finally:
+            tracer.close()
     if failures:
         raise RuntimeError(f"throughput stream processes failed: {failures}")
     return _ttt_from_logs(stream_paths, time_log_base)

@@ -26,9 +26,9 @@ stages and commits. Fact chunks are sorted by their date surrogate key and
 split into bounded files, so each file covers a narrow key range and its
 zone map (lakehouse/zonemap.py) prunes. The workers decode and write on
 the host; nothing here touches CUDA. Only the lakehouse may go to a remote
-(fsspec) output. The reference's `ingest_chunk` trace events are not
-emitted (the tracer is ROADMAP.md queue 1 item 12). pyarrow is imported
-inside the functions that read and write.
+(fsspec) output. Each committed (or skipped) chunk emits an
+`ingest_chunk` trace event. pyarrow is imported inside the functions that
+read and write.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import shutil
 import threading
 import time
 from datetime import datetime
+from time import perf_counter as _perf
 from types import SimpleNamespace
 
 from .io.csv import iter_dat_batches, iter_dat_chunk_tables
@@ -324,7 +325,9 @@ class _Prefetch:
 
         try:
             for p in paths:
-                self._q.put((p, read_dat_file(p, schema, use_decimal)))
+                t0 = _perf()
+                tbl = read_dat_file(p, schema, use_decimal)
+                self._q.put((p, tbl, (_perf() - t0) * 1000.0))
         except BaseException as e:  # surfaced to the consumer thread
             self._q.put(e)
         else:
@@ -347,17 +350,46 @@ def _ingest_chunks(dst, table, schema, use_decimal, chunk_files, part_col):
     lease). Returns (rows_committed, chunks_committed); chunks already in
     the ledger count toward neither."""
     from .lakehouse.table import LakehouseTable
+    from .obs import trace as obs_trace
 
     lt = LakehouseTable(dst)
+    tracer = obs_trace.current()
+    ctx = owned = None
+    if tracer is None:
+        # CLI / pool-worker path: no session bound a tracer in this
+        # thread, so build one from the environment (NDS_TRACE_DIR etc.)
+        # and bind it: fault hooks and ingest events land in the stream
+        # that profile --critical-path reads
+        tracer = owned = obs_trace.tracer_from_conf(None)
+        if tracer is not None:
+            ctx = obs_trace.bind(tracer)
+            ctx.__enter__()
     rows = committed = 0
-    for path, tbl in _Prefetch(chunk_files, schema, use_decimal):
-        version = lt.ingest_chunk(
-            tbl, _chunk_id(table, path), cluster_by=part_col,
-            max_file_bytes=_ingest_file_bytes(),
-        )
-        if version is not None:
-            rows += tbl.num_rows
-            committed += 1
+    try:
+        for path, tbl, decode_ms in _Prefetch(chunk_files, schema,
+                                              use_decimal):
+            chunk = _chunk_id(table, path)
+            t0 = _perf()
+            version = lt.ingest_chunk(
+                tbl, chunk, cluster_by=part_col,
+                max_file_bytes=_ingest_file_bytes(),
+            )
+            commit_ms = (_perf() - t0) * 1000.0
+            if tracer is not None:
+                tracer.emit(
+                    "ingest_chunk", table=table, chunk=chunk,
+                    rows=tbl.num_rows, decode_ms=round(decode_ms, 3),
+                    commit_ms=round(commit_ms, 3),
+                    skipped=version is None, version=version,
+                )
+            if version is not None:
+                rows += tbl.num_rows
+                committed += 1
+    finally:
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
+        if owned is not None:
+            owned.close()
     return rows, committed
 
 

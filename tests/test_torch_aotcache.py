@@ -7,9 +7,8 @@ eviction, persisted promotion verdicts). Where a case runs queries, the
 JAX package's session answers the same query with its own cache in its
 own private directory.
 
-One case of the reference waits for the port's tracing (ROADMAP.md queue 1
-item 12): `test_aot_events_ride_the_trace`; the cache's counters stand in
-for its events here.
+The reference's `test_aot_events_ride_the_trace` runs through the port in
+tests/test_torch_obs.py, with the other cases that needed the tracer.
 """
 
 import json

@@ -662,7 +662,8 @@ def test_query_timeout_resolution(monkeypatch):
     assert TR.query_timeout(ts) == 0.0
 
 
-#: unported knobs the harness reads, with their environment knobs
+#: knobs the harness reads, unported until their items (verify_plans: item
+#: 9.5; the others: item 12a), with their environment knobs
 _REPORT_KNOBS = {
     "engine.host_rss_watermark": "NDS_HOST_RSS_WATERMARK",
     "engine.verify_plans": "NDS_VERIFY_PLANS",
@@ -672,7 +673,7 @@ _REPORT_KNOBS = {
 
 
 @pytest.mark.parametrize("knob", sorted(_REPORT_KNOBS))
-def test_unported_report_knobs_raise(knob, monkeypatch):
+def test_unported_report_knobs_raise(knob, monkeypatch, tmp_path):
     if knob == "engine.verify_plans":
         # ported: the session starts, and its plans check the level as the
         # reference's do (off | final | all)
@@ -686,19 +687,46 @@ def test_unported_report_knobs_raise(knob, monkeypatch):
             assert TorchSession(conf={knob: level}, device="cpu").sql(
                 "select 1 as a").to_pylist() == [{"a": 1}]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        TorchSession(conf={knob: "1"}, device="cpu")
-    TorchSession(conf={knob: "off"}, device="cpu")
-    # 0 leaves only the watermark off, as in the reference: a metrics port
-    # of 0 binds an ephemeral port, and a trace_dir of 0 names a directory
-    monkeypatch.setenv(_REPORT_KNOBS[knob], "0")
-    for conf in ({}, {knob: "0"}):
-        if knob == "engine.host_rss_watermark":
-            TorchSession(conf=conf, device="cpu")
-        else:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md queue 1 item"):
-                TorchSession(conf=conf, device="cpu")
+    # ported by item 12a (obs/): the knob turns its layer on, from the conf
+    # and from the environment, as the reference's resolver reads it
+    from nds_tpu_torch.obs import metrics as TM
+
+    for var in _REPORT_KNOBS.values():
+        monkeypatch.delenv(var, raising=False)
+    env = _REPORT_KNOBS[knob]
+    if knob == "engine.host_rss_watermark":
+        for conf, want in (({knob: "1"}, 1), ({knob: "off"}, 0), ({}, 0)):
+            s = TorchSession(conf=conf, device="cpu")
+            assert TR.host_rss_watermark(s) == JR.host_rss_watermark(s) == want
+        monkeypatch.setenv(env, "4096")
+        assert TR.host_rss_watermark(TorchSession(device="cpu")) == 4096
+        # 0 leaves only the watermark off, as in the reference
+        monkeypatch.setenv(env, "0")
+        assert TR.host_rss_watermark(TorchSession(device="cpu")) == 0
+        return
+    if knob == "engine.trace_dir":
+        for where in ("conf", "env"):
+            d = str(tmp_path / where)
+            if where == "env":
+                monkeypatch.setenv(env, d)
+            s = TorchSession(conf={knob: d} if where == "conf" else {},
+                             device="cpu")
+            assert os.path.dirname(s.tracer.path) == d
+            s.tracer.close()
+            assert os.listdir(d) == [os.path.basename(s.tracer.path)]
+        return
+    # a metrics port of 0 binds an ephemeral port, in conf and environment
+    monkeypatch.setenv("NDS_METRICS_HOST", "127.0.0.1")
+    TM.reset_shared()
+    try:
+        assert TorchSession(device="cpu").metrics is None
+        s = TorchSession(conf={knob: "0"}, device="cpu")
+        assert s.metrics is TM.shared_sink() and TM.active_server().port > 0
+        monkeypatch.setenv(env, "0")
+        assert TorchSession(device="cpu").metrics is s.metrics
+        assert TorchSession(conf={knob: "off"}, device="cpu").metrics is None
+    finally:
+        TM.reset_shared()
 
 
 # ---------------------------------------------------------------------------

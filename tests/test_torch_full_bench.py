@@ -15,7 +15,9 @@ cli/bench.py and bench.yml) against the JAX package's (nds_tpu/full_bench.py).
   only, and with it taken out each command equals the JAX package's with
   its module renamed.
 - A trace directory (NDS_TRACE_DIR or engine.trace_dir in the power
-  property file) raises naming ROADMAP.md item 12 before a phase runs.
+  property file) turns the orchestrator's tracer on: the same phase
+  events as the JAX package's, a trace context per phase; a metrics port
+  serves the phases' progress.
 - One real run of `python -m nds_tpu_torch.cli.bench --device cpu` at
   SF0.01 with 3 streams in tmp_path, crashed at power_test and resumed; the
   JAX package's parsers and metric read the port's report files to the
@@ -37,15 +39,18 @@ from hypothesis import strategies as st
 
 from nds_tpu import faults as JF
 from nds_tpu import full_bench as JFB
+from nds_tpu.obs import reader as JOR
 from nds_tpu.obs import trace as JOT
 from nds_tpu_torch import faults as TF
 from nds_tpu_torch import full_bench as TFB
+from nds_tpu_torch.obs import reader as TOR
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_join_cases import strict_budget  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = {"jax": (JFB, JF), "port": (TFB, TF)}
+READERS = {"jax": JOR, "port": TOR}
 HYP = settings(max_examples=150, deadline=None, database=None)
 
 
@@ -500,35 +505,80 @@ def test_summary_folders_go_to_the_device_phases(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("where", ["env", "property_file"])
 def test_trace_dir_raises_before_any_phase(tmp_path, monkeypatch, where):
-    params = _bench_params(tmp_path / "bench")
-    conf_dir = tmp_path / "conf"
-    conf_dir.mkdir()
-    trace_dir = str(tmp_path / "trace")
-    if where == "env":
-        monkeypatch.setenv("NDS_TRACE_DIR", trace_dir)
-    else:
-        prop = conf_dir / "engine.properties"
-        prop.write_text(f"engine.pallas_join=on\nengine.trace_dir={trace_dir}\n")
-        params["power_test"]["property_path"] = str(prop)
-    # the JAX orchestrator turns its tracer on for the same knob
-    assert JOT.resolve_trace_dir(JFB._bench_trace_conf(params)) == trace_dir
-    cmds = []
-    monkeypatch.setattr(subprocess, "run", _recording_run(cmds))
-    monkeypatch.setenv("NDS_FAULT_SPEC", "crash:data_gen")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TFB.run_full_bench(params, device="cpu")
-    assert cmds == []
-    assert not TF.active()  # raised before the injection sites were armed
-    assert sorted(os.listdir(tmp_path)) == ["conf"]
+    """Ported since ROADMAP.md item 12a (the name is kept): a trace
+    directory from the environment or the power_test property file turns
+    the orchestrator's tracer on. Over the same stubbed phases both
+    packages write the same phase begin / end events, every phase's
+    subprocesses run under a trace context minted for that phase as a
+    child of the orchestrator's, and the metrics carry the plan-feedback
+    keys at their default."""
+    phases = {}
+    for name, (FB, _) in PKGS.items():
+        root = tmp_path / name
+        root.mkdir()
+        params = _full_params(root)
+        trace_dir = str(root / "trace")
+        if where == "env":
+            monkeypatch.setenv("NDS_TRACE_DIR", trace_dir)
+        else:
+            monkeypatch.delenv("NDS_TRACE_DIR", raising=False)
+            prop = params["power_test"]["property_path"]
+            with open(prop, "a") as f:
+                f.write(f"engine.trace_dir={trace_dir}\n")
+        # the orchestrator resolves it as the reference's tracer does
+        assert JOT.resolve_trace_dir(FB._bench_trace_conf(params)) == \
+            trace_dir
+        cmds, ctxs = [], []
+        record = _recording_run(cmds)
+
+        def run(cmd, check=False, **kw):
+            ctxs.append(os.environ.get("NDS_TRACE_CONTEXT"))
+            return record(cmd, check=check, **kw)
+
+        monkeypatch.setattr(subprocess, "run", run)
+        kw = {"device": "cpu"} if name == "port" else {}
+        metrics = FB.run_full_bench(params, **kw)
+        assert metrics["feedback_hit_rate"] is None
+        assert metrics["budget_err_median"] is None
+        evs = READERS[name].read_events(trace_dir, strict=True)
+        assert READERS[name].validate_events(evs) == []
+        root_id = evs[0]["trace_id"]
+        assert evs[0]["kind"] == "trace_meta"
+        for ctx in ctxs:
+            child, parent = ctx.split(",")
+            assert parent == root_id and child != root_id
+        assert len(set(ctxs)) == 9  # one context per phase that ran
+        phases[name] = [(e["phase"], e["event"], e.get("status"))
+                        for e in evs if e["kind"] == "phase"]
+    assert phases["port"] == phases["jax"]
+    assert [p for p, ev, _ in phases["port"] if ev == "begin"] == [
+        p for p in TFB.PHASES]
+    assert all(st in (None, "ok") for _, _, st in phases["port"])
 
 
 def test_metrics_port_raises_before_any_phase(tmp_path, monkeypatch):
+    """Ported since ROADMAP.md item 12a (the name is kept): a metrics port
+    gives the orchestrator a sink-only tracer whose endpoint serves the
+    phases' progress; the run completes."""
+    from nds_tpu_torch.obs import metrics as TM
+
     monkeypatch.setenv("NDS_METRICS_PORT", "0")
+    monkeypatch.setenv("NDS_METRICS_HOST", "127.0.0.1")
+    monkeypatch.delenv("NDS_TRACE_DIR", raising=False)
     cmds = []
     monkeypatch.setattr(subprocess, "run", _recording_run(cmds))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TFB.run_full_bench(_bench_params(tmp_path))
-    assert cmds == [] and os.listdir(tmp_path) == []
+    TM.reset_shared()
+    try:
+        metrics = TFB.run_full_bench(_full_params(tmp_path), device="cpu")
+        assert metrics["perf_metric"] > 0 and cmds
+        assert "feedback_hit_rate" not in metrics  # no trace directory
+        reg = TM.shared_sink().registry
+        assert reg.counter_value("nds_phase_total", phase="power_test",
+                                 event="end") == 1
+        st = TM.shared_sink().status_snapshot()
+        assert st["last_phase"]["status"] == "ok"
+    finally:
+        TM.reset_shared()
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,11 @@ call runs the eager path's tensor ops in the same order) and the JAX
 package's fused result within nds_tpu.validate.compare's 1e-5 epsilon
 (integers, dates and strings exactly). The plan shapes, the pinned
 signatures, the entry reuse, donation, top-k, the join-order memo and the
-plan cache are held to the JAX package's behaviour. Three cases of the
-reference have no counterpart here: its two kernel-span tracing cases and
-the trace-event half of its exec-cache case wait for the port's tracing
-(ROADMAP.md queue 1 item 12), and its SF10 bench-isolation helpers belong
-to bench.py, which the port has not ported.
+plan cache are held to the JAX package's behaviour. The reference's two
+kernel-span tracing cases and the trace-event half of its exec-cache case
+run through the port in tests/test_torch_obs.py; its SF10
+bench-isolation helpers belong to bench.py, which the port has not
+ported.
 
 Both engines run without a persistent cache (engine.aot_cache_dir="");
 tests/test_torch_aotcache.py covers it in private directories.

@@ -5,6 +5,11 @@ it runs on a machine that has only torch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
+The observability layer's card-only behaviour is here too: a kernel span
+waits for its CUDA result, the memory sampler reads the caching
+allocator (and creates no CUDA context in a spawn child), and
+/debug/jaxprof writes a torch.profiler trace.
+
 Tolerance: EXACT. Measures are integers small enough that f32 sums are
 exact in any accumulation order; counts, extremes, dense tables, ranks,
 histograms and permutations are integers or exact selections.
@@ -1034,3 +1039,121 @@ def test_persistent_cache_round_trip_on_card(cuda, tmp_path):
     assert b0 > 0 and l0 == 0 and b1 == 0 and l1 == b0
     for q, a, b in zip(sorted(FUSE_SQL), res[0][:-1], res[1][:-1]):
         C.assert_same(a, b, q, ordered=q in ("order", "topk"))
+
+
+# ---------------------------------------------------------------------------
+# the observability layer on the card (nds_tpu_torch/obs/)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_kernel_span_measures_a_cuda_call_to_completion(cuda):
+    """A traced kernel entry point whose output is a CUDA tensor waits for
+    it: queued behind ~50 ms of device sleep, its span covers the sleep,
+    while the untraced call returns before the device is done."""
+    from nds_tpu_torch.obs import trace as OT
+    from nds_tpu_torch.ops import kernels as K
+
+    mask = torch.rand(1 << 20, device=cuda) < 0.5
+    K.compact_indices(mask, 1 << 20)  # warm-up
+    torch.cuda.synchronize(cuda)
+    cycles = 100_000_000  # device sleep; its length is measured below
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    torch.cuda._sleep(cycles)
+    t1.record()
+    torch.cuda.synchronize(cuda)
+    sleep_ms = t0.elapsed_time(t1)
+    assert sleep_ms > 5.0
+    tr = OT.Tracer(kernel_spans=True)
+    with OT.bind(tr):
+        torch.cuda._sleep(cycles)
+        K.compact_indices(mask, 1 << 20)
+        done = torch.cuda.current_stream(cuda).query()
+    (span,) = [e for e in tr.events if e["kind"] == "kernel_span"]
+    assert done  # nothing left queued when the traced call returned
+    assert span["kernel"] == "compact_indices" and span["n"] == 1 << 20
+    assert span["dur_ms"] >= 0.8 * sleep_ms
+    torch.cuda._sleep(cycles)
+    K.compact_indices(mask, 1 << 20)  # untraced: no wait
+    assert not torch.cuda.current_stream(cuda).query()
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.gpu
+def test_device_bytes_per_device_reads_the_allocator(cuda):
+    from nds_tpu_torch.obs import memwatch as MW
+
+    before = MW.device_bytes_per_device()
+    x = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    per = MW.device_bytes_per_device()
+    assert len(per) == torch.cuda.device_count()
+    assert per[cuda.index or 0] == torch.cuda.memory_stats(cuda)[
+        "allocated_bytes.all.current"]
+    assert per[cuda.index or 0] - (before or [0])[cuda.index or 0] >= 256 << 20
+    with MW.MemorySampler(interval_s=0.005) as ms:
+        torch.cuda.synchronize(cuda)
+    assert ms.source == "device" and ms.peak_bytes >= 256 << 20
+    del x
+
+
+def _memwatch_child(q):
+    import torch as t
+
+    from nds_tpu_torch.obs import memwatch as MW
+
+    per = MW.device_bytes_per_device()
+    with MW.MemorySampler(interval_s=0.005, heartbeat_s=0.0):
+        pass
+    q.put((per, t.cuda.is_initialized()))
+
+
+@pytest.mark.gpu
+def test_memwatch_leaves_a_spawn_child_off_the_card(cuda):
+    """A spawn worker that has not touched the card (a Load Test worker, a
+    process-mode throughput child before its session) gets no CUDA context
+    from the memory sampler."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=_memwatch_child, args=(q,))
+    p.start()
+    per, initialised = q.get(timeout=120)
+    p.join(timeout=60)
+    assert p.exitcode == 0
+    assert per is None and initialised is False
+
+
+@pytest.mark.gpu
+def test_debug_jaxprof_writes_a_torch_profiler_trace(cuda, tmp_path):
+    """/debug/jaxprof keeps the reference's route and payload; behind it
+    torch.profiler writes a Chrome trace with the card's kernels."""
+    import urllib.request
+
+    from nds_tpu_torch.obs import metrics as M
+    from nds_tpu_torch.obs.httpserv import MetricsServer
+
+    def post(port, obj):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/debug/jaxprof",
+            data=json.dumps(obj).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    server = MetricsServer(M.MetricsSink(), port=0, host="127.0.0.1").start()
+    try:
+        d = str(tmp_path / "prof")
+        assert post(server.port, {"action": "start", "dir": d}) == {
+            "running": True, "dir": d}
+        x = torch.randn(1 << 22, device=cuda)
+        (x * 2).sum().item()
+        assert post(server.port, {"action": "stop"}) == {
+            "running": False, "dir": d}
+    finally:
+        server.stop()
+    trace = json.load(open(os.path.join(d, "trace.json")))
+    cats = {e.get("cat") for e in trace["traceEvents"]}
+    assert "kernel" in cats, sorted(c for c in cats if c)

@@ -10,8 +10,9 @@ crash hygiene, vacuum under reader leases, rollback) and of
 tests/test_catalog.py's fs backend (epoch names, the conflict matrix, the
 fence, the fenced zombie, cross-host leases, the heartbeat) run against
 both packages, parametrised by `pkg`, with the reference's expected
-outcome for each. Their DML cases run in tests/test_torch_dml.py; the tcp
-coordinator and the trace-event cases wait for ROADMAP.md queue 1 item 12.
+outcome for each. Their DML cases run in tests/test_torch_dml.py and their
+trace-event cases in tests/test_torch_obs.py; the tcp coordinator waits
+for ROADMAP.md queue 1 item 12b.
 
 Tolerance: exact. Rows, versions, file stats, manifests (after pids,
 epochs, uuids and timestamps in names are normalised away: files compare
@@ -1071,7 +1072,7 @@ def test_catalog_fault_sites_io_classification(pkg, tmp_path, monkeypatch):
 def test_catalog_resolution(spec, monkeypatch):
     """`fs` and off resolve as in the JAX package; a bad value raises its
     CatalogError; an http(s) coordinator raises NotImplementedError (item
-    12) in the port, where the JAX package builds its tcp client."""
+    12b) in the port, where the JAX package builds its tcp client."""
     conf = {"engine.lake_catalog": spec}
     if spec == "bogus":
         with pytest.raises(JC.CatalogError):
@@ -1080,12 +1081,12 @@ def test_catalog_resolution(spec, monkeypatch):
             TC.resolve_catalog(conf)
         return
     if spec.startswith("http"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
             TC.resolve_catalog(conf)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
             TorchSession(conf=conf, device="cpu")
         monkeypatch.setenv("NDS_LAKE_CATALOG", spec)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
             TorchSession(device="cpu")
         return
     j, t = JC.resolve_catalog(conf), TC.resolve_catalog(conf)

@@ -16,6 +16,7 @@ tests/test_torch_joins.py.
 """
 
 import ast
+import json
 import os
 import sys
 
@@ -251,9 +252,10 @@ ITEM8_CASES = {
 #: session conf a case needs to reach its branch
 ITEM8_CONF = {"blocked_union": {"engine.union_agg_window_rows": 1024}}
 
-#: what the port still raises NotImplementedError for, naming the ROADMAP.md
-#: item that ports it: (SQL or None, session conf). The tcp lakehouse
-#: catalog is item 12
+#: what the port raised NotImplementedError for, naming the ROADMAP.md item
+#: that ports it: (SQL or None, session conf). The tcp lakehouse catalog is
+#: item 12b; a trace directory raised until item 12a was ported
+#: (ONCE_UNPORTED_KNOBS)
 UNPORTED = {
     "lake_catalog_http": (None, {"engine.lake_catalog":
                                  "http://127.0.0.1:1"}),
@@ -262,8 +264,13 @@ UNPORTED = {
 }
 
 #: the ROADMAP.md item each UNPORTED case names
-UNPORTED_ITEMS = {"lake_catalog_http": "item 12",
-                  "plan_feedback_on": "item 14", "trace_dir": "item 12"}
+UNPORTED_ITEMS = {"lake_catalog_http": "item 12b",
+                  "plan_feedback_on": "item 14", "trace_dir": "item 12a"}
+
+#: UNPORTED cases and layer knobs that item 12a (obs/) ported: their session
+#: now starts and turns the layer on
+ONCE_UNPORTED_KNOBS = {"trace_dir", "engine.flight_recorder",
+                       "engine.trace_kernels"}
 
 #: the statements other than SELECT that raised until item 9.6 was ported,
 #: now run by both packages over the star's store_sales as a lakehouse
@@ -386,8 +393,20 @@ def test_item8_branches_match_jax(tables, qname):
 
 
 @pytest.mark.parametrize("qname", sorted(UNPORTED))
-def test_unported_branches_raise(tables, qname):
+def test_unported_branches_raise(tables, qname, tmp_path):
     sql, conf = UNPORTED[qname]
+    if qname in ONCE_UNPORTED_KNOBS:
+        # ported: the session writes its events under the trace directory
+        d = str(tmp_path / conf["engine.trace_dir"])
+        t = TorchSession(conf={**_conf("on"), "engine.trace_dir": d},
+                         device="cpu")
+        t.register_arrow("store_sales", tables["store_sales"])
+        t.sql("select count(*) c from store_sales").collect()
+        t.tracer.close()
+        (name,) = os.listdir(d)
+        kinds = [json.loads(x)["kind"] for x in open(os.path.join(d, name))]
+        assert kinds[0] == "trace_meta" and "op_span" in kinds
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md.*{UNPORTED_ITEMS[qname]}"):
         t = TorchSession(conf={**_conf("on"), **conf}, device="cpu")
@@ -467,12 +486,11 @@ UNPORTED_LAYER_KNOBS = [
      ("off", "record"), "item 14"),
     ("engine.lock_debug", "NDS_LOCK_DEBUG", ("1", "true", "yes", "on", "ON"),
      ("0", "off", "no", "false", "2"), "item 15"),
-    # the reference turns the recorder on when unset: the port has none,
-    # so an explicit setting raises unless it is off
+    # ported by item 12a: the recorder is on unless off (ONCE_UNPORTED_KNOBS)
     ("engine.flight_recorder", "NDS_FLIGHT_RECORDER", ("on", "1", "true"),
-     ("off", "0", "false", "no", "OFF"), "item 12"),
+     ("off", "0", "false", "no", "OFF"), "item 12a"),
     ("engine.trace_kernels", "NDS_TRACE_KERNELS", ("1", "on", "true"),
-     ("0", "off", "yes"), "item 12"),
+     ("0", "off", "yes"), "item 12a"),
     ("engine.mesh_devices", None, ("1", "2", 8), ("0", "", "x", None),
      "item 13"),
 ]
@@ -485,6 +503,26 @@ def test_unported_conf_knobs_raise(key, env, on, off, item, monkeypatch):
                 "NDS_TRACE_KERNELS"):
         monkeypatch.delenv(var, raising=False)
     TorchSession(device="cpu")  # unset: every layer stays off
+    if key in ONCE_UNPORTED_KNOBS:
+        # ported: the knob turns its layer on by the reference's resolver
+        # (the recorder's ring, the tracer's kernel spans), conf over env
+        attr = {"engine.flight_recorder": "ring",
+                "engine.trace_kernels": "kernel_spans"}[key]
+        default_on = key == "engine.flight_recorder"
+        layer = lambda s: bool(getattr(s.tracer, attr, None))  # noqa: E731
+        assert layer(TorchSession(device="cpu")) == default_on
+        for v in on:
+            assert layer(TorchSession(conf={key: v}, device="cpu"))
+        for v in off:
+            assert not layer(TorchSession(conf={key: v}, device="cpu"))
+        for v in on:
+            monkeypatch.setenv(env, str(v))
+            assert layer(TorchSession(device="cpu"))
+            assert not layer(TorchSession(conf={key: off[0]}, device="cpu"))
+        for v in off:
+            monkeypatch.setenv(env, str(v))
+            assert not layer(TorchSession(device="cpu"))
+        return
     for v in on:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 "
                            f"{item}"):
@@ -616,7 +654,16 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/engine/fuse.py",
             "nds_tpu_torch/engine/aotcache.py",
             "nds_tpu_torch/cli/cache.py",
-            "tools/torch_bench_phase.py"} <= rel
+            "tools/torch_bench_phase.py",
+            "nds_tpu_torch/obs/__init__.py",
+            "nds_tpu_torch/obs/trace.py",
+            "nds_tpu_torch/obs/metrics.py",
+            "nds_tpu_torch/obs/memwatch.py",
+            "nds_tpu_torch/obs/flight.py",
+            "nds_tpu_torch/obs/reader.py",
+            "nds_tpu_torch/obs/critpath.py",
+            "nds_tpu_torch/obs/httpserv.py",
+            "nds_tpu_torch/cli/profile.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch

@@ -25,16 +25,30 @@ EPS = 1e-5  # nds_tpu/validate.py compare's relative epsilon
 
 
 @pytest.fixture(autouse=True, scope="module")
-def strict_budget():
+def strict_budget(tmp_path_factory):
     """A plan-budgeter fault fails the statement instead of being recorded
     as `verdict="error"`, and no session of either package without its own
     `engine.aot_cache_dir` reads or writes a persistent cache in the
     user's home (import this fixture into a test module; the cache's own
     tests give each session a private directory). Module-scoped, so that
-    it holds for the module's fixtures too."""
+    it holds for the module's fixtures too.
+
+    The observability layer's files and ports stay private to the module:
+    failure bundles go to a directory of its own (never the shared
+    `<tempdir>/nds-flight`), and a trace directory, a metrics port or a
+    trace context inherited from the environment is dropped, so that no
+    test writes a shared directory or binds a fixed port. The tests that
+    trace set their own (`tmp_path`, port 0); turning tracing on here would
+    give every summary a `memoryHighWater` that the summaries' comparisons
+    between the packages cannot hold equal."""
+    obs = tmp_path_factory.mktemp("obs")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NDS_PLAN_BUDGET_STRICT", "1")
         mp.setenv("NDS_AOT_CACHE_DIR", "0")
+        mp.setenv("NDS_FLIGHT_DIR", str(obs / "flight"))
+        mp.setenv("NDS_METRICS_HOST", "127.0.0.1")
+        for var in ("NDS_TRACE_DIR", "NDS_METRICS_PORT", "NDS_TRACE_CONTEXT"):
+            mp.delenv(var, raising=False)
         yield
 #: a key domain past the dense join's reach (domain > 2^14 and > 8 x rows):
 #: single-key joins on f_key take the packed or the hash path
