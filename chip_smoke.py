@@ -45,6 +45,20 @@ Phases, each printing one JSON line:
            family's counter equal to its kind's count in the trace. One
            `obs` line: medians, the tracer's and the kernel spans' cost
            against untraced (ms and %), the trace's event and span counts
+  serve    the query service, the fleet router and the tcp lakehouse
+           catalog (nds_tpu_torch/serve/, lakehouse/catalog.py) over the
+           same SF100 tables, each on a listener of its own on 127.0.0.1:
+           client threads POST q3, minmax and order to a QueryService of
+           two slots, and every answer must equal the in-process one; q93
+           answers 429 with its modeled peak; a third concurrent request
+           sheds with Retry-After; an INSERT commits through a
+           CatalogCoordinator; a /stream job completes and its
+           re-submission re-runs nothing; /drain ends it. A QueryRouter
+           over two replicas fails a request over from a drained replica,
+           sheds q93 at the edge and reads the inserted rows back from the
+           other replica, whose pinned lease keeps its files through a
+           vacuum. Launch counts are zeroed at the step's start and read
+           at its end (the kernels line's serve_launches)
   profile  torch.profiler over one steady run of each query: device time by
            kernel and the device's busy share of the wall time
   kernels  each kernel's wrapper on the inputs the main path gave it, held
@@ -6639,6 +6653,456 @@ def flight_bundle_check(flight_dir, query, kind):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# serve: the query service, the fleet router and the tcp catalog
+# ---------------------------------------------------------------------------
+
+#: the client threads of the serve step, and what they send: each query of
+#: the main path SERVE_REPEATS times (then once more alone, warm)
+SERVE_CLIENTS = 4
+SERVE_REPEATS = 2
+#: the refused query answered 429 with its modeled peak
+SERVE_REFUSED = "q93"
+#: rows of the lakehouse table committed through the tcp catalog
+SERVE_LAKE_ROWS = 4096
+#: rows the INSERT through the service appends (v < SERVE_INSERT_ROWS)
+SERVE_INSERT_ROWS = 100
+#: every client call's timeout, seconds
+SERVE_TIMEOUT_S = 120
+
+
+def http_post(port, payload, path="/query", tenant="chip", headers=None):
+    """POST JSON to 127.0.0.1:port; (status, body, headers, ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", "X-NDS-Tenant": tenant,
+                 **(headers or {})}, method="POST")
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            status, data, hdrs = r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        status, data, hdrs = e.code, e.read(), dict(e.headers)
+    ms = (time.perf_counter() - t) * 1e3
+    try:
+        body = json.loads(data.decode())
+    except ValueError:
+        body = {}
+    return status, body, hdrs, ms
+
+
+def served_table(body, ref):
+    """A served page as an Arrow table of `ref`'s types: JSON carries
+    decimals and dates as strings, ints and float64s as numbers."""
+    import datetime
+    import decimal
+
+    import pyarrow as pa
+
+    cols = list(zip(*body["rows"])) if body["rows"] else [
+        () for _ in body["columns"]]
+    arrays = []
+    for name, vals in zip(body["columns"], cols):
+        typ = ref.schema.field(name).type
+        if pa.types.is_decimal(typ):
+            vals = [None if v is None else decimal.Decimal(v) for v in vals]
+        elif pa.types.is_date(typ):
+            vals = [None if v is None else datetime.date.fromisoformat(v)
+                    for v in vals]
+        arrays.append(pa.array(list(vals), type=typ))
+    return pa.table(arrays, names=list(body["columns"]))
+
+
+def check_served(q, status, body, ref):
+    """A served answer against the main path's in-process one: the page
+    equals the first rows of `ref` (ints, decimals, dates and strings
+    exactly; q3's sums within check_q3's rtol, minmax's extremes within
+    the slice's), and the total row count is `ref`'s."""
+    if status != 200 or body.get("status") != "completed":
+        fail(f"serve: {q} answered {status}: {body.get('error')}")
+    if body["total_rows"] != ref.num_rows:
+        fail(f"serve: {q} total_rows {body['total_rows']} against "
+             f"{ref.num_rows} in process")
+    if body["columns"] != ref.schema.names:
+        fail(f"serve: {q} columns {body['columns']}")
+    for row in body["rows"]:
+        for v in row:
+            # every float of the envelope comes from a float64
+            if isinstance(v, float) and float(np.float64(v)) != v:
+                fail(f"serve: {q} float {v!r} is not a float64")
+    got = served_table(body, ref)
+    want = ref.slice(0, got.num_rows)
+    if q == "q3":
+        if body["truncated"]:
+            fail("serve: q3's page is truncated")
+        ref_groups = q3_groups(ref)
+        if not ref_groups:
+            fail("serve: q3 has no groups to serve")
+        rtol = f32_sum_rtol(max(n for _, n in ref_groups.values()))
+        return same_groups(q3_groups(got), ref_groups, rtol, "served")
+    return same_result(got, want, 2.0**-23 if q == "minmax" else 0.0,
+                       f"serve: {q} against in process")
+
+
+def serve_step(torch, GK, Session, tables, dev, on, answers, seed):
+    """The query service, the fleet router and the tcp catalog over the
+    main path's SF100 tables (no new load), each on a listener of its own
+    on 127.0.0.1:
+
+    * a QueryService (engine.serve_workers=2) over a session of `on` that
+      registers the device `tables`: SERVE_CLIENTS client threads POST
+      q3, minmax and order SERVE_REPEATS times each, then each query goes
+      once more alone (warm); every answer must equal the main path's
+      in-process one (`answers`, check_served).
+      SERVE_REFUSED must answer 429 with its modeled peak and never run;
+      with both slots held a third request must shed with Retry-After; a
+      /stream job of the three statements must complete (GET /jobs/<id>),
+      and its re-submission re-run none of them; /drain ends the service;
+    * a CatalogCoordinator over a lakehouse table of SERVE_LAKE_ROWS rows
+      written here: the service's writer session
+      (engine.lake_catalog=http://...) INSERTs through /query;
+    * a QueryRouter over two replicas (each its own session over the same
+      tables, engine.serve_workers=1): q3 x4 through the router, one
+      replica drained after the first two, so a request fails over to
+      the other; SERVE_REFUSED shed at the edge with 429; the other
+      replica reads the inserted rows back, and its pinned lease keeps
+      its files through a vacuum until it is released.
+
+    Kernel launches are zeroed at the step's start and read at its end:
+    each kernel must have launched. Emits the `serve` line and returns
+    the launches."""
+    import pyarrow as pa
+
+    from nds_tpu_torch.lakehouse import catalog as TC
+    from nds_tpu_torch.lakehouse.leases import LEASES
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+    from nds_tpu_torch.obs import httpserv as THS
+    from nds_tpu_torch.obs import metrics as TM
+    from nds_tpu_torch.serve.router import QueryRouter
+    from nds_tpu_torch.serve.service import QueryService
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    GK.reset_launches()
+    root = tempfile.mkdtemp(prefix="nds_serve_")
+    servers, services, routers = [], [], []
+    statuses = collections.Counter()
+    labels = collections.Counter()  # the envelopes' `status`
+    served_ms = collections.defaultdict(list)
+    worst = {}
+    out = {"phase": "serve", "query_sql": sorted(QUERIES),
+           "clients": SERVE_CLIENTS, "repeats": SERVE_REPEATS}
+
+    def listen(app):
+        srv = THS.MetricsServer(TM.shared_sink(), 0, host="127.0.0.1")
+        srv.attach_app(app)
+        srv.start()
+        servers.append(srv)
+        return srv.port
+
+    def session(conf, lake):
+        s = Session(conf=conf, device=dev)
+        for name, t in tables.items():
+            s.register_table(name, t)
+        s.register_lakehouse("lake_t", lake)
+        return s
+
+    def count(status, body=None):
+        statuses[str(status)] += 1
+        if body is not None:
+            labels[str(body.get("status"))] += 1
+        return status
+
+    try:
+        # -- the tcp catalog over a lakehouse table written here ---------
+        lake = os.path.join(root, "lake_t")
+        rng = np.random.default_rng(seed)
+        LakehouseTable.create(lake, pa.table({
+            "k": pa.array(np.arange(SERVE_LAKE_ROWS) % 16, type=pa.int64()),
+            "v": pa.array(np.arange(SERVE_LAKE_ROWS), type=pa.int64()),
+            "w": pa.array(rng.integers(0, 1000, SERVE_LAKE_ROWS),
+                          type=pa.int64())}))
+        coord = TC.CatalogCoordinator()
+        cat_url = f"http://127.0.0.1:{listen(coord)}"
+        TC.reset_clients()
+        lake_conf = {**on, "engine.lake_catalog": cat_url}
+
+        # -- the query service --------------------------------------------
+        svc = QueryService(
+            session({**lake_conf, "engine.serve_workers": 2}, lake),
+            writer_session=session(lake_conf, lake),
+            job_dir=os.path.join(root, "jobs"))
+        services.append(svc)
+        if svc.workers != 2:
+            fail(f"serve: {svc.workers} workers, not 2")
+        port = listen(svc)
+        peak_in_flight = [0]
+        enter = svc._enter
+
+        def counted_enter(tenant, rid=None):
+            enter(tenant, rid)
+            peak_in_flight[0] = max(peak_in_flight[0], svc.in_flight())
+
+        svc._enter = counted_enter
+        work = [q for q in QUERIES for _ in range(SERVE_REPEATS)]
+        lock = threading.Lock()
+
+        def client(i):
+            while True:
+                with lock:
+                    if not work:
+                        return
+                    q = work.pop(0)
+                status, body, _, ms = http_post(
+                    port, {"sql": QUERIES[q]}, tenant=f"client{i}")
+                with lock:
+                    count(status, body)
+                    served_ms[q].append(ms)
+                    worst[q] = max(worst.get(q, 0.0),
+                                   check_served(q, status, body, answers[q]))
+
+        threads = [Beside(client, i) for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.join()
+        out["in_flight_peak"] = peak_in_flight[0]
+        # the client threads' walls hold the session's first statements
+        # and the admission queue; then one warm request at a time
+        for q in QUERIES:
+            status, body, _, ms = http_post(port, {"sql": QUERIES[q]},
+                                            tenant="warm")
+            count(status, body)
+            served_ms[f"{q}_warm"].append(ms)
+            worst[q] = max(worst[q], check_served(q, status, body,
+                                                  answers[q]))
+
+        # the refused query: 429 with its modeled peak, planned in its
+        # slot and never run
+        before = dict(GK.LAUNCHES)
+        status, body, _, _ = http_post(port, {
+            "sql": phase_sql(SERVE_REFUSED)})
+        count(status, body)
+        if status != 429 or body.get("verdict") != "reject":
+            fail(f"serve: {SERVE_REFUSED} answered {status} {body}")
+        if dict(GK.LAUNCHES) != before or svc.in_flight():
+            fail(f"serve: the refused {SERVE_REFUSED} ran")
+        out["refused"] = {"query": SERVE_REFUSED, "status": status,
+                          "modeled_peak_gib": body["peak_bytes"] / 2**30,
+                          "budget_gib": body["budget_bytes"] / 2**30}
+
+        # a third request while both slots are held: shed, Retry-After
+        svc._enter("hold-1")
+        svc._enter("hold-2")
+        admit_s, svc.admit_timeout_s = svc.admit_timeout_s, 0.05
+        try:
+            status, body, hdrs, _ = http_post(port, {"sql": QUERIES["q3"]},
+                                              tenant="third")
+        finally:
+            svc.admit_timeout_s = admit_s
+            svc._leave("hold-1")
+            svc._leave("hold-2")
+        count(status, body)
+        if status != 429 or body.get("status") != "shed" or not hdrs.get(
+                "Retry-After"):
+            fail(f"serve: the third concurrent request answered {status} "
+                 f"{body} {hdrs.get('Retry-After')}")
+        out["shed"] = {"status": status, "retry_after": hdrs["Retry-After"],
+                       "error": body["error"]}
+
+        # DML through /query: the writer session commits through the tcp
+        # catalog
+        status, body, _, _ = http_post(port, {
+            "sql": f"insert into lake_t select k, v + {SERVE_LAKE_ROWS}, w "
+                   f"from lake_t where v < {SERVE_INSERT_ROWS}"},
+            tenant="writer")
+        count(status, body)
+        if status != 200 or body.get("rows_affected") != SERVE_INSERT_ROWS:
+            fail(f"serve: the INSERT answered {status} {body}")
+        with open(os.path.join(lake, "_manifests",
+                               f"v{body['version']:06d}.json")) as f:
+            txid = json.load(f).get("txid")
+        if not txid:
+            fail("serve: the INSERT's manifest carries no coordinator txid")
+        out["insert"] = {"version": body["version"],
+                         "rows_affected": body["rows_affected"]}
+
+        # a stream job of the three statements, then its re-submission
+        stream = stream_file(os.path.join(root, "query_0.sql"),
+                             [(q, [QUERIES[q]]) for q in QUERIES])
+
+        def job(job_id):
+            status, body, _, _ = http_post(
+                port, {"stream": stream, "job_id": job_id}, path="/stream")
+            if status != 202:
+                fail(f"serve: /stream answered {status} {body}")
+            deadline = time.monotonic() + SERVE_TIMEOUT_S
+            while True:
+                state = json.loads(scrape(port, f"/jobs/{job_id}"))
+                if state["state"] in ("completed", "failed", "paused"):
+                    return state
+                if time.monotonic() > deadline:
+                    fail(f"serve: job {job_id} still {state['state']}")
+                time.sleep(0.05)
+
+        first = job("chip")
+        if first["state"] != "completed" or first["completed"] != len(
+                QUERIES):
+            fail(f"serve: the stream job ended {first}")
+        launched = dict(GK.LAUNCHES)
+        second = job("chip")
+        if second["queries"] != first["queries"] or (
+                dict(GK.LAUNCHES) != launched):
+            fail("serve: the re-submitted job re-ran statements")
+        out["job"] = {"state": first["state"], "completed":
+                      first["completed"], "resumed_state": second["state"],
+                      "ms": {n: r["ms"] for n, r in first["queries"].items()}}
+
+        status, body, _, _ = http_post(port, {}, path="/drain")
+        after, after_body, _, _ = http_post(port, {"sql": QUERIES["q3"]})
+        if status != 200 or not body.get("drained") or after != 503:
+            fail(f"serve: /drain answered {status} {body}, then {after}")
+        out["drain"] = {"drained": body["drained"],
+                        "in_flight": body["in_flight"], "after": after}
+        count(after, after_body)
+        svc.session.catalog.invalidate("lake_t")
+        svc.writer_session.catalog.invalidate("lake_t")
+        services.remove(svc)
+        del svc
+
+        # -- the fleet router over two replicas ---------------------------
+        reps = []
+        for _ in range(2):
+            s = QueryService(session({**lake_conf,
+                                      "engine.serve_workers": 1}, lake))
+            services.append(s)
+            reps.append((s, listen(s)))
+        router = QueryRouter(
+            [f"127.0.0.1:{p}" for _, p in reps],
+            conf={"engine.route_health_interval_s": 0})
+        routers.append(router)
+        rport = listen(router)
+        routed = []
+
+        def route_q3():
+            status, body, _, ms = http_post(rport, {"sql": QUERIES["q3"]},
+                                            tenant="fleet")
+            check_served("q3", status, body, answers["q3"])
+            with lock:
+                count(status, body)
+                routed.append(body["route"])
+                served_ms["q3_routed"].append(ms)
+
+        pair = [Beside(route_q3) for _ in range(2)]
+        for t in pair:
+            t.join()
+        # the first replica drains; the router still picks it next
+        drained_port = reps[0][1]
+        status, body, _, _ = http_post(drained_port, {}, path="/drain")
+        if status != 200 or not body.get("drained"):
+            fail(f"serve: replica drain answered {status} {body}")
+        router._rr = [r.name for r in router.replicas].index(
+            f"127.0.0.1:{drained_port}")
+        for _ in range(2):
+            route_q3()
+        failovers = sum(1 for r in routed if r["attempts"] > 1)
+        if failovers < 1 or any(
+                r["replica"] == f"127.0.0.1:{drained_port}"
+                for r in routed[2:]):
+            fail(f"serve: no failover from the drained replica: {routed}")
+        out["router"] = {"routed": len(routed), "failovers": failovers,
+                         "attempts": [r["attempts"] for r in routed]}
+
+        status, body, hdrs, _ = http_post(rport, {
+            "sql": phase_sql(SERVE_REFUSED)}, tenant="fleet")
+        count(status, body)
+        if status != 429 or body.get("verdict") != "reject" or not hdrs.get(
+                "Retry-After"):
+            fail(f"serve: the router answered {SERVE_REFUSED} {status}")
+        if "route" in body:
+            fail("serve: the refused query reached a replica")
+        out["router"]["refused"] = {
+            "status": status, "at": "edge",
+            "modeled_peak_gib": body["peak_bytes"] / 2**30}
+
+        # the other replica reads the inserted rows back
+        read = {"sql": "select count(*) c, sum(v) s from lake_t"}
+        status, body, _, _ = http_post(rport, read, tenant="reader")
+        count(status, body)
+        n = SERVE_LAKE_ROWS + SERVE_INSERT_ROWS
+        want = sum(range(SERVE_LAKE_ROWS)) + sum(
+            v + SERVE_LAKE_ROWS for v in range(SERVE_INSERT_ROWS))
+        if status != 200 or body["rows"] != [[n, want]] or (
+                body["route"]["replica"] == f"127.0.0.1:{drained_port}"):
+            fail(f"serve: read-back answered {status} {body}")
+        reader = reps[1][0].session
+        lease = reader.catalog.entries["lake_t"].lease_id
+        held = TC.resolve_catalog(lake_conf).held_files(
+            LakehouseTable(lake))
+        if lease is None or not held:
+            fail("serve: the reader's pin registered no lease at the "
+                 "coordinator")
+        # a replace and a vacuum: the pinned reader's files stay
+        lt = LakehouseTable(lake, conf=lake_conf)
+        lt.replace(pa.table({"k": pa.array([0], type=pa.int64()),
+                             "v": pa.array([0], type=pa.int64()),
+                             "w": pa.array([0], type=pa.int64())}))
+        kept = lt.vacuum(retain_last=1)["files_removed"]
+        reader.catalog.invalidate("lake_t")  # releases the lease
+        if lease in LEASES._leases:
+            fail("serve: the reader's lease outlived its pin")
+        removed = lt.vacuum(retain_last=1)["files_removed"]
+        if kept != 0 or removed < 1:
+            fail(f"serve: vacuum removed {kept} files under the lease, "
+                 f"{removed} after it")
+        status, body, _, _ = http_post(rport, read, tenant="reader")
+        count(status, body)
+        if status != 200 or body["rows"] != [[1, 0]]:
+            fail(f"serve: the replaced table read {status} {body}")
+        out["catalog"] = {"insert_version": out.pop("insert"),
+                          "txid": txid, "read_back_rows": n,
+                          "lease_files": len(held),
+                          "vacuum_removed_leased": kept,
+                          "vacuum_removed_released": removed}
+        router.close()
+        for s, _ in reps:
+            s.session.catalog.invalidate("lake_t")
+    finally:
+        for r in routers:
+            r.close()
+        for s in services:
+            s.close()
+        stops = [Beside(srv.stop) for srv in servers]
+        for t in stops:
+            t.join()
+        TC.reset_clients()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(GK.LAUNCHES)
+    for name, n_launch in launches.items():
+        if n_launch == 0:
+            fail(f"serve: kernel {name} was not launched")
+    if cuda:
+        torch.cuda.synchronize(dev)
+    out.update({
+        "served_ms": {q: float(np.median(v)) for q, v in served_ms.items()},
+        "served_runs": {q: len(v) for q, v in served_ms.items()},
+        "max_rel_vs_in_process": worst, "statuses": dict(statuses),
+        "envelopes": dict(labels), "sheds": labels["shed"],
+        "http_429": statuses["429"],
+        "launches": launches,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if cuda else None),
+        "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    return launches
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6857,12 +7321,20 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- serve (the query service, the fleet router, the tcp catalog) -----
+    serve_launches = serve_step(torch, GK, Session, tables, dev, on_steady,
+                                {q: cold[q][0] for q in QUERIES}, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- profile ---------------------------------------------------------
     for q in QUERIES:
         emit(profile_query(torch, lambda q=q: run(s_on, q), q))
 
     # -- kernels ---------------------------------------------------------
     kernels = kernel_rows(torch, GK, captured, launches)
+    for rec in kernels:
+        rec["serve_launches"] = serve_launches[rec["name"]]
 
     del captured
     torch.cuda.empty_cache()

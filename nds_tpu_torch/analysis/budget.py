@@ -327,6 +327,34 @@ def derive_share_bytes(total_bytes: int, fraction: int,
     return int(min(max(pow2, lo), hi))
 
 
+#: serve mode's admission sizing: one admitted request is assumed to hold
+#: up to this much device working set beyond the catalog's residency, so
+#: slots = working-set line // this keeps full occupancy inside the line a
+#: single statement is admitted against
+SERVE_SLOT_BYTES = 1 << 30
+
+
+def serve_concurrency(conf: Optional[dict] = None, device=None) -> int:
+    """Admission slots (the worker bound) of serve/service.py's
+    QueryService: `engine.serve_workers` / NDS_SERVE_WORKERS, else one
+    slot per SERVE_SLOT_BYTES of the working-set line the budgeter admits
+    statements against (resolve_budget_bytes on `device`), clamped to
+    [1, 16]. A CPU session's default 4 GiB line carries 4 requests, as the
+    reference's does."""
+    v = None
+    if conf:
+        v = conf.get("engine.serve_workers")
+    if v is None:
+        v = os.environ.get("NDS_SERVE_WORKERS")
+    if v:
+        try:
+            return max(int(v), 1)
+        except (TypeError, ValueError):
+            pass
+    budget = resolve_budget_bytes(conf, device)
+    return int(min(max(budget // SERVE_SLOT_BYTES, 1), 16))
+
+
 def host_ram_bytes() -> int:
     """Physical host RAM in bytes (sysconf), or 16 GiB where the counters
     are missing."""
@@ -624,8 +652,6 @@ class PlanBudgeter:
 
     def __init__(self, catalog=None, stats: Optional[CatalogStats] = None,
                  budget_bytes: Optional[int] = None, windowed: bool = False):
-        from .verifier import PlanVerifier
-
         self.stats = stats or CatalogStats(catalog)
         self.budget_bytes = (
             budget_bytes if budget_bytes is not None else DEFAULT_BUDGET_BYTES
@@ -633,7 +659,7 @@ class PlanBudgeter:
         #: windowed=True models blocked-union aggregates on the windowed
         #: executor path instead of the direct full-concat path
         self.windowed = windowed
-        self._ver = PlanVerifier(catalog)
+        self._ver = _verifier.PlanVerifier(catalog)
         self._memo: dict = {}
         self._post: list = []
         self.unknown_tables: list = []
@@ -1124,3 +1150,10 @@ def _annotate_spill(plan: P.PlanNode, partitions: int):
     for v in P.walk_plan(plan):
         if isinstance(v, P.PlanNode) and spillable_node(v):
             v.spill_partitions = int(partitions)
+
+
+# The verifier imports this module's SPILL_MAX_PARTITIONS and
+# spillable_node, so it is bound last, as a module: imported here it is
+# paid once at import and not inside the first statement's wall, which
+# no span covers (the first budgeter built would otherwise import it).
+from . import verifier as _verifier  # noqa: E402

@@ -122,6 +122,11 @@ def warm_main(args) -> int:
     }
     if failed:
         report["failed"] = failed
+    if getattr(args, "fleet", False):
+        # fleet warm-up: one warm pass fills the shared dir and every
+        # serve replica loads from it; print the replica's flag
+        report["fleet"] = {"cache_dir": d,
+                           "replica_flag": f"--aot_cache_dir {d}"}
     if args.as_json:
         print(json.dumps(report, indent=2))
     else:
@@ -134,6 +139,12 @@ def warm_main(args) -> int:
               f"{report['stats']['bytes']:,} B total")
         for n, err in failed.items():
             print(f"   failed {n}: {err}", file=sys.stderr)
+        if "fleet" in report:
+            print("cache warm --fleet: shared dir ready; start each "
+                  "replica with\n"
+                  f"   nds-tpu-torch-submit serve <warehouse> "
+                  f"{report['fleet']['replica_flag']}\n"
+                  "so N replicas pay one build, not N")
     if queries and ok == 0:
         # a warm run where NOTHING warmed leaves the next process exactly
         # as cold as if this step never ran: a pipeline must see that
@@ -186,6 +197,10 @@ def main(argv=None) -> int:
                         help="warehouse format (parquet)")
     p_warm.add_argument("--queries", default=None,
                         help="comma-separated template subset")
+    p_warm.add_argument("--fleet", action="store_true",
+                        help="fleet warm-up: report the --aot_cache_dir "
+                        "flag every serve replica should start with, so "
+                        "N replicas share this one warmed dir")
     p_warm.add_argument("--device", default=None,
                         help="the session's device (default: the card)")
     _common(p_warm)

@@ -229,10 +229,11 @@ class _ExecEvaluator(Evaluator):
 
 
 class Executor:
-    def __init__(self, catalog, device):
+    def __init__(self, catalog, device, tracer=None):
         """catalog: object with .load(table_name, columns) -> Table and a
         `.session` (conf, promotion memo, tracer). device: where constants
-        and column-less tables live.
+        and column-less tables live. tracer: overrides the session's (serve
+        mode's per-request forwarder).
 
         With the session's tracer every executed plan node records an
         `op_span` event with inclusive wall time, output rows and
@@ -257,8 +258,10 @@ class Executor:
         # partitions, pool bytes in / out, evictions
         self.last_spill = None
         self._fault_checked = False
-        self.tracer = tracer = getattr(
-            getattr(catalog, "session", None), "tracer", None)
+        if tracer is None:
+            tracer = getattr(getattr(catalog, "session", None), "tracer",
+                             None)
+        self.tracer = tracer
         self._span_depth = 0
         self._span_seq = 0
         self._exec_id = next(_EXEC_IDS) if tracer is not None else 0

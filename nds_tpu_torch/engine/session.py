@@ -31,10 +31,10 @@ the task-failure listeners that report.py's degradation ladder drives,
 and the catalog's load-time retry after a device OOM (a CUDA OOM as well
 as an XLA RESOURCE_EXHAUSTED text). With `engine.verify_plans` the plan
 verifier (analysis/verifier.py) re-checks each plan. Conf keys and
-environment knobs of layers not ported yet (tracing, metrics, the flight
-recorder, kernel spans, the host-RSS watermark, the tcp lakehouse catalog,
-the mesh, lock debugging, cardinality feedback) raise NotImplementedError
-rather than being ignored.
+environment knobs of layers not ported yet (the mesh, lock debugging,
+cardinality feedback) raise NotImplementedError rather than being ignored.
+`plan_stmt` plans one SELECT and reads its budget verdict under one lock,
+for serve/service.py's admission.
 
 A CUDA session needs the caching allocator's expandable segments (the
 SF100 working sets leave little room for fragmentation): the first one
@@ -55,7 +55,6 @@ import torch
 
 from .. import faults
 from ..analysis import budget as B
-from ..lakehouse.catalog import catalog_spec, is_tcp_spec
 from ..schema import (
     Field,
     Schema,
@@ -95,12 +94,6 @@ def _lock_debug_on(conf):
         "1", "true", "yes", "on")
 
 
-def _tcp_catalog_on(conf):
-    # nds_tpu/lakehouse/catalog.py resolve_catalog: an http(s) coordinator
-    # URL (`fs` is ported)
-    return is_tcp_spec(catalog_spec(conf))
-
-
 def _mesh_devices_on(conf):
     # read from conf only (nds_tpu/analysis/budget.py session_mesh_devices)
     try:
@@ -113,8 +106,6 @@ def _mesh_devices_on(conf):
 #: that ports the layer) of layers the port has not ported: a knob that
 #: turns its layer on, by the reference's own resolver, raises.
 _UNPORTED_KNOBS = (
-    ("engine.lake_catalog", "NDS_LAKE_CATALOG", _tcp_catalog_on,
-     "queue 1 item 12b (serve: the tcp catalog)"),
     ("engine.mesh_devices", None, _mesh_devices_on,
      "queue 1 item 13 (parallel/)"),
     ("engine.lock_debug", "NDS_LOCK_DEBUG", _lock_debug_on,
@@ -623,15 +614,18 @@ class Result:
         # threads' statements on the session
         self.executor = None
 
-    def table(self) -> Table:
-        """Execute (memoized)."""
+    def table(self, tracer=None) -> Table:
+        """Execute (memoized). `tracer` overrides the executor's event
+        sink: serve mode passes a per-request forwarding tracer, so every
+        op_span and exec_cache event carries the request's id and
+        tenant."""
         if self._table is None:
-            self.executor = self.session._executor()
+            self.executor = self.session._executor(tracer=tracer)
             self._table = self.executor.execute(self.plan)
         return self._table
 
-    def collect(self):
-        return table_to_arrow(self.table())
+    def collect(self, tracer=None):
+        return table_to_arrow(self.table(tracer=tracer))
 
     def to_pylist(self):
         return self.collect().to_pylist()
@@ -950,8 +944,8 @@ class Session:
             cb(reason)
 
     # ---- SQL -------------------------------------------------------------
-    def _executor(self):
-        return Executor(self.catalog, self.device)
+    def _executor(self, tracer=None):
+        return Executor(self.catalog, self.device, tracer=tracer)
 
     def _finish_plan(self, plan, promotions=()):
         """The post-bind rewrites: prune scans, pin each lakehouse scan's
@@ -1082,6 +1076,25 @@ class Session:
 
     def sql(self, text: str) -> Result:
         return self.run_stmt(parse_sql(text))
+
+    def plan_stmt(self, stmt):
+        """Plan one parsed SELECT atomically with respect to every other
+        planner of this session: `(Result, plan-budget record)`.
+
+        Serve mode's admission needs the budgeter's verdict of this
+        statement, and `last_plan_budget` is one field of a session that
+        concurrent tenants share: planning and reading the verdict are one
+        critical section under `cache_lock`. Execution stays outside it. A
+        `reject` verdict raises PlanBudgetError from here, before anything
+        runs (serve's 429)."""
+        if not isinstance(stmt, A.SelectStmt):
+            raise ValueError(
+                f"plan_stmt wants a SELECT, got {type(stmt).__name__}"
+            )
+        with self.cache_lock:
+            res = self.run_stmt(stmt)
+            rec = self.last_plan_budget
+            return res, (dict(rec) if isinstance(rec, dict) else None)
 
     def run_script(self, text: str) -> Optional[Result]:
         """Run every statement of a script; the last one's result."""

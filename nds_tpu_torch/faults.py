@@ -28,6 +28,17 @@ fires these sites:
     load:<table_name>     catalog device load of a registered table
     <table_name>          the same load
     spill:evict|write|read  the spill pool's disk tier (io/crash only)
+    catalog:commit|lease|fence  the fleet catalog (io/hang/crash); on the
+                          tcp coordinator catalog:commit fires between the
+                          WAL intent and the manifest publish
+    catalog:unreachable   the tcp catalog client's transport (io/hang): the
+                          call fails CatalogUnreachableError off the wire
+    serve:admit           serve admission: the request is shed (429)
+    serve:exec            serve execution: the BenchReport ladder
+    replica:kill          serve SELECT execution (hang/crash): a replica
+                          dying mid-request, as the router sees it
+    route:pick            the router's replica selection: shed at the edge
+    route:forward         the router's forward hop: a dead replica
     any path substring    fs_open (maybe_fire_path; io/crash only)
 
 The one departure from the reference is the repair of `classify`: a CUDA

@@ -1,16 +1,25 @@
-"""Fleet catalog, fs backend: cross-host commit arbitration, reader leases
-and vacuum fencing; the port of nds_tpu/lakehouse/catalog.py's error
-classes, resolvers and `FsCatalog`.
+"""Fleet catalog: cross-host commit arbitration, reader leases and vacuum
+fencing; the port of nds_tpu/lakehouse/catalog.py. Two backends sit behind
+one client API (`resolve_catalog`):
 
-`engine.lake_catalog=fs` (or NDS_LAKE_CATALOG=fs) keeps catalog state
-(fence, writer epochs, reader leases) as JSON files in `<table>/_catalog/`
-next to the manifests, on any io/fs.py filesystem, every write an atomic
-tmp + rename. Arbitration is airtight where `put_if_absent` is atomic
-(local POSIX); on remote stores the commit CAS stays best-effort, narrowed
-by a fence re-check just before the publish rename. The reference's tcp
-backend (`engine.lake_catalog=http://host:port`, its coordinator and
-`cli/catalog.py`) rides the serve layer's HTTP server and is not ported:
-such a value raises NotImplementedError (ROADMAP.md queue 1 item 12b).
+* **fs** (`engine.lake_catalog=fs`, or NDS_LAKE_CATALOG=fs) keeps catalog
+  state (fence, writer epochs, reader leases) as JSON files in
+  `<table>/_catalog/` next to the manifests, on any io/fs.py filesystem,
+  every write an atomic tmp + rename. Arbitration is airtight where
+  `put_if_absent` is atomic (local POSIX); on remote stores the commit CAS
+  stays best-effort, narrowed by a fence re-check just before the publish
+  rename.
+* **tcp** (`engine.lake_catalog=http://host:port`): a coordinator process
+  (`cli/catalog.py`, `CatalogCoordinator`) runs every commit, lease and
+  fence operation of a warehouse under one lock, on the process-wide
+  listener of obs/httpserv.py (its /catalog/* routes ride `attach_app`).
+  Fence check, WAL intent and manifest publish are one critical section,
+  so there is no CAS window. `HttpCatalog` is its client: a commit cut off
+  mid-flight polls the manifest log for its txid before it gives up, and
+  the coordinator refuses a publish past the deadline the client sent. An
+  unreachable coordinator raises CatalogUnreachableError (classified
+  `io_transient`): writes back off, pinned reads keep serving, and vacuum
+  refuses to delete what it cannot see leased.
 
 **Epoch fencing (the zombie-writer contract).** Every writer registers a
 TTL-bounded writer lease and receives a monotone *epoch*; its staged data
@@ -29,6 +38,7 @@ Fault sites `catalog:commit`, `catalog:lease` and `catalog:fence`
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import posixpath
@@ -44,6 +54,7 @@ from ..io.fs import get_fs, put_if_absent
 CATALOG_DIR = "_catalog"
 _LEASE_DIR = "leases"
 _WRITER_DIR = "writers"
+_WAL_DIR = "wal"
 _FENCE_FILE = "fence.json"
 _EPOCH_FILE = "epoch.json"
 
@@ -53,7 +64,12 @@ _EPOCH_FILE = "epoch.json"
 #: wedged writer ever expires
 DEFAULT_WRITER_TTL_S = 300.0
 
-_ITEM12 = "ROADMAP.md queue 1 item 12b (serve: the tcp catalog)"
+#: how long an ambiguous tcp commit (connection cut mid-flight) polls the
+#: manifest dir for its txid before it fails classified-retryable
+CATALOG_POLL_ENV = "NDS_LAKE_CATALOG_POLL_S"
+
+#: tcp client connect / read timeout seconds
+CATALOG_TIMEOUT_ENV = "NDS_LAKE_CATALOG_TIMEOUT_S"
 
 
 class CatalogError(Exception):
@@ -67,6 +83,13 @@ class CatalogFencedError(CatalogError):
     deleted data. The transaction re-runs with a fresh epoch (new stage,
     new registration); table.py converts this to CommitConflictError so
     the ladder's `commit_rebase_retry` rung owns the re-run."""
+
+
+class CatalogUnreachableError(CatalogError, ConnectionError):
+    """The tcp coordinator did not answer. A ConnectionError, so that
+    faults.classify makes it `io_transient`: writes walk the io backoff
+    ladder while pinned reads, which never need the coordinator, keep
+    serving."""
 
 
 def resolve_writer_ttl(conf: dict | None = None) -> float:
@@ -98,37 +121,37 @@ def catalog_spec(conf: dict | None = None):
 
 
 def is_tcp_spec(spec) -> bool:
-    """True for a coordinator URL, the backend the port lacks."""
+    """True for a coordinator URL (the tcp backend)."""
     return spec is not None and spec.startswith(("http://", "https://"))
 
 
-#: one client per backend spec; the fs client is stateless
+#: one client per backend spec: the fs client is stateless and the tcp
+#: client holds its (host, port)
 _CLIENTS = {}
 _CLIENTS_LOCK = threading.Lock()
 
 
 def resolve_catalog(conf: dict | None = None):
     """The configured catalog client (`engine.lake_catalog` /
-    NDS_LAKE_CATALOG: `fs`, or off/None, the default: the process-
-    concurrent behaviour). An http(s) coordinator URL raises
-    NotImplementedError; any other value CatalogError."""
+    NDS_LAKE_CATALOG: `fs`, an `http://host:port` coordinator URL, or
+    off/None, the default: the process-concurrent behaviour); any other
+    value raises CatalogError."""
     spec = catalog_spec(conf)
     if spec is None:
         return None
-    if is_tcp_spec(spec):
-        raise NotImplementedError(
-            f"engine.lake_catalog={spec!r}: the tcp catalog coordinator is "
-            f"not ported to nds_tpu_torch yet: {_ITEM12}"
-        )
     with _CLIENTS_LOCK:
         client = _CLIENTS.get(spec)
         if client is None:
-            if spec != "fs":
+            if is_tcp_spec(spec):
+                client = HttpCatalog(spec)
+            elif spec == "fs":
+                client = FsCatalog()
+            else:
                 raise CatalogError(
                     f"bad engine.lake_catalog value {spec!r} "
                     f"(want 'off', 'fs', or an http://host:port URL)"
                 )
-            client = _CLIENTS[spec] = FsCatalog()
+            _CLIENTS[spec] = client
     return client
 
 
@@ -314,11 +337,20 @@ class FsCatalog:
         return new
 
     # -- commit -----------------------------------------------------------
-    def commit(self, t, manifest: dict, epoch: int | None = None) -> bool:
+    def commit(self, t, manifest: dict, epoch: int | None = None,
+               txid: str | None = None,
+               deadline_ms: int | None = None) -> bool:
         """Fence-checked create-exclusive publish of `manifest` as the next
         version. True = published; False = lost the version race (the
         caller rebases or aborts by its transaction type); raises
-        CatalogFencedError when this writer's epoch is below the fence."""
+        CatalogFencedError when this writer's epoch is below the fence.
+
+        `deadline_ms` (the tcp path): the client's give-up stamp. A
+        coordinator that was slow past it must not publish: the client has
+        classified the commit failed-retryable and re-runs the
+        transaction, which a late publish would apply twice. It is checked
+        just before the rename, after any hang spent inside the critical
+        section."""
         if faults.active():
             # the mid-commit chaos site: io walks the backoff ladder, hang
             # holds the publish open for a kill, crash dies between intent
@@ -350,18 +382,28 @@ class FsCatalog:
                 f"{t.path}: writer epoch {epoch} fenced by catalog "
                 f"mid-publish; the transaction must re-run"
             )
+        if deadline_ms is not None and _now_ms() > deadline_ms:
+            # the client gave up already (and may be re-running the
+            # transaction): publishing now would apply it twice
+            try:
+                t.fs.rm_file(tmp)
+            except OSError:
+                pass
+            self._emit_commit(t, version, "expired", t0, txid)
+            return False
         dest = posixpath.join(t.manifest_dir, f"v{version:06d}.json")
         ok = put_if_absent(t.fs, tmp, dest)
-        self._emit_commit(t, version, "ok" if ok else "conflict", t0)
+        self._emit_commit(t, version, "ok" if ok else "conflict", t0, txid)
         return ok
 
-    def _emit_commit(self, t, version, outcome, t0):
+    def _emit_commit(self, t, version, outcome, t0, txid=None):
         tr = _tracer()
         if tr is not None:
             tr.emit(
                 "catalog_commit", table=t.name, backend=self.backend,
                 version=version, outcome=outcome,
                 dur_ms=round((time.perf_counter() - t0) * 1000.0, 3),
+                **({"txid": txid} if txid else {}),
             )
 
     # -- reader leases -----------------------------------------------------
@@ -456,3 +498,492 @@ class FsCatalog:
                     outcome="ok", table=t.name, removed=removed,
                 )
         return removed
+
+
+# ---------------------------------------------------------------------------
+# tcp backend: coordinator app + client
+# ---------------------------------------------------------------------------
+
+
+class CatalogCoordinator:
+    """The single-writer commit log as a process: every /catalog/* op runs
+    under one lock over an FsCatalog, so fence check, WAL intent and
+    manifest publish are one critical section. It attaches to the
+    process-wide listener through `MetricsServer.attach_app`
+    (obs/httpserv.py), as serve mode does: one port carries /metrics,
+    /statusz and the catalog."""
+
+    def __init__(self, tracer=None):
+        self._fs = FsCatalog()
+        # a plain lock, as lakehouse/leases.py's (the reference's lock
+        # debugging, engine/lockdebug.py, is ROADMAP.md queue 1 item 15)
+        self._lock = threading.Lock()
+        self.tracer = tracer
+        self._refs = {}  # path -> _TableRef, under _lock
+        self.started_ts_ms = _now_ms()
+        #: kept False so obs/httpserv.py's /healthz answers 200
+        self.draining = False
+
+    def _ref(self, path: str) -> _TableRef:
+        # under the lock: two listener threads racing one path must not
+        # each publish their own _TableRef
+        with self._lock:
+            ref = self._refs.get(path)
+            if ref is None:
+                ref = self._refs[path] = _TableRef(path)
+            return ref
+
+    def _bind(self):
+        from ..obs import trace as obs_trace
+
+        return obs_trace.bind(self.tracer) if self.tracer is not None else (
+            contextlib.nullcontext()
+        )
+
+    # -- startup recovery --------------------------------------------------
+    def recover(self, path: str) -> dict:
+        """Replay the WAL against the manifest log after a crash: published
+        entries are pruned (the commit completed), unpublished ones are
+        rolled back: never acknowledged, and replaying them forward would
+        apply them twice against the client's own retry. The manifest log
+        is whole either way: publishes are atomic renames."""
+        t = self._ref(path)
+        pruned, rolled_back = 0, 0
+        with self._lock, self._bind():
+            for base in self._fs._ls(t, _WAL_DIR):
+                if not base.endswith(".json"):
+                    # a torn WAL temp (crash mid-rename): debris
+                    self._fs._rm(t, f"{_WAL_DIR}/{base}")
+                    continue
+                rec = self._fs._read_json(t, f"{_WAL_DIR}/{base}")
+                if rec is None:
+                    self._fs._rm(t, f"{_WAL_DIR}/{base}")
+                    continue
+                version = int(rec.get("version") or 0)
+                dest = posixpath.join(
+                    t.manifest_dir, f"v{version:06d}.json"
+                )
+                published = t.fs.exists(dest)
+                self._fs._rm(t, f"{_WAL_DIR}/{base}")
+                if published:
+                    pruned += 1
+                else:
+                    rolled_back += 1
+                    tr = _tracer()
+                    if tr is not None:
+                        tr.emit(
+                            "catalog_commit", table=t.name, backend="tcp",
+                            version=version, outcome="rolled_back",
+                        )
+        return {
+            "table": t.name, "pruned": pruned, "rolled_back": rolled_back,
+        }
+
+    def recover_warehouse(self, warehouse: str) -> list:
+        """Startup recovery over every lakehouse table under a warehouse
+        root (a directory owning `_manifests/` is a table)."""
+        from ..io.fs import join as fs_join
+
+        fs, root = get_fs(warehouse)
+        out = []
+        try:
+            entries = fs.ls(root, detail=False)
+        except OSError:
+            return out
+        for entry in sorted(entries):
+            if fs.isdir(posixpath.join(entry, "_manifests")):
+                out.append(self.recover(fs_join(warehouse,
+                                                posixpath.basename(entry))))
+        return out
+
+    # -- HTTP seam ---------------------------------------------------------
+    def handle_http(self, method, path, headers, body):
+        """(status, ctype, body, extra_headers) for /catalog/* routes,
+        None for anything else (the listener answers 404)."""
+        if method == "GET" and path == "/catalog/state":
+            return self._reply(200, {"tables": sorted(self._refs)})
+        if method != "POST" or not path.startswith("/catalog/"):
+            return None
+        try:
+            payload = json.loads(body.decode("utf-8")) if body else {}
+        except (ValueError, UnicodeDecodeError) as exc:
+            return self._reply(400, {"error": f"malformed body: {exc}"})
+        if not isinstance(payload, dict) or not payload.get("root"):
+            return self._reply(400, {"error": "body needs 'root'"})
+        try:
+            if path == "/catalog/commit":
+                return self._reply(200, self._do_commit(payload))
+            if path == "/catalog/lease":
+                return self._reply(200, self._do_lease(payload))
+            if path == "/catalog/fence":
+                return self._reply(200, self._do_fence(payload))
+        except CatalogFencedError as exc:
+            return self._reply(409, {"fenced": True, "error": str(exc)})
+        except (KeyError, TypeError, ValueError) as exc:
+            return self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+        return None
+
+    @staticmethod
+    def _reply(status, obj):
+        return (status, "application/json", json.dumps(obj, default=str), ())
+
+    def _do_commit(self, payload) -> dict:
+        t = self._ref(str(payload["root"]))
+        manifest = dict(payload["manifest"])
+        epoch = payload.get("epoch")
+        txid = str(payload.get("txid") or uuid.uuid4().hex)
+        manifest["txid"] = txid
+        version = int(manifest["version"])
+        with self._lock, self._bind():
+            # idempotency: a client that retries an ambiguous send must
+            # not publish twice; the WAL remembers acknowledged txids
+            # until recovery or pruning
+            prior = self._fs._read_json(t, f"{_WAL_DIR}/{txid}.json")
+            if prior is not None:
+                dest = posixpath.join(
+                    t.manifest_dir, f"v{int(prior['version']):06d}.json"
+                )
+                if t.fs.exists(dest):
+                    return {"published": True,
+                            "version": int(prior["version"])}
+            if epoch is not None and epoch < self._fs.read_fence(t):
+                raise CatalogFencedError(
+                    f"{t.path}: writer epoch {epoch} fenced "
+                    f"(fence {self._fs.read_fence(t)})"
+                )
+            # intent before publish: a crash between the two leaves a WAL
+            # entry that recovery rolls back (never acknowledged)
+            self._fs._write_json(t, f"{_WAL_DIR}/{txid}.json", {
+                "version": version, "txid": txid,
+            })
+            deadline = payload.get("deadline_ms")
+            published = self._fs.commit(
+                t, manifest, epoch=epoch, txid=txid,
+                deadline_ms=int(deadline) if deadline else None,
+            )
+            if not published:
+                # lost to a writer outside the coordinator (a mixed-mode
+                # warehouse): drop the intent, the client rebases
+                self._fs._rm(t, f"{_WAL_DIR}/{txid}.json")
+            else:
+                self._prune_wal(t, version)
+        return {"published": published, "version": version}
+
+    #: published WAL entries kept for idempotent-retry detection before
+    #: pruning (a retry older than this many commits is settled)
+    WAL_KEEP = 128
+
+    def _prune_wal(self, t, head_version: int):
+        """Bound the journal: entries WAL_KEEP commits behind the head are
+        settled and removed. The caller holds the lock."""
+        entries = self._fs._ls(t, _WAL_DIR)
+        if len(entries) <= self.WAL_KEEP:
+            return
+        for base in entries:
+            if not base.endswith(".json"):
+                continue
+            rec = self._fs._read_json(t, f"{_WAL_DIR}/{base}")
+            if rec is None or (
+                int(rec.get("version") or 0) <= head_version - self.WAL_KEEP
+            ):
+                self._fs._rm(t, f"{_WAL_DIR}/{base}")
+
+    def _do_lease(self, payload) -> dict:
+        t = self._ref(str(payload["root"]))
+        op = str(payload.get("op") or "")
+        with self._lock, self._bind():
+            if op == "acquire":
+                lease = self._fs.lease_acquire(
+                    t, int(payload["version"]), payload.get("files") or (),
+                    float(payload.get("ttl_s") or 0.0),
+                )
+                return {"lease_id": lease.lease_id if lease else None}
+            if op == "renew":
+                return {"ok": self._fs.lease_renew(
+                    t, str(payload["lease_id"]),
+                    float(payload.get("ttl_s") or 0.0),
+                )}
+            if op == "release":
+                return {"ok": self._fs.lease_release(
+                    t, str(payload["lease_id"])
+                )}
+            if op == "held":
+                return {
+                    "files": sorted(self._fs.held_files(t)),
+                    "versions": sorted(self._fs.held_versions(t)),
+                }
+            if op == "sweep":
+                return {"removed": self._fs.sweep_expired(t)}
+        raise ValueError(f"unknown lease op {op!r}")
+
+    def _do_fence(self, payload) -> dict:
+        t = self._ref(str(payload["root"]))
+        op = str(payload.get("op") or "")
+        with self._lock, self._bind():
+            # ttl 0.0 means release now (table._release_writer): only an
+            # absent ttl takes the default
+            ttl = payload.get("ttl_s")
+            ttl = DEFAULT_WRITER_TTL_S if ttl is None else float(ttl)
+            if op == "writer_register":
+                return self._fs.writer_register(t, ttl)
+            if op == "writer_renew":
+                return {"ok": self._fs.writer_renew(
+                    t, {"id": str(payload["id"])}, ttl,
+                )}
+            if op == "read":
+                return {"fence": self._fs.read_fence(t)}
+            if op == "bump":
+                return {"fence": self._fs.bump_fence(t)}
+        raise ValueError(f"unknown fence op {op!r}")
+
+
+class HttpCatalog:
+    """Client of a CatalogCoordinator, with FsCatalog's API; all state
+    lives with the coordinator and, through it, the warehouse, so this
+    object is an address."""
+
+    backend = "tcp"
+
+    def __init__(self, url: str):
+        from urllib.parse import urlsplit
+
+        parts = urlsplit(url)
+        if not parts.hostname or not parts.port:
+            raise CatalogError(
+                f"bad catalog URL {url!r} (want http://host:port)"
+            )
+        self.url = url
+        self.host = parts.hostname
+        self.port = int(parts.port)
+        try:
+            self.timeout_s = float(
+                os.environ.get(CATALOG_TIMEOUT_ENV, "5.0")
+            )
+        except ValueError:
+            self.timeout_s = 5.0
+        self._warned_lease = False
+
+    # -- transport ---------------------------------------------------------
+    def _post(self, route: str, payload: dict,
+              timeout_s: float | None = None) -> dict:
+        import http.client
+
+        if faults.active():
+            # an injected io fault here makes the coordinator unreachable
+            # without killing its process: the CatalogUnreachableError a
+            # killed coordinator gives (degraded-mode drills in-process)
+            try:
+                faults.maybe_fire("catalog:unreachable", kinds=("io", "hang"))
+            except faults.FaultError as exc:
+                raise CatalogUnreachableError(
+                    f"catalog unreachable at {self.url} (injected: {exc})"
+                ) from exc
+        body = json.dumps(payload).encode("utf-8")
+        conn = http.client.HTTPConnection(
+            self.host, self.port,
+            timeout=self.timeout_s if timeout_s is None else timeout_s,
+        )
+        try:
+            conn.request(
+                "POST", route, body=body,
+                headers={"Content-Type": "application/json"},
+            )
+            resp = conn.getresponse()
+            data = resp.read()
+        except (OSError, http.client.HTTPException) as exc:
+            raise CatalogUnreachableError(
+                f"catalog unreachable at {self.url} "
+                f"({type(exc).__name__}: {exc})"
+            ) from exc
+        finally:
+            conn.close()
+        try:
+            obj = json.loads(data.decode("utf-8")) if data else {}
+        except (ValueError, UnicodeDecodeError):
+            obj = {}
+        if resp.status == 409 and obj.get("fenced"):
+            raise CatalogFencedError(
+                obj.get("error") or "writer fenced by catalog"
+            )
+        if resp.status >= 400:
+            raise CatalogError(
+                f"catalog {route} failed ({resp.status}): "
+                f"{obj.get('error') or data[:200]!r}"
+            )
+        return obj
+
+    # -- API ---------------------------------------------------------------
+    def writer_register(self, t, ttl_s: float) -> dict:
+        if faults.active():
+            faults.maybe_fire("catalog:lease", kinds=("io", "hang"))
+        return self._post(
+            "/catalog/fence",
+            {"op": "writer_register", "root": t.path, "ttl_s": ttl_s},
+        )
+
+    def writer_renew(self, t, token: dict, ttl_s: float) -> bool:
+        try:
+            return bool(self._post("/catalog/fence", {
+                "op": "writer_renew", "root": t.path, "id": token["id"],
+                "ttl_s": ttl_s,
+            }).get("ok"))
+        except CatalogUnreachableError:
+            return False  # renewal is best-effort; the commit re-arbitrates
+
+    def read_fence(self, t) -> int:
+        return int(self._post(
+            "/catalog/fence", {"op": "read", "root": t.path}
+        ).get("fence") or 0)
+
+    def bump_fence(self, t) -> int:
+        if faults.active():
+            faults.maybe_fire("catalog:fence", kinds=("io", "hang"))
+        return int(self._post(
+            "/catalog/fence", {"op": "bump", "root": t.path}
+        ).get("fence") or 0)
+
+    def commit(self, t, manifest: dict, epoch: int | None = None,
+               txid: str | None = None) -> bool:
+        if faults.active():
+            faults.maybe_fire("catalog:commit", kinds=("io", "hang"))
+        t0 = time.perf_counter()
+        txid = txid or uuid.uuid4().hex
+        version = int(manifest["version"])
+        try:
+            # the publish deadline: how long this client waits (the post's
+            # timeout and the ambiguity poll) before it declares the commit
+            # failed-retryable; a coordinator slower than that must refuse
+            # the late publish, or the client's re-run would apply twice
+            deadline_ms = _now_ms() + int(
+                (self.timeout_s + self._poll_budget()) * 1000
+            )
+            resp = self._post("/catalog/commit", {
+                "root": t.path, "manifest": manifest, "epoch": epoch,
+                "txid": txid, "deadline_ms": deadline_ms,
+            })
+        except CatalogFencedError:
+            self._emit_commit(t, version, "fenced", t0, txid)
+            raise
+        except CatalogUnreachableError:
+            # ambiguous: the coordinator may have published just before it
+            # died. The manifest log is shared storage: poll it for this
+            # txid before the write counts as failed-retryable (recovery
+            # rolls an unpublished intent back, so a retry never applies
+            # twice)
+            outcome = self._poll_published(t, version, txid)
+            if outcome is not None:
+                self._emit_commit(
+                    t, version, "ok" if outcome else "conflict", t0, txid
+                )
+                return outcome
+            self._emit_commit(t, version, "unreachable", t0, txid)
+            raise
+        published = bool(resp.get("published"))
+        self._emit_commit(
+            t, version, "ok" if published else "conflict", t0, txid
+        )
+        return published
+
+    @staticmethod
+    def _poll_budget() -> float:
+        try:
+            return float(os.environ.get(CATALOG_POLL_ENV, "2.0"))
+        except ValueError:
+            return 2.0
+
+    def _poll_published(self, t, version: int, txid: str):
+        """True: this txid owns the version; False: another does (a lost
+        race); None: the version is still unpublished after the window,
+        and stays so (the coordinator refuses publishes past the deadline
+        this client sent; restart recovery rolls the intent back)."""
+        budget = self._poll_budget()
+        deadline = time.perf_counter() + budget
+        dest = posixpath.join(t.manifest_dir, f"v{version:06d}.json")
+        while True:
+            try:
+                with t.fs.open(dest, "r") as fh:
+                    rec = json.load(fh)
+                return rec.get("txid") == txid
+            except (OSError, ValueError):
+                pass
+            if time.perf_counter() >= deadline:
+                return None
+            time.sleep(min(0.05, budget))
+
+    def _emit_commit(self, t, version, outcome, t0, txid):
+        tr = _tracer()
+        if tr is not None:
+            tr.emit(
+                "catalog_commit", table=t.name, backend=self.backend,
+                version=version, outcome=outcome, txid=txid,
+                dur_ms=round((time.perf_counter() - t0) * 1000.0, 3),
+            )
+
+    # -- leases ------------------------------------------------------------
+    def lease_acquire(self, t, version: int, files, ttl_s: float):
+        if faults.active():
+            faults.maybe_fire("catalog:lease", kinds=("io", "hang"))
+        try:
+            lid = self._post("/catalog/lease", {
+                "op": "acquire", "root": t.path, "version": int(version),
+                "files": sorted(str(f) for f in files), "ttl_s": ttl_s,
+            }).get("lease_id")
+        except CatalogUnreachableError:
+            # reads degrade gracefully: the pin still holds in the
+            # process's lease table; only other hosts lose sight of it
+            # until the coordinator returns
+            if not self._warned_lease:
+                self._warned_lease = True
+                print(
+                    f"catalog: coordinator {self.url} unreachable; reader "
+                    f"leases degrade to process-local until it returns"
+                )
+            return None
+        if not lid:
+            return None
+        tr = _tracer()
+        if tr is not None:
+            tr.emit(
+                "catalog_lease", op="acquire", backend=self.backend,
+                outcome="ok", table=t.name, version=int(version),
+            )
+        return RemoteLease(self, _TableRef(t.path), str(lid))
+
+    def lease_renew(self, ref, lease_id: str, ttl_s: float) -> bool:
+        try:
+            # renewal runs on the memory sampler's heartbeat thread: a
+            # short cap keeps a slow coordinator from stalling it
+            return bool(self._post("/catalog/lease", {
+                "op": "renew", "root": ref.path, "lease_id": lease_id,
+                "ttl_s": ttl_s,
+            }, timeout_s=min(self.timeout_s, 1.0)).get("ok"))
+        except CatalogUnreachableError:
+            return False
+
+    def lease_release(self, ref, lease_id: str) -> bool:
+        try:
+            return bool(self._post("/catalog/lease", {
+                "op": "release", "root": ref.path, "lease_id": lease_id,
+            }).get("ok"))
+        except CatalogUnreachableError:
+            return False  # TTL expiry is the backstop
+
+    def held_files(self, t) -> set:
+        # no fallback when unreachable, on purpose: vacuum asks this, and
+        # a vacuum that cannot see remote leases must fail, not delete
+        return set(self._post(
+            "/catalog/lease", {"op": "held", "root": t.path}
+        ).get("files") or ())
+
+    def held_versions(self, t) -> set:
+        return {int(v) for v in self._post(
+            "/catalog/lease", {"op": "held", "root": t.path}
+        ).get("versions") or ()}
+
+    def sweep_expired(self, t) -> int:
+        try:
+            return int(self._post(
+                "/catalog/lease", {"op": "sweep", "root": t.path}
+            ).get("removed") or 0)
+        except CatalogUnreachableError:
+            return 0

@@ -24,8 +24,7 @@ rewritten, matching Iceberg's rollback_to_timestamp semantics.
 
 Fleet concurrency: with `engine.lake_catalog` configured the publish,
 reader-lease registration, and vacuum fence route through the catalog
-service (lakehouse/catalog.py: fs CAS; the reference's tcp coordinator
-is ROADMAP.md queue 1 item 12b), giving
+service (lakehouse/catalog.py: fs CAS, or the tcp coordinator), giving
 multi-HOST writers commit arbitration, cross-host lease visibility, and
 epoch fencing (a stale zombie writer can never publish). Off by default:
 everything below then describes the process-concurrent behavior exactly.

@@ -32,8 +32,9 @@ registers HERE, on the one process-wide listener — never on a second
 listener, and serve-mode apps reach theirs through `attach_app` exactly
 like the query routes.
 
-Serve mode (`serve/`, ROADMAP.md queue 1 item 12b) attaches an
-application via `attach_app`: any route the built-ins above don't own is dispatched to
+Serve mode (serve/service.py, serve/router.py) and the catalog coordinator
+(lakehouse/catalog.py) attach an application via `attach_app`: any route
+the built-ins above don't own is dispatched to
 `app.handle_http(method, path, headers, body)` — POST /query, /stream,
 /drain, /reload, GET /jobs/<id> all ride this one process-wide listener
 instead of binding a second port. POST bodies are size-capped, and a

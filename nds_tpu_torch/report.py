@@ -142,11 +142,16 @@ def query_timeout(session) -> float:
 class BenchReport:
     """Records one benchmarked callable: environment, wall-clock, status."""
 
-    def __init__(self, session) -> None:
+    def __init__(self, session, tracer=None) -> None:
         self.session = session
         # everything this report (and its sampler thread) emits rides the
-        # session's tracer
-        self.tracer = getattr(session, "tracer", None)
+        # session's tracer, or `tracer`: serve mode wraps the session's in
+        # a per-request forwarder that labels each event with the request
+        # id and tenant
+        self.tracer = (
+            tracer if tracer is not None
+            else getattr(session, "tracer", None)
+        )
         # live telemetry (obs/metrics.py): the sink learns query starts
         # directly (query_span comes only at the end, too late for
         # /statusz's in-flight view); all else reaches it through emit
@@ -169,6 +174,12 @@ class BenchReport:
             "retries": 0,
         }
         self._name = None  # query/function label for emitted events
+        self._request_id = None  # serve mode's per-request id (report_on)
+        # serve mode's ladder isolation: `session.last_plan_budget` is one
+        # field of a session that concurrent requests share, so the ladder
+        # reads the record captured when this statement was planned
+        # (Session.plan_stmt; report_on's plan_budget), when there is one
+        self._plan_budget_override = None
 
     # ------------------------------------------------------------------
     # single attempt, optionally under the watchdog
@@ -253,6 +264,7 @@ class BenchReport:
             if self.tracer is not None:
                 self.tracer.emit(
                     "watchdog_fire", query=self._name, budget_s=timeout,
+                    **self._rid_fields(),
                 )
             return (
                 f"{_WATCHDOG_MARK}: query exceeded the {timeout:.1f}s budget "
@@ -274,7 +286,7 @@ class BenchReport:
         if rec is None:
             return
         conf = getattr(self.session, "conf", {}) or {}
-        budget = getattr(self.session, "last_plan_budget", None)
+        budget = self._plan_budget()
         memory = {
             "rss_bytes": rss_bytes(),
             "device_bytes_per_device": device_bytes_per_device(),
@@ -282,10 +294,9 @@ class BenchReport:
             "mem_hw_per_device": getattr(sampler, "peak_per_device", None),
             "mem_source": getattr(sampler, "source", None),
         }
-        ctx = getattr(self.tracer, "context", None)
         rec.flush(
             reason,
-            trace_id=getattr(ctx, "trace_id", None),
+            trace_id=self._trace_id(),
             query=self._name,
             budget=budget if isinstance(budget, dict) else None,
             ladder=list(rungs) if rungs else None,
@@ -298,7 +309,24 @@ class BenchReport:
     # degradation ladder
     # ------------------------------------------------------------------
     def _plan_budget(self):
+        """This statement's budgeter record: the one the caller captured
+        at plan time (report_on's plan_budget), else the session's."""
+        if self._plan_budget_override is not None:
+            return self._plan_budget_override
         return getattr(self.session, "last_plan_budget", None)
+
+    def _rid_fields(self) -> dict:
+        """The per-request id for emitted events ({} outside serve mode)."""
+        return {"request_id": self._request_id} if self._request_id else {}
+
+    def _trace_id(self):
+        """The trace_id a failure bundle files under: the serve request id
+        (the request is the trace in serve mode), else the tracer's
+        stamped context."""
+        if self._request_id:
+            return self._request_id
+        ctx = getattr(self.tracer, "context", None)
+        return getattr(ctx, "trace_id", None)
 
     def _budget_prediction(self):
         """The plan budgeter's record of the last planned statement when
@@ -448,7 +476,8 @@ class BenchReport:
         return None
 
     def report_on(self, fn: Callable, *args, retry_oom: bool = False,
-                  name: str = None):
+                  name: str = None, request_id: str = None,
+                  plan_budget: dict = None):
         """Run fn(*args), recording env (secrets redacted), status and time.
 
         retry_oom: allow the retrying ladder rungs (the caller guarantees
@@ -458,8 +487,20 @@ class BenchReport:
         the statement from the session's `last_plan_budget`.
 
         name: query/function label for emitted trace events (the summary
-        itself gets its name later, in write_summary)."""
+        itself gets its name later, in write_summary).
+
+        request_id: serve mode's per-request id, threaded into the sink's
+        in-flight record and every emitted event, so two tenants running
+        the same query name at once on one session keep apart on
+        /statusz.
+
+        plan_budget: the budgeter record captured when this statement was
+        planned (Session.plan_stmt); the ladder reads it instead of the
+        shared `session.last_plan_budget`, which a concurrent request may
+        have overwritten by retry time."""
         self._name = name
+        self._request_id = request_id
+        self._plan_budget_override = plan_budget
         env_vars = {
             k: v
             for k, v in os.environ.items()
@@ -543,6 +584,7 @@ class BenchReport:
                     "mem_watermark", query=self._name, rss_bytes=int(rss),
                     watermark_bytes=watermark,
                     **({"window_rows": new} if new else {}),
+                    **self._rid_fields(),
                 )
             notify = getattr(session, "notify_failure", None)
             if notify is not None:
@@ -577,6 +619,7 @@ class BenchReport:
             # the app id keys the sink's in-flight record to this stream
             self.sink.query_started(
                 name, app=getattr(self.tracer, "app_id", None),
+                request_id=request_id,
             )
         try:
             if sampler is not None:
@@ -603,6 +646,7 @@ class BenchReport:
                         "ladder_rung", query=name, rung=rung,
                         failure_kind=kind, attempt_ms=round(att_ms, 3),
                         **(detail or {}),
+                        **self._rid_fields(),
                     )
                 att_t0 = time.perf_counter()
                 err = self._attempt(fn, args, timeout)
@@ -667,6 +711,7 @@ class BenchReport:
             }
             if err is not None:
                 ev["failure_kind"] = self.summary["failureKind"]
+            ev.update(self._rid_fields())
             if sampler is not None and sampler.peak_bytes is not None:
                 ev["mem_hw_bytes"] = sampler.peak_bytes
                 ev["mem_source"] = sampler.source

@@ -11,8 +11,8 @@ tests/test_catalog.py's fs backend (epoch names, the conflict matrix, the
 fence, the fenced zombie, cross-host leases, the heartbeat) run against
 both packages, parametrised by `pkg`, with the reference's expected
 outcome for each. Their DML cases run in tests/test_torch_dml.py and their
-trace-event cases in tests/test_torch_obs.py; the tcp coordinator waits
-for ROADMAP.md queue 1 item 12b.
+trace-event cases in tests/test_torch_obs.py; the tcp coordinator's in
+tests/test_torch_catalog.py.
 
 Tolerance: exact. Rows, versions, file stats, manifests (after pids,
 epochs, uuids and timestamps in names are normalised away: files compare
@@ -1070,9 +1070,9 @@ def test_catalog_fault_sites_io_classification(pkg, tmp_path, monkeypatch):
 @pytest.mark.parametrize("spec", ["fs", "off", "none", "", "bogus",
                                   "http://localhost:1"])
 def test_catalog_resolution(spec, monkeypatch):
-    """`fs` and off resolve as in the JAX package; a bad value raises its
-    CatalogError; an http(s) coordinator raises NotImplementedError (item
-    12b) in the port, where the JAX package builds its tcp client."""
+    """`fs`, off and an http(s) coordinator resolve as in the JAX package
+    (the tcp client for a URL, and a session starts with one); a bad value
+    raises its CatalogError."""
     conf = {"engine.lake_catalog": spec}
     if spec == "bogus":
         with pytest.raises(JC.CatalogError):
@@ -1081,13 +1081,14 @@ def test_catalog_resolution(spec, monkeypatch):
             TC.resolve_catalog(conf)
         return
     if spec.startswith("http"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            TC.resolve_catalog(conf)
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            TorchSession(conf=conf, device="cpu")
+        j, t = JC.resolve_catalog(conf), TC.resolve_catalog(conf)
+        assert type(t).__name__ == type(j).__name__ == "HttpCatalog"
+        assert (t.url, t.host, t.port, t.backend) == (
+            j.url, j.host, j.port, j.backend)
+        TorchSession(conf=conf, device="cpu")
         monkeypatch.setenv("NDS_LAKE_CATALOG", spec)
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            TorchSession(device="cpu")
+        TorchSession(device="cpu")
+        assert type(TC.resolve_catalog(None)).__name__ == "HttpCatalog"
         return
     j, t = JC.resolve_catalog(conf), TC.resolve_catalog(conf)
     assert (j is None) == (t is None)

@@ -253,9 +253,9 @@ ITEM8_CASES = {
 ITEM8_CONF = {"blocked_union": {"engine.union_agg_window_rows": 1024}}
 
 #: what the port raised NotImplementedError for, naming the ROADMAP.md item
-#: that ports it: (SQL or None, session conf). The tcp lakehouse catalog is
-#: item 12b; a trace directory raised until item 12a was ported
-#: (ONCE_UNPORTED_KNOBS)
+#: that ports it: (SQL or None, session conf). A trace directory raised
+#: until item 12a was ported and the tcp lakehouse catalog until item 12b
+#: was (ONCE_UNPORTED_KNOBS)
 UNPORTED = {
     "lake_catalog_http": (None, {"engine.lake_catalog":
                                  "http://127.0.0.1:1"}),
@@ -267,10 +267,10 @@ UNPORTED = {
 UNPORTED_ITEMS = {"lake_catalog_http": "item 12b",
                   "plan_feedback_on": "item 14", "trace_dir": "item 12a"}
 
-#: UNPORTED cases and layer knobs that item 12a (obs/) ported: their session
-#: now starts and turns the layer on
+#: UNPORTED cases and layer knobs that item 12a (obs/) and item 12b (the
+#: tcp catalog) ported: their session now starts and turns the layer on
 ONCE_UNPORTED_KNOBS = {"trace_dir", "engine.flight_recorder",
-                       "engine.trace_kernels"}
+                       "engine.trace_kernels", "lake_catalog_http"}
 
 #: the statements other than SELECT that raised until item 9.6 was ported,
 #: now run by both packages over the star's store_sales as a lakehouse
@@ -395,6 +395,10 @@ def test_item8_branches_match_jax(tables, qname):
 @pytest.mark.parametrize("qname", sorted(UNPORTED))
 def test_unported_branches_raise(tables, qname, tmp_path):
     sql, conf = UNPORTED[qname]
+    if qname == "lake_catalog_http":
+        # ported: a session over a coordinator commits through it
+        _lake_catalog_session_commits(tables, tmp_path)
+        return
     if qname in ONCE_UNPORTED_KNOBS:
         # ported: the session writes its events under the trace directory
         d = str(tmp_path / conf["engine.trace_dir"])
@@ -413,6 +417,39 @@ def test_unported_branches_raise(tables, qname, tmp_path):
         for name, at in tables.items():
             t.register_arrow(name, at)
         t.sql(sql).collect()
+
+
+def _lake_catalog_session_commits(tables, tmp_path):
+    """An INSERT of a session whose `engine.lake_catalog` names a
+    coordinator (lakehouse/catalog.py CatalogCoordinator behind its own
+    listener) publishes through it: the manifest carries the coordinator's
+    txid, and the rows read back."""
+    from nds_tpu_torch.lakehouse import catalog as TC
+    from nds_tpu_torch.lakehouse.table import LakehouseTable
+    from nds_tpu_torch.obs.httpserv import MetricsServer
+    from nds_tpu_torch.obs.metrics import MetricsSink
+
+    path = str(tmp_path / "store_sales")
+    LakehouseTable.create(path, tables["store_sales"])
+    server = MetricsServer(MetricsSink(), 0, host="127.0.0.1")
+    server.attach_app(TC.CatalogCoordinator())
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        TC.reset_clients()
+        t = TorchSession(conf={**_conf("on"), "engine.lake_catalog": url},
+                         device="cpu")
+        assert type(TC.resolve_catalog(t.conf)).__name__ == "HttpCatalog"
+        t.register_lakehouse("store_sales", path)
+        n = tables["store_sales"].num_rows
+        t.run_script("insert into store_sales select * from store_sales")
+        got = t.sql("select count(*) c from store_sales").collect()
+        assert got.column("c").to_pylist() == [2 * n]
+        with open(os.path.join(path, "_manifests", "v000002.json")) as fh:
+            assert json.load(fh).get("txid")
+    finally:
+        server.stop()
+        TC.reset_clients()
 
 
 @pytest.mark.parametrize("qname", sorted(ONCE_UNPORTED))
@@ -663,7 +700,14 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/obs/reader.py",
             "nds_tpu_torch/obs/critpath.py",
             "nds_tpu_torch/obs/httpserv.py",
-            "nds_tpu_torch/cli/profile.py"} <= rel
+            "nds_tpu_torch/cli/profile.py",
+            "nds_tpu_torch/serve/__init__.py",
+            "nds_tpu_torch/serve/service.py",
+            "nds_tpu_torch/serve/router.py",
+            "nds_tpu_torch/serve/jobs.py",
+            "nds_tpu_torch/cli/serve.py",
+            "nds_tpu_torch/cli/route.py",
+            "nds_tpu_torch/cli/catalog.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch
@@ -692,7 +736,10 @@ def test_pyarrow_is_imported_inside_functions_only():
     for rel in ("io/csv.py", "transcode.py", "validate.py",
                 "datagen/query_streams.py", "cli/transcode.py",
                 "cli/validate.py", "cli/gen_data.py",
-                "cli/gen_query_stream.py", "datagen/build.py"):
+                "cli/gen_query_stream.py", "datagen/build.py",
+                "serve/__init__.py", "serve/service.py", "serve/router.py",
+                "serve/jobs.py", "cli/serve.py", "cli/route.py",
+                "cli/catalog.py", "lakehouse/catalog.py"):
         tree = ast.parse(open(os.path.join(ROOT, "nds_tpu_torch", rel)).read())
         for node in tree.body:
             names = []

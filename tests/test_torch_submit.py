@@ -34,10 +34,14 @@ TEMPLATES = {
 }
 
 #: the verbs the port had not ported -> the ROADMAP.md item that ports them
-#: (`profile` was ported by item 12a: ONCE_UNPORTED_VERBS)
+#: (`profile` was ported by item 12a, `serve`, `catalog` and `route` by item
+#: 12b: ONCE_UNPORTED_VERBS, each with flags its --help shows)
 UNPORTED_VERBS = {"profile": "12a", "lint": 15, "serve": "12b",
                   "catalog": "12b", "route": "12b"}
-ONCE_UNPORTED_VERBS = {"profile"}
+ONCE_UNPORTED_VERBS = {"profile": ("--critical-path", "--check"),
+                       "serve": ("--stream", "--device"),
+                       "catalog": ("--recover_only",),
+                       "route": ("--mesh_replica",)}
 
 PROBE = "import json, sys\nprint(json.dumps(sys.argv[1:]))\n"
 
@@ -116,7 +120,8 @@ def test_unported_verb_names_its_item(verb):
         # ported: the verb runs the port's CLI, as the reference's does
         r = _launch(LAUNCHER, verb, "--help")
         assert r.returncode == 0, r.stderr[-2000:]
-        assert "--critical-path" in r.stdout and "--check" in r.stdout
+        for flag in ONCE_UNPORTED_VERBS[verb]:
+            assert flag in r.stdout, (verb, flag)
         return
     r = _launch(LAUNCHER, verb, "--help")
     assert r.returncode != 0
@@ -134,4 +139,5 @@ def test_no_template_or_verb_names_the_jax_package():
         assert not re.search(r"\bnds_tpu\.", code), code
     modules = re.findall(r"python -m (\S+)", texts[0])
     assert modules == ["nds_tpu_torch.cli.explain", "nds_tpu_torch.cli.cache",
-                       "nds_tpu_torch.cli.profile", '"$MODULE"'], modules
+                       "nds_tpu_torch.cli.profile",
+                       '"nds_tpu_torch.cli.$verb"', '"$MODULE"'], modules
