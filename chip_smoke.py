@@ -58,7 +58,13 @@ Phases, each printing one JSON line:
            sheds q93 at the edge and reads the inserted rows back from the
            other replica, whose pinned lease keeps its files through a
            vacuum. Launch counts are zeroed at the step's start and read
-           at its end (the kernels line's serve_launches)
+           at its end (the kernels line's serve_launches). The step runs
+           under the lock sanitizer (engine.lock_debug=on, and
+           NDS_LOCK_DEBUG for the locks built during it): an order
+           inversion or a watchdog report fails it, and a plain service
+           then serves each query warm once more without the sanitizer
+           (the line's `lock_debug`: both warm times and the seconds the
+           sanitizer cost)
   profile  torch.profiler over one steady run of each query: device time by
            kernel and the device's busy share of the wall time
   kernels  each kernel's wrapper on the inputs the main path gave it, held
@@ -85,6 +91,21 @@ Phases, each printing one JSON line:
            default size), launch segment_sums and dense_build and equal the
            off session, q98, q36 and the q5 shape their numpy references;
            one line per query and a `windows` summary line
+  feedback the cardinality feedback loop (analysis/feedback.py): the
+           slice's, joins' and windows' sessions with the kernels on record
+           their cold runs' actuals (engine.plan_feedback=record) into a
+           store in a temporary directory (the script's other sessions run
+           with NDS_FEEDBACK_DIR=0, so their times keep their meaning);
+           then, in each phase over its own tables, FEEDBACK_QUERIES
+           (the four the static model refuses at SF100 and four it sends
+           through spilled paths) are planned and not run, once on the
+           static model and once consuming the store under
+           engine.plan_budget=on. One line: per statement the two verdicts
+           and modeled peaks, the store's hits and overrides, the working
+           set the phase measured and the median |log(est/actual)| of the
+           static model's estimates; which refusals flipped; the store's
+           entries; the seconds the recording and the planning cost. A
+           recorded statement that gets no hit fails the run
   fuse     fused pipelines, top-k and the caches (engine/fuse.py,
            engine/aotcache.py) with engine.pallas_agg=off, so that
            aggregates fuse: order (the fused filter over store_sales),
@@ -1898,16 +1919,19 @@ def check_q16(res, got_off, ref, both=False):
 
 
 def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
-                rows, checks):
+                rows, checks, fb):
     """The joins and set operators at SF100 row counts: JOIN_QUERIES through
     a session with the kernels on and one with them off. Each query must
     take its JOIN_BRANCHES and give the same result both ways; q93 and q16
     must equal their numpy references. Launch counts are zeroed just
     before the cold runs and read just after. `checks` gains, per query,
     the phase's check of a result with the kernels on (against the off
-    result and the numpy reference, to the phase's tolerance)."""
+    result and the numpy reference, to the phase's tolerance). The cold
+    runs with the kernels on record their actuals into the feedback store
+    `fb` (feedback_store), and FEEDBACK_QUERIES among JOIN_QUERIES are
+    then planned over it (feedback_plans)."""
     t_phase = time.perf_counter()
-    s_on = Session(conf=on)
+    s_on = recording(Session(conf=on), fb)
     s_off = Session(conf=off, device="cuda")
     for s in (s_on, s_off):
         for name, t in tables.items():
@@ -1953,6 +1977,9 @@ def joins_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     launches = dict(GK.LAUNCHES)
     peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
     reserved_all = torch.cuda.max_memory_reserved(dev) / 2**30
+    # the cold runs recorded; the steady runs measure the engine alone
+    s_on.conf["engine.plan_feedback"] = "off"
+    feedback_plans(B, Session, on, tables, JOIN_QUERIES, fb)
     for name in JOIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the joins path")
@@ -2224,7 +2251,7 @@ def same_ranked(got, ref, keys, val, rank, part, rtol_of, tag):
 
 
 def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
-                  rows, scale, checks):
+                  rows, scale, checks, fb):
     """Windows, ROLLUP / grouping sets, grouping() and blocked union
     aggregation at SF100 row counts: WINDOW_QUERIES through a session with
     the kernels on and one with them off, over the tables with the
@@ -2236,8 +2263,10 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     set to an eighth of its rows there (the `union_window` of its line).
     `checks` gains, per query, the phase's check of a result with the
     kernels on. Last, over the phase's tables and conf, the fuse phase's
-    q5 shape (fuse_q5). Returns (per-query lines, launches, fuse_q5's
-    record)."""
+    q5 shape (fuse_q5). The cold runs with the kernels on record their
+    actuals into the feedback store `fb`, and FEEDBACK_QUERIES among
+    WINDOW_QUERIES are then planned over it, as in the joins phase.
+    Returns (per-query lines, launches, fuse_q5's record)."""
     t_phase = time.perf_counter()
     wtables = to_tables(star, dev, windows=True, base=tables)
     torch.cuda.synchronize()
@@ -2246,7 +2275,7 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     if scale < 1.0:
         union_rows = rows["store_sales"] + rows["store_returns"]
         extra["engine.union_agg_window_rows"] = max(union_rows // 8, 1024)
-    s_on = Session(conf={**on, **extra})
+    s_on = recording(Session(conf={**on, **extra}), fb)
     s_off = Session(conf={**off, **extra}, device="cuda")
     for s in (s_on, s_off):
         for name, t in wtables.items():
@@ -2281,6 +2310,8 @@ def windows_phase(torch, GK, TX, B, Session, star, tables, dev, on, off,
     launches = dict(GK.LAUNCHES)
     peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
     reserved_all = torch.cuda.max_memory_reserved(dev) / 2**30
+    s_on.conf["engine.plan_feedback"] = "off"
+    feedback_plans(B, Session, {**on, **extra}, wtables, WINDOW_QUERIES, fb)
     for q, wanted in WINDOW_BRANCHES.items():
         missing = missing_branches(events[q], wanted)
         if missing:
@@ -3049,6 +3080,132 @@ def budget_record(B, session, working_set, dev, refused=None):
             "above_slack": ratio is not None
             and ratio > B.CALIBRATION_SLACK,
             "allocator_gap_gib": gap / 2**30}
+
+
+#: the statements the `feedback` line replans over the store the slice's,
+#: joins' and windows' cold runs record into: the four the static model
+#: refuses at SF100 (ROADMAP.md queue 3 item 1) and four it sends through
+#: spilled paths
+FEEDBACK_QUERIES = ("q93", "q16", "q36", "q67", "q3", "q98", "q51", "q78")
+
+
+def feedback_store(root):
+    """The script's feedback record: the store's directory under `root`,
+    the seconds its store calls and its planning took, each statement's
+    planned record."""
+    return {"dir": os.path.join(root, "feedback"), "store_s": [0.0],
+            "plan_s": 0.0, "plans": {}}
+
+
+def recording(session, fb):
+    """Make `session` record its actuals into the script's store: the
+    `record` mode and the directory, and its store's calls timed into
+    fb["store_s"]. Returns the session."""
+    session.conf["engine.feedback_dir"] = fb["dir"]
+    session.conf["engine.plan_feedback"] = "record"
+    from nds_tpu_torch.analysis.feedback import (
+        FeedbackStore,
+        resolve_feedback_bytes,
+    )
+
+    store = FeedbackStore(fb["dir"],
+                          resolve_feedback_bytes(session.conf, fb["dir"]))
+    acc = fb["store_s"]
+    for name in ("record", "flush"):
+        fn = getattr(store, name)
+
+        def timed(*a, fn=fn, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[0] += time.perf_counter() - t
+
+        setattr(store, name, timed)
+    with session.cache_lock:
+        session.feedback_store = store
+    return session
+
+
+def feedback_plans(B, Session, conf, tables, sqls, fb):
+    """Plan each of FEEDBACK_QUERIES among `sqls` (no execution) in a
+    session of `conf` over `tables`, the conf and tables of the phase that
+    recorded it: once with the store's actuals annotated beside the static
+    estimates and unused (`record`, at engine.plan_budget=warn so that a
+    refusal still reports its verdict), once consuming them under
+    engine.plan_budget=on. Adds each statement's record to fb["plans"];
+    fails where the store has no actual for the statement."""
+    from nds_tpu_torch.engine import plan as P
+
+    t0 = time.perf_counter()
+    for q, sql in sqls.items():
+        if q not in FEEDBACK_QUERIES:
+            continue
+        s = Session(conf={**conf, "engine.feedback_dir": fb["dir"],
+                          "engine.plan_feedback": "record",
+                          "engine.plan_budget": "warn"})
+        for name, t in tables.items():
+            s.register_table(name, t)
+        plan = s.sql(sql).plan
+        static = dict(s.last_plan_budget)
+        errs = []
+        with s.cache_lock:
+            for v in P.walk_plan(plan):
+                fp = getattr(v, "node_fp", None)
+                est = getattr(v, "est_rows", None)
+                if not isinstance(v, P.PlanNode) or fp is None or est is None:
+                    continue
+                rows = (s.feedback_store.lookup(fp) or {}).get("rows") or {}
+                if rows.get("max") is not None:
+                    errs.append(abs(math.log(max(int(est), 1))
+                                    - math.log(max(int(rows["max"]), 1))))
+        s.conf["engine.plan_feedback"] = "on"
+        s.conf["engine.plan_budget"] = "on"
+        try:
+            s.sql(sql)
+        except B.PlanBudgetError:
+            pass
+        fed = dict(s.last_plan_budget)
+        if not fed.get("feedback_hits"):
+            fail(f"feedback: {q} was recorded, and planning it found no "
+                 f"actual in the store: {fed}")
+        fb["plans"][q] = {
+            "static_verdict": static["verdict"],
+            "static_peak_gib": static["peak_bytes"] / 2**30,
+            "feedback_verdict": fed["verdict"],
+            "feedback_peak_gib": fed["peak_bytes"] / 2**30,
+            "feedback_hits": fed["feedback_hits"],
+            "feedback_overrides": fed["feedback_overrides"],
+            "nodes_with_actuals": len(errs),
+            "median_abs_log_err": (float(np.median(errs)) if errs
+                                   else None),
+        }
+    fb["plan_s"] += time.perf_counter() - t0
+
+
+def feedback_line(fb, lines):
+    """The `feedback` line: fb's planned records, each beside the working
+    set its phase measured (`lines`: the phases' per-query records)."""
+    from nds_tpu_torch.analysis.feedback import FeedbackStore
+
+    statements = {}
+    for q in FEEDBACK_QUERIES:
+        if q not in fb["plans"]:
+            fail(f"feedback: {q} was not recorded")
+        statements[q] = {**fb["plans"][q], "working_set_gib":
+                         lines[q]["budget"]["working_set_gib"]}
+    entries, nbytes = FeedbackStore(fb["dir"], 1 << 30).usage()
+    emit({"phase": "feedback", "statements": statements,
+          "refusals_flipped": sorted(
+              q for q, r in statements.items()
+              if r["static_verdict"] == "reject"
+              and r["feedback_verdict"] != "reject"),
+          "spills_flipped": sorted(
+              q for q, r in statements.items()
+              if r["static_verdict"] == "spill"
+              and r["feedback_verdict"] != "spill"),
+          "store_entries": entries, "store_bytes": nbytes,
+          "record_store_s": fb["store_s"][0], "plan_s": fb["plan_s"]})
 
 
 #: the spill phase: (case, query, conf beyond the kernels' `on`). `force`
@@ -6748,6 +6905,38 @@ def check_served(q, status, body, ref):
                        f"serve: {q} against in process")
 
 
+def plain_warm_ms(Session, tables, dev, conf, answers):
+    """Each query's served ms through a QueryService of `conf` without the
+    lock sanitizer: the second of two requests (the first builds or loads
+    the session's fused entries), its answer checked."""
+    from nds_tpu_torch.engine import lockdebug as LD
+    from nds_tpu_torch.obs import httpserv as THS
+    from nds_tpu_torch.obs import metrics as TM
+    from nds_tpu_torch.serve.service import QueryService
+
+    s = Session(conf={**conf, "engine.serve_workers": 1}, device=dev)
+    if isinstance(s.cache_lock, LD.DebugLock):
+        fail("serve: the plain session runs the sanitizer")
+    for name, t in tables.items():
+        s.register_table(name, t)
+    svc = QueryService(s)
+    srv = THS.MetricsServer(TM.shared_sink(), 0, host="127.0.0.1")
+    srv.attach_app(svc)
+    srv.start()
+    out = {}
+    try:
+        for q in QUERIES:
+            for _ in range(2):
+                status, body, _, ms = http_post(srv.port, {"sql": QUERIES[q]},
+                                                tenant="plain")
+                check_served(q, status, body, answers[q])
+            out[q] = ms
+    finally:
+        svc.close()
+        srv.stop()
+    return out
+
+
 def serve_step(torch, GK, Session, tables, dev, on, answers, seed):
     """The query service, the fleet router and the tcp catalog over the
     main path's SF100 tables (no new load), each on a listener of its own
@@ -6773,9 +6962,16 @@ def serve_step(torch, GK, Session, tables, dev, on, answers, seed):
       its files through a vacuum until it is released.
 
     Kernel launches are zeroed at the step's start and read at its end:
-    each kernel must have launched. Emits the `serve` line and returns
-    the launches."""
+    each kernel must have launched. The step runs under the lock sanitizer
+    (engine/lockdebug.py): the sessions' and services' conf sets
+    engine.lock_debug=on, and NDS_LOCK_DEBUG wraps every other named lock
+    built during the step; an order inversion (even one a request's error
+    path swallowed) or a watchdog report fails it. Then a service without
+    the sanitizer serves each query warm (warm_ms_plain). Emits the
+    `serve` line and returns the launches."""
     import pyarrow as pa
+
+    from nds_tpu_torch.engine import lockdebug as LD
 
     from nds_tpu_torch.lakehouse import catalog as TC
     from nds_tpu_torch.lakehouse.leases import LEASES
@@ -6791,6 +6987,21 @@ def serve_step(torch, GK, Session, tables, dev, on, answers, seed):
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     GK.reset_launches()
+    plain = on
+    on = {**on, "engine.lock_debug": "on"}
+    env_debug = os.environ.get("NDS_LOCK_DEBUG")
+    os.environ["NDS_LOCK_DEBUG"] = "1"
+    violations = []
+    assert_order = LD.DebugLock._assert_order
+
+    def recorded(lock):
+        try:
+            assert_order(lock)
+        except LD.LockOrderError as exc:
+            violations.append(str(exc))
+            raise
+
+    LD.DebugLock._assert_order = recorded
     root = tempfile.mkdtemp(prefix="nds_serve_")
     servers, services, routers = [], [], []
     statuses = collections.Counter()
@@ -6812,6 +7023,8 @@ def serve_step(torch, GK, Session, tables, dev, on, answers, seed):
         for name, t in tables.items():
             s.register_table(name, t)
         s.register_lakehouse("lake_t", lake)
+        if not isinstance(s.cache_lock, LD.DebugLock):
+            fail("serve: the session's lock is not the sanitizer's")
         return s
 
     def count(status, body=None):
@@ -7082,10 +7295,28 @@ def serve_step(torch, GK, Session, tables, dev, on, answers, seed):
             t.join()
         TC.reset_clients()
         shutil.rmtree(root, ignore_errors=True)
+        LD.DebugLock._assert_order = assert_order
+        if env_debug is None:
+            os.environ.pop("NDS_LOCK_DEBUG", None)
+        else:
+            os.environ["NDS_LOCK_DEBUG"] = env_debug
     launches = dict(GK.LAUNCHES)
     for name, n_launch in launches.items():
         if n_launch == 0:
             fail(f"serve: kernel {name} was not launched")
+    # the watchdog's reports: every hold it bundled, and any still held
+    over = LD.check_holds()
+    reports = len(LD._dumped)
+    if violations or reports or over:
+        fail(f"serve: the lock sanitizer reported {violations} "
+             f"{reports} watchdog bundle(s), held {over}")
+    t_plain = time.perf_counter()
+    warm_plain = plain_warm_ms(Session, tables, dev, plain, answers)
+    out["lock_debug"] = {
+        "violations": 0, "watchdog_reports": 0,
+        "warm_ms": {q: served_ms[f"{q}_warm"][0] for q in QUERIES},
+        "warm_ms_plain": warm_plain,
+        "plain_run_s": time.perf_counter() - t_plain}
     if cuda:
         torch.cuda.synchronize(dev)
     out.update({
@@ -7126,6 +7357,14 @@ def main(argv=None):
     flight_dir = tempfile.mkdtemp(prefix="nds_flight_")
     atexit.register(shutil.rmtree, flight_dir, True)
     os.environ["NDS_FLIGHT_DIR"] = flight_dir
+    # cardinality feedback: the slice's, joins' and windows' recording
+    # sessions write a store of the script's own (feedback_store); every
+    # other session, and every process the script starts, records none,
+    # so that their times compare with runs before the store was ported
+    os.environ["NDS_FEEDBACK_DIR"] = "0"
+    fb_root = tempfile.mkdtemp(prefix="nds_feedback_")
+    atexit.register(shutil.rmtree, fb_root, True)
+    fb = feedback_store(fb_root)
     import torch
 
     if not torch.cuda.is_available():
@@ -7216,7 +7455,7 @@ def main(argv=None):
     # with the plan cache off (STEADY); the CLI phases keep every default
     on_steady = {**on, **STEADY}
     off_steady = {**off, **STEADY}
-    s_on = Session(conf=on_steady)
+    s_on = recording(Session(conf=on_steady), fb)
     s_off = Session(conf=off_steady, device="cuda")
     for s in (s_on, s_off):
         for name, t in tables.items():
@@ -7264,6 +7503,9 @@ def main(argv=None):
         if n == 0:
             fail(f"kernel {name} was not launched on the main path")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the cold runs recorded; the steady runs measure the engine alone
+    s_on.conf["engine.plan_feedback"] = "off"
+    feedback_plans(B, Session, on_steady, tables, QUERIES, fb)
 
     n_fact = rows["store_sales"]
     results = {}
@@ -7365,7 +7607,7 @@ def main(argv=None):
     started["legs"] = Beside(finish_legs, started)
     joined, join_launches = joins_phase(torch, GK, TX, B, Session, star,
                                         tables, dev, on_steady, off_steady,
-                                        rows, checks)
+                                        rows, checks, fb)
     for rec in kernels:
         rec["joins_launches"] = join_launches[rec["name"]]
     # the whole benchmark's host phases from here on, beside the SF100
@@ -7379,9 +7621,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     windowed, window_launches, fuse_q5_rec = windows_phase(
         torch, GK, TX, B, Session, star, tables, dev, on_steady, off_steady,
-        rows, args.scale, checks)
+        rows, args.scale, checks, fb)
     for rec in kernels:
         rec["windows_launches"] = window_launches[rec["name"]]
+
+    # -- feedback (recorded by the slice, joins and windows) ---------------
+    feedback_line(fb, {**results, **joined, **windowed})
 
     # -- fuse ----------------------------------------------------------------
     torch.cuda.empty_cache()

@@ -42,8 +42,12 @@ NDS_PLAN_BUDGET_REJECT_BYTES, env NDS_CATALOG_BUDGET_BYTES (the catalog
 residency budget the union windows are sized against), and conf
 `engine.plan_budget_sf` (schema-only sessions: base-table rows from the
 TPC-DS scale model). Each budgeted statement emits a `plan_budget` trace
-event (emit_budget_event). Not ported: the mesh's per-device model
-(ROADMAP.md queue 1 item 13) and cardinality feedback (item 14).
+event (emit_budget_event). With a feedback store
+(analysis/feedback.py; `engine.plan_feedback` = off | record | on, default
+record) the plan's nodes carry their store keys and static estimates for
+the executor to record actuals against, and in mode `on` a recorded
+actual replaces a node's static row estimate. Not ported: the mesh's
+per-device model (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import torch
 from ..engine import expr as E
 from ..engine import plan as P
 from ..schema import TABLE_PRIMARY_KEYS
+from . import feedback as _feedback
 
 # ---------------------------------------------------------------------------
 # TPC-DS row-count model (a copy of the generator's datagen/native/
@@ -575,6 +580,9 @@ class PlanBudget:
     #: for every verdict
     spillable: bool = False
     spill_partitions: Optional[int] = None  # set when verdict == spill
+    #: nodes whose static row estimate a recorded actual replaced
+    #: (engine.plan_feedback=on; 0 = the pure static model)
+    feedback_overrides: int = 0
 
     def table(self, limit: int = 0) -> str:
         """The per-node estimate table and the verdict line, as the
@@ -651,7 +659,8 @@ class PlanBudgeter:
     which is what the executor's _cte_cache does to memory."""
 
     def __init__(self, catalog=None, stats: Optional[CatalogStats] = None,
-                 budget_bytes: Optional[int] = None, windowed: bool = False):
+                 budget_bytes: Optional[int] = None, windowed: bool = False,
+                 feedback=None):
         self.stats = stats or CatalogStats(catalog)
         self.budget_bytes = (
             budget_bytes if budget_bytes is not None else DEFAULT_BUDGET_BYTES
@@ -666,6 +675,12 @@ class PlanBudgeter:
         #: statically derived window rows per blocked aggregate modeled in
         #: windowed mode (the plan's window is the least of these)
         self.blocked_windows: list = []
+        #: measured-cardinality overrides (engine.plan_feedback=on):
+        #: {id(node): recorded actual rows} from the FeedbackStore. None
+        #: (or empty) keeps the static model byte-identical; applied
+        #: overrides are collected for the plan_feedback event
+        self.feedback = feedback or None
+        self.feedback_applied: list = []
 
     # -- entry ----------------------------------------------------------
     def run(self, root: P.PlanNode) -> int:
@@ -695,6 +710,24 @@ class PlanBudgeter:
     def _finish(self, node, rows, width, alloc, children,
                 live=None, blocked=False) -> NodeEstimate:
         rows = max(int(rows), 0)
+        fb = self.feedback.get(id(node)) if self.feedback else None
+        if fb is not None:
+            # measured actual overrides the static estimate (clamped: the
+            # recorded value is the observed MAXIMUM, so the new estimate
+            # is never below anything this node has produced). Allocation
+            # scales with the capacity bucket ratio (the per-rule alloc
+            # terms are cap-proportional), and children's own overrides
+            # were already applied bottom-up
+            fb = max(int(fb), 0)
+            if fb != rows:
+                old_cap = bucket_cap(max(rows, 1))
+                new_cap = bucket_cap(max(fb, 1))
+                if new_cap != old_cap:
+                    alloc = int(alloc * (new_cap / old_cap))
+                    if live is not None:
+                        live = int(live * (new_cap / old_cap))
+                rows = fb
+                self.feedback_applied.append(node)
         cap = bucket_cap(max(rows, 1))
         live_b = live if live is not None else cap * width
         # executor retention model: children run left to right, each
@@ -998,14 +1031,20 @@ def analyze_plan(
     scale_factor: Optional[float] = None,
     budget_bytes: Optional[int] = None,
     reject_bytes: Optional[int] = None,
+    feedback=None,
 ) -> PlanBudget:
     """Analyze one bound plan against a catalog (or the TPC-DS scale model
     when `scale_factor` is given): a direct-path pass, a windowed pass when
     the plan carries blocked-union aggregates, and the verdict folding both
     against the two lines (the module docstring lists the verdicts). The
-    lines default to the reference's constants."""
+    lines default to the reference's constants.
+
+    `feedback` ({id(node): recorded actual rows}, engine.plan_feedback=on)
+    replaces static per-node row estimates with measured cardinalities
+    before verdict folding; None (the default) is the static model."""
     stats = CatalogStats(catalog, scale_factor)
-    direct = PlanBudgeter(catalog, stats, budget_bytes, windowed=False)
+    direct = PlanBudgeter(catalog, stats, budget_bytes, windowed=False,
+                          feedback=feedback)
     peak = direct.run(plan)
     budget = direct.budget_bytes
     reject_line = (
@@ -1015,7 +1054,8 @@ def analyze_plan(
     peak_blocked = peak
     window_rows = None
     if has_blocked:
-        win = PlanBudgeter(catalog, stats, budget_bytes, windowed=True)
+        win = PlanBudgeter(catalog, stats, budget_bytes, windowed=True,
+                           feedback=feedback)
         peak_blocked = min(win.run(plan), peak)
         if win.blocked_windows:
             window_rows = min(win.blocked_windows)
@@ -1058,6 +1098,7 @@ def analyze_plan(
         unknown_tables=list(direct.unknown_tables),
         spillable=spillable,
         spill_partitions=spill_partitions,
+        feedback_overrides=len(direct.feedback_applied),
     )
 
 
@@ -1070,7 +1111,12 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
       (the executor's `auto` spill mode runs exactly those);
     * verdict `reject` in mode `on`: raises PlanBudgetError;
     * records the result on `session.last_plan_budget` (the JAX session's
-      keys; the device-OOM ladder of ROADMAP.md queue 1 item 9 reads it).
+      keys; the device-OOM ladder of ROADMAP.md queue 1 item 9 reads it);
+    * with a feedback store and `engine.plan_feedback` record / on:
+      annotates each node's store key (`node_fp`) and static estimates
+      (`est_rows`, `est_live_bytes`) for the executor to record against,
+      consumes recorded actuals as estimate overrides in mode `on`, and
+      emits a `plan_feedback` event.
 
     Returns None, and does nothing, when the budgeter is off. An analysis
     failure is recorded as `verdict="error"` instead of failing the
@@ -1081,6 +1127,32 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
         session.last_plan_budget = None
         return None
     sf = session.conf.get("engine.plan_budget_sf")
+    # cardinality feedback (analysis/feedback.py): compute this plan's
+    # per-node store keys once, consume recorded actuals as estimate
+    # overrides in mode `on`, and (below) annotate node_fp / est_rows onto
+    # the nodes so the executor can record what actually happened. Store
+    # absent or mode off: fb_fps stays None and nothing changes
+    fb_store = getattr(session, "feedback_store", None)
+    fb_mode = "off"
+    fb_fps = None
+    fb_overrides = None
+    if fb_store is not None:
+        fb_mode = _feedback.resolve_feedback_mode(session.conf)
+    if fb_mode != "off":
+        try:
+            fb_fps = _feedback.plan_node_fps(plan, session)
+        except Exception:
+            if os.environ.get("NDS_PLAN_BUDGET_STRICT"):
+                raise
+            fb_fps = None
+        if fb_fps and fb_mode == "on":
+            fb_overrides = {}
+            with session.cache_lock:
+                for nid, fp in fb_fps.items():
+                    rec = fb_store.lookup(fp)
+                    rows = (rec or {}).get("rows") or {}
+                    if rows.get("max") is not None:
+                        fb_overrides[nid] = int(rows["max"])
     try:
         pb = analyze_plan(
             plan,
@@ -1088,6 +1160,7 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
             scale_factor=float(sf) if sf else None,
             budget_bytes=resolve_budget_bytes(session.conf, session.device),
             reject_bytes=resolve_reject_bytes(session.conf, session.device),
+            feedback=fb_overrides,
         )
     except Exception as exc:
         if os.environ.get("NDS_PLAN_BUDGET_STRICT"):
@@ -1096,6 +1169,31 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
         session.notify_failure(f"plan budgeter failed: {str(exc)[:200]}")
         return None
     emit_budget_event(getattr(session, "tracer", None), pb)
+    if fb_fps:
+        # annotate estimate accounting onto the plan (the same dynamic-
+        # annotation family as budget_window_rows: not dataclass fields, so
+        # structural fingerprints and the plan cache stay feedback-
+        # agnostic). The executor reads these to emit op_span est-vs-actual
+        # fields and to record into the store
+        for est in pb.nodes:
+            fp = fb_fps.get(id(est.node))
+            if fp is None:
+                continue
+            est.node.node_fp = fp
+            est.node.est_rows = est.rows
+            est.node.est_live_bytes = est.live_bytes
+        tracer = getattr(session, "tracer", None)
+        if tracer is not None:
+            tracer.emit(
+                "plan_feedback",
+                op="consume" if fb_mode == "on" else "annotate",
+                result="applied" if pb.feedback_overrides else "static",
+                mode=fb_mode,
+                lookups=len(fb_fps) if fb_mode == "on" else 0,
+                hits=len(fb_overrides or {}),
+                overrides=pb.feedback_overrides,
+                verdict=pb.verdict,
+            )
     # `warn` is observe-only: record, but never annotate or reject
     annotate = (
         mode == "on"
@@ -1117,10 +1215,12 @@ def budget_plan(plan: P.PlanNode, session) -> Optional[PlanBudget]:
         "annotated": annotate and not explicit,
         "spillable": pb.spillable,
         "spill_partitions": pb.spill_partitions,
-        # cardinality feedback is not ported (ROADMAP.md queue 1 item 14)
-        "feedback_mode": "off",
-        "feedback_hits": 0,
-        "feedback_overrides": 0,
+        # estimate-vs-actual accounting: the feedback mode this statement
+        # planned under, how many store hits were consulted and how many
+        # static estimates a recorded actual replaced
+        "feedback_mode": fb_mode,
+        "feedback_hits": len(fb_overrides or {}),
+        "feedback_overrides": pb.feedback_overrides,
     }
     if annotate:
         _annotate_blocked_windows(plan, pb.window_rows)

@@ -22,8 +22,9 @@ each statement. `vacuum` sweeps dead-pid temp orphans and quarantined
 entries and enforces the byte budget again; `--all` removes every
 committed entry too (the operator's reset).
 
-The learned-cardinality feedback store the JAX package keeps in the same
-directory is not ported (ROADMAP.md queue 1 item 14).
+The learned-cardinality feedback store (analysis/feedback.py) rides the
+same directory as its `feedback/` subdirectory, so `stats` reports it and
+`vacuum` sweeps it too (`--all` also forgets every learned cardinality).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def _dir_stats(d: str) -> dict:
     cache = AotCache(d, resolve_aot_cache_bytes(None, d))
     entries, total = cache.usage()
     names = os.listdir(d) if os.path.isdir(d) else []
-    return {
+    st = {
         "cache_dir": d,
         "entries": entries,
         "bytes": total,
@@ -65,6 +66,27 @@ def _dir_stats(d: str) -> dict:
         "temps": sum(1 for n in names if ".tmp-" in n),
         "promotions": PromotionStore(d).count(),
     }
+    # learned-cardinality feedback store: rides the cache dir as a
+    # subdirectory (analysis/feedback.py), so the same stats / vacuum flow
+    # covers it; an absent dir means nothing was ever recorded
+    fb_dir = os.path.join(d, "feedback")
+    if os.path.isdir(fb_dir):
+        from ..analysis.feedback import FeedbackStore, resolve_feedback_bytes
+
+        store = FeedbackStore(fb_dir, resolve_feedback_bytes(None, fb_dir))
+        f_entries, f_bytes = store.usage()
+        f_names = os.listdir(fb_dir)
+        st["feedback"] = {
+            "dir": fb_dir,
+            "entries": f_entries,
+            "bytes": f_bytes,
+            "budget_bytes": store.budget,
+            "quarantined": sum(
+                1 for n in f_names if n.startswith("quarantine-")
+            ),
+            "temps": sum(1 for n in f_names if ".tmp-" in n),
+        }
+    return st
 
 
 def stats_main(args) -> int:
@@ -78,6 +100,13 @@ def stats_main(args) -> int:
     print(f"   quarantined  {st['quarantined']}")
     print(f"   temps        {st['temps']}")
     print(f"   promotions   {st['promotions']} persisted verdict(s)")
+    fb = st.get("feedback")
+    if fb:
+        print(f"== feedback store {fb['dir']}")
+        print(f"   entries      {fb['entries']} learned cardinalit(ies) "
+              f"({fb['bytes']:,} B of {fb['budget_bytes']:,} B budget)")
+        print(f"   quarantined  {fb['quarantined']}")
+        print(f"   temps        {fb['temps']}")
     return 0
 
 
@@ -160,11 +189,24 @@ def vacuum_main(args) -> int:
     d = _resolve_dir(args)
     cache = AotCache(d, resolve_aot_cache_bytes(None, d))
     removed = cache.vacuum(drop_all=args.drop_all)
+    # the feedback store rides the cache dir: one vacuum covers both (--all
+    # drops learned cardinalities too, the operator's reset after a data
+    # reload that keeps the same lake version)
+    fb_removed = 0
+    fb_dir = os.path.join(d, "feedback")
+    if os.path.isdir(fb_dir):
+        from ..analysis.feedback import FeedbackStore, resolve_feedback_bytes
+
+        store = FeedbackStore(fb_dir, resolve_feedback_bytes(None, fb_dir))
+        fb_removed = store.vacuum(drop_all=args.drop_all)
     st = _dir_stats(d)
     if args.as_json:
-        print(json.dumps({"removed": removed, "stats": st}, indent=2))
+        print(json.dumps({
+            "removed": removed, "feedback_removed": fb_removed, "stats": st,
+        }, indent=2))
     else:
-        print(f"cache vacuum: removed {removed} file(s); "
+        print(f"cache vacuum: removed {removed} file(s) "
+              f"(+{fb_removed} feedback); "
               f"{st['entries']} entr(ies) / {st['bytes']:,} B remain")
     return 0
 

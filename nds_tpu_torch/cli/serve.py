@@ -66,11 +66,14 @@ def build_service(args):
     if aot_dir:
         conf["engine.aot_cache_dir"] = aot_dir
         os.environ["NDS_AOT_CACHE_DIR"] = aot_dir
-    if getattr(args, "feedback_dir", None):
-        raise NotImplementedError(
-            "serve --feedback_dir: cardinality feedback is not ported to "
-            "nds_tpu_torch yet: ROADMAP.md queue 1 item 14"
-        )
+    # fleet cardinality feedback: the same wiring shape. A shared
+    # --aot_cache_dir already shares feedback (the store defaults to
+    # <aot dir>/feedback); this flag points replicas at a standalone store
+    # when the AOT dir is per-host or disabled
+    fb_dir = getattr(args, "feedback_dir", None)
+    if fb_dir:
+        conf["engine.feedback_dir"] = fb_dir
+        os.environ["NDS_FEEDBACK_DIR"] = fb_dir
     use_decimal = not args.floats
     device = getattr(args, "device", None)
     session = Session(use_decimal=use_decimal, conf=conf, device=device)
@@ -156,8 +159,10 @@ def main(argv=None):
     )
     parser.add_argument(
         "--feedback_dir",
-        help="shared cardinality feedback store dir (engine.feedback_dir; "
-        "not ported yet: raises)",
+        help="shared cardinality feedback store dir "
+        "(engine.feedback_dir): replicas record and consume learned "
+        "per-node actuals fleet-wide; defaults to <aot_cache_dir>/"
+        "feedback when an AOT dir is set",
     )
     parser.add_argument(
         "--device",

@@ -61,12 +61,12 @@ import hashlib
 import json
 import os
 import pickle
-import threading
 import time
 from collections import OrderedDict
 
 from .. import faults
 from .. import __version__ as _NDS_VERSION
+from .lockdebug import make_lock
 
 _MAGIC = b"NDSTAOT1"
 _ENTRY_PREFIX = "aot-"
@@ -231,22 +231,23 @@ class AotCache:
         # closed and replaced; a captured object would emit into a closed
         # file)
         self._tracer = tracer if callable(tracer) else (lambda: tracer)
-        self._lock = threading.Lock()
+        self._lock = make_lock("AotCache._lock")
         self._env = environment_key(device)
         # bounded LRU: the tuple's strong dictionary ref keeps the id()
         # key truthful, and the cap keeps a long-lived session that
         # rotates datasets from pinning every dictionary it ever hashed
+        # nds-guarded-by: _lock
         self._dict_hashes = OrderedDict()  # id(dic) -> (dic, hash)
         self._dict_hash_cap = 512
-        self.stats = {
+        self.stats = {  # nds-guarded-by: _lock
             "lookups": 0, "disk_hits": 0, "misses": 0, "stores": 0,
             "store_failures": 0, "quarantined": 0, "evictions": 0,
         }
-        self._store_disabled = False
+        self._store_disabled = False  # nds-guarded-by: _lock
         # committed bytes as of this handle's last scan plus its own stores
         # since: the budget is enforced (a scan of the directory) only
         # when this passes it, not on every store
-        self._usage = None
+        self._usage = None  # nds-guarded-by: _lock
 
     def _count(self, name: str, n: int = 1):
         with self._lock:
@@ -579,7 +580,8 @@ def sweep_orphans(cache_dir: str) -> int:
 
 # one sweep per (process, directory): per-stream Session construction must
 # not re-list the cache dir (worst case under a race: a second, idempotent
-# sweep)
+# sweep). A process-lifetime once-latch, not per-stream state.
+# nds-lint: disable=mutable-module-global
 _SWEPT_DIRS = set()
 
 
@@ -616,7 +618,8 @@ class PromotionStore:
 
     def __init__(self, cache_dir: str):
         self.path = os.path.join(str(cache_dir), _PROMO_FILE)
-        self._lock = threading.Lock()
+        self._lock = make_lock("PromotionStore._lock")
+        # nds-guarded-by: _lock
         self._cache = None  # last-read snapshot (refreshed on record)
 
     def _read(self) -> dict:

@@ -22,6 +22,7 @@ numeric device path need numpy and torch alone.
 from __future__ import annotations
 
 import threading
+import types
 from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -35,13 +36,13 @@ from ..dtypes import DType, parse_dtype
 _MIN_CAP = 1024
 
 #: numpy dtype -> torch dtype for the device buffers this engine uses
-_TORCH_DTYPE = {
+_TORCH_DTYPE = types.MappingProxyType({
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.float64): torch.float64,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.bool_): torch.bool,
-}
+})
 
 
 def torch_dtype(dtype: DType):

@@ -30,6 +30,7 @@ import itertools
 from dataclasses import replace as _dc_replace
 from time import perf_counter as _perf
 
+import numpy as np
 import torch
 
 from .. import faults
@@ -37,6 +38,7 @@ from ..dtypes import BOOL, DType, FLOAT64, INT32, INT64
 from ..ops import gpu_kernels as GK
 from ..ops import kernels as K
 from . import aotcache as AOTC
+from . import arrowlib
 from . import expr as E
 from . import fuse
 from . import plan as P
@@ -266,6 +268,47 @@ class Executor:
         self._span_seq = 0
         self._exec_id = next(_EXEC_IDS) if tracer is not None else 0
 
+    # pipeline breakers whose actual row count is worth a forced host sync
+    # when it is not already there: a handful per plan, and their consumers
+    # are about to sync anyway. Row-preserving nodes record only when the
+    # count is already on the host: feedback must not add a device round
+    # trip per executed node (on CUDA `Table.nrows` of a queued count is a
+    # host sync)
+    _FEEDBACK_SYNC = (P.Join, P.MultiJoin, P.Aggregate, P.Distinct,
+                      P.SetOp, P.Window, P.Sort)
+
+    def _record_feedback(self, node, out):
+        """Record this node's measured cardinality into the session's
+        FeedbackStore (buffered; Result.table flushes per statement). Only
+        called for nodes budget_plan annotated with `node_fp`, i.e.
+        engine.plan_feedback is record / on and a store exists."""
+        session = getattr(self.catalog, "session", None)
+        store = getattr(session, "feedback_store", None)
+        if store is None:
+            return
+        rows = out.nrows_known
+        if rows is None and (
+            isinstance(node, self._FEEDBACK_SYNC)
+            or (isinstance(node, P.Pipeline) and node.agg is not None)
+        ):
+            rows = out.nrows
+        if rows is None:
+            return
+        est_rows = getattr(node, "est_rows", None)
+        with session.cache_lock:
+            err = store.record(
+                node.node_fp, rows=rows, nbytes=table_device_bytes(out),
+                est_rows=est_rows,
+            )
+        if self.tracer is not None:
+            ev = dict(op="record", result="ok",
+                      node=type(node).__name__, actual_rows=int(rows))
+            if est_rows is not None:
+                ev["est_rows"] = int(est_rows)
+            if err is not None:
+                ev["abs_log_err"] = round(err, 4)
+            self.tracer.emit("plan_feedback", **ev)
+
     # ------------------------------------------------------------------
     def execute(self, node: P.PlanNode) -> Table:
         if not self._fault_checked:
@@ -314,9 +357,14 @@ class Executor:
             finally:
                 self._span_depth = depth
             dur_ms = (_perf() - t0) * 1000.0
+            # estimate-vs-actual accounting BEFORE the span emit: a
+            # pipeline breaker's record may force the queued count onto
+            # the host, and the span's actual_rows should see it
+            fp = getattr(node, "node_fp", None)
+            if fp is not None:
+                self._record_feedback(node, out)
             self._span_seq += 1
-            tracer.emit(
-                "op_span",
+            span = dict(
                 exec_id=self._exec_id,
                 seq=self._span_seq,
                 depth=depth,
@@ -328,8 +376,23 @@ class Executor:
                 rows=out.nrows_known,
                 est_bytes=table_device_bytes(out),
             )
+            if fp is not None:
+                # budgeter accounting (analysis/feedback.py annotations):
+                # est_rows / est_live_bytes are the static model's numbers,
+                # actual_* what this execution measured; `est_bytes` above
+                # keeps its meaning (realized device bytes)
+                span["node_fp"] = fp
+                span["est_rows"] = getattr(node, "est_rows", None)
+                span["est_live_bytes"] = getattr(
+                    node, "est_live_bytes", None
+                )
+                span["actual_rows"] = out.nrows_known
+                span["actual_bytes"] = table_device_bytes(out)
+            tracer.emit("op_span", **span)
         else:
             out = m(node)
+            if getattr(node, "node_fp", None) is not None:
+                self._record_feedback(node, out)
         self._cte_cache[key] = out
         if cache is not None:
             with self.catalog.session.cache_lock:
@@ -814,7 +877,11 @@ class Executor:
             merged[gj] = gi
             current[gi] = joined
         if trace is not None and not replay:
-            trace["steps"] = steps
+            # `trace` may be a join_order_cache entry (steady replays read
+            # it from other statements' threads) or a blocked-union
+            # context's private memo; both callers guarantee a session
+            with self.catalog.session.cache_lock:
+                trace["steps"] = steps
         return current[group(0)]
 
     # ------------------------------------------------------------------
@@ -1508,9 +1575,8 @@ class Executor:
         pair. The cast or remap runs on each window; only dictionary-sized
         remap tables are built here. One [(out_name, fn(Column) -> Column)]
         list per branch, aligned with the branch's columns."""
-        import numpy as np
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        pa = arrowlib.pa
+        pc = arrowlib.pc
 
         names = list(tables[0].columns)
         per_table = [list(t.columns.values()) for t in tables]

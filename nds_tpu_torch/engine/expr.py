@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..dtypes import BOOL, DATE, DType, FLOAT64, INT32, INT64, STRING
+from . import arrowlib
 from .columnar import (
     Column,
     Table,
@@ -320,7 +321,7 @@ class Evaluator:
             data = torch.zeros(cap, dtype=torch_dtype(dtype), device=dev)
             return Column(data, dtype, self._zeros_bool())
         if dtype.is_string:
-            import pyarrow as pa
+            pa = arrowlib.pa
 
             d = host_product(lambda: pa.array([value], type=pa.string()))
             return Column(torch.zeros(cap, dtype=torch.int32, device=dev),
@@ -499,8 +500,8 @@ class Evaluator:
         a = self.eval(e.operand)
         values = [v.value for v in e.values]
         if a.dtype.is_string:
-            import pyarrow as pa
-            import pyarrow.compute as pc
+            pa = arrowlib.pa
+            pc = arrowlib.pc
 
             d = a.dictionary
             lut = host_product(lambda: device_lut(
@@ -525,8 +526,8 @@ class Evaluator:
         return self._const(v, dtype if not dtype.is_string else STRING)
 
     def _eval_like(self, e: Like) -> Column:
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        pa = arrowlib.pa
+        pc = arrowlib.pc
 
         a = self.eval(e.operand)
         if not a.dtype.is_string:
@@ -613,7 +614,7 @@ class Evaluator:
             return Column(torch.round(a.data.to(F64) * f) / f, FLOAT64,
                           a.valid)
         if name in ("substr", "substring"):
-            import pyarrow.compute as pc
+            pc = arrowlib.pc
 
             return self._string_transform(
                 e.args[0],
@@ -624,7 +625,7 @@ class Evaluator:
                 ),
             )
         if name in ("upper", "lower", "trim"):
-            import pyarrow.compute as pc
+            pc = arrowlib.pc
 
             fn = {"upper": pc.utf8_upper, "lower": pc.utf8_lower,
                   "trim": pc.utf8_trim_whitespace}[name]
@@ -655,8 +656,8 @@ class Evaluator:
         raise NotImplementedError(f"function {name}")
 
     def _string_transform(self, arg: Expr, fn) -> Column:
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        pa = arrowlib.pa
+        pc = arrowlib.pc
 
         a = self.eval(arg)
         if not a.dtype.is_string:
@@ -675,8 +676,8 @@ class Evaluator:
         return self._concat_cols(self.eval(e.left), self.eval(e.right))
 
     def _concat_cols(self, a: Column, b: Column) -> Column:
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        pa = arrowlib.pa
+        pc = arrowlib.pc
 
         valid = _and_valid(a.valid, b.valid)
         if a.dtype.is_string and b.dictionary is None and not b.dtype.is_string:
@@ -759,8 +760,8 @@ def _cast_column(c: Column, target: DType, cap: int) -> Column:
     dev = c.data.device
     if target.is_string:
         # non-string -> string: format on host via dictionary of distinct vals
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        pa = arrowlib.pa
+        pc = arrowlib.pc
 
         host_read_guard(f"cast of {src} to a string")
         arr = c.data.cpu().numpy()
@@ -816,7 +817,7 @@ def _parse_dictionary(dictionary, target: DType, dev):
     """(value table, parsed-ok table or None) of a string dictionary cast to
     a number or date on `dev`, or None for an empty dictionary.
     Unparseable entries become NULL (Spark cast semantics), not 0."""
-    import pyarrow as pa
+    pa = arrowlib.pa
 
     entries = np.asarray(dictionary.cast(pa.string())).tolist()
     if not entries:
@@ -856,8 +857,8 @@ def _share_dictionary(cols):
     dev = cols[0].data.device
 
     def build():
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        pa = arrowlib.pa
+        pc = arrowlib.pc
 
         dicts = [
             (c.dictionary if c.dictionary is not None

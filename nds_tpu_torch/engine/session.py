@@ -13,7 +13,10 @@ a cross-statement plan / result cache (`engine.plan_cache`,
 `engine.plan_cache_bytes`), MultiJoins replay their recorded join order
 (`engine.join_order_cache`), and fused entries and kernel promotion
 verdicts persist in an AOT directory (engine/aotcache.py;
-`engine.aot_cache_dir` / NDS_AOT_CACHE_DIR). CREATE / DROP (TEMP) VIEW registers or drops an Arrow entry;
+`engine.aot_cache_dir` / NDS_AOT_CACHE_DIR), and so do the measured
+cardinalities the plan budgeter learns from (analysis/feedback.py;
+`engine.plan_feedback`, `engine.feedback_dir`). CREATE / DROP (TEMP) VIEW
+registers or drops an Arrow entry;
 INSERT, DELETE, CREATE TABLE AS and CALL rollback_to_timestamp run over
 lakehouse tables through lakehouse/dml.py (the Data Maintenance phase).
 
@@ -30,9 +33,10 @@ domain of the Power Run's harness is the reference's: fault injection
 the task-failure listeners that report.py's degradation ladder drives,
 and the catalog's load-time retry after a device OOM (a CUDA OOM as well
 as an XLA RESOURCE_EXHAUSTED text). With `engine.verify_plans` the plan
-verifier (analysis/verifier.py) re-checks each plan. Conf keys and
-environment knobs of layers not ported yet (the mesh, lock debugging,
-cardinality feedback) raise NotImplementedError rather than being ignored.
+verifier (analysis/verifier.py) re-checks each plan, and with
+`engine.lock_debug` every named lock asserts the pinned lock order
+(engine/lockdebug.py). Conf keys of the layer not ported yet (the mesh)
+raise NotImplementedError rather than being ignored.
 `plan_stmt` plans one SELECT and reads its budget verdict under one lock,
 for serve/service.py's admission.
 
@@ -55,6 +59,7 @@ import torch
 
 from .. import faults
 from ..analysis import budget as B
+from ..analysis import feedback as FB
 from ..schema import (
     Field,
     Schema,
@@ -76,22 +81,9 @@ from .columnar import (
     table_to_arrow,
 )
 from .exec import Executor
+from .lockdebug import make_lock
 from .sql import ast as A
 from .sql.parser import parse_script, parse_sql
-
-
-def _conf_else_env(conf, key, env):
-    """The value of conf `key`, else of the environment knob `env` (None
-    when neither is set), as the reference's resolvers read it."""
-    v = conf.get(key)
-    return os.environ.get(env) if v is None else v
-
-
-def _lock_debug_on(conf):
-    # nds_tpu/engine/lockdebug.py resolve_lock_debug
-    v = _conf_else_env(conf, "engine.lock_debug", "NDS_LOCK_DEBUG")
-    return v is not None and str(v).strip().lower() in (
-        "1", "true", "yes", "on")
 
 
 def _mesh_devices_on(conf):
@@ -104,12 +96,12 @@ def _mesh_devices_on(conf):
 
 #: (conf key, environment knob, resolver of conf -> on, the ROADMAP.md item
 #: that ports the layer) of layers the port has not ported: a knob that
-#: turns its layer on, by the reference's own resolver, raises.
+#: turns its layer on, by the reference's own resolver, raises. The mesh's
+#: own tuning knobs (engine.exchange_min_rows, engine.dist_sort_min_rows)
+#: act only on a mesh, as in the reference, so they need no entry.
 _UNPORTED_KNOBS = (
     ("engine.mesh_devices", None, _mesh_devices_on,
      "queue 1 item 13 (parallel/)"),
-    ("engine.lock_debug", "NDS_LOCK_DEBUG", _lock_debug_on,
-     "queue 1 item 15 (the engine's own checks)"),
 )
 
 _ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
@@ -234,9 +226,10 @@ class Catalog:
         self.DEVICE_BUDGET_BYTES = B.resolve_catalog_bytes(session.device)
         # recency tick of the residency LRU (a lost increment only perturbs
         # the eviction order)
-        self._use_tick = 0
+        self._use_tick = 0  # nds-guarded-by: none
         # entries whose columns the budget evicted, over the session's life
-        self.evictions = 0
+        # (a statistic: a lost increment only undercounts it)
+        self.evictions = 0  # nds-guarded-by: none
         # per thread, the lakehouse names whose pins a DML statement holds
         # for its nested reads (hold_pins)
         self._pin_holds = threading.local()
@@ -622,6 +615,14 @@ class Result:
         if self._table is None:
             self.executor = self.session._executor(tracer=tracer)
             self._table = self.executor.execute(self.plan)
+            # commit this statement's buffered cardinality records (one
+            # merge and write per touched key, not per executed node), so
+            # a second run, or another process sharing the store dir,
+            # plans from what this one measured
+            store = self.session.feedback_store
+            if store is not None:
+                with self.session.cache_lock:
+                    store.flush()
         return self._table
 
     def collect(self, tracer=None):
@@ -668,15 +669,6 @@ class Session:
                     f"{key}{f' / {env}' if env else ''} is not ported to "
                     f"nds_tpu_torch yet: ROADMAP.md {item}"
                 )
-        fb = self.conf.get("engine.plan_feedback") or os.environ.get(
-            "NDS_PLAN_FEEDBACK")
-        if fb and str(fb).lower() == "on":
-            # `record` and `off` are accepted: nothing is recorded yet
-            raise NotImplementedError(
-                "engine.plan_feedback=on / NDS_PLAN_FEEDBACK is not ported "
-                "to nds_tpu_torch yet: ROADMAP.md queue 1 item 14 "
-                "(cardinality feedback)"
-            )
         self.device = resolve_device(device)
         # arm the fault-injection points (conf engine.fault_spec, else
         # NDS_FAULT_SPEC); idempotent for an unchanged spec, so the sessions
@@ -698,14 +690,18 @@ class Session:
         self.catalog = Catalog(self)
         # task-failure observers (report.BenchReport registers one per
         # query)
-        self._listeners = []
+        self._listeners = []  # nds-guarded-by: cache_lock
         # kernel promotion memo (engine.pallas_*=auto): per (kernel, shape)
         # the measured plain-vs-kernel A/B and the winning route
         self.pallas_promotions = {}
         # one lock guards every session-level cache mutation (plan_cache,
-        # exec_cache, join_order_cache, pallas_promotions, the spill pool)
-        self.cache_lock = threading.RLock()
-        self.plan_cache = _PlanResultCache(
+        # exec_cache, join_order_cache, pallas_promotions, feedback_store,
+        # the spill pool). Reentrant: the recovery path clears caches from
+        # inside already-locked regions
+        self.cache_lock = make_lock(
+            "Session.cache_lock", self.conf, reentrant=True
+        )
+        self.plan_cache = _PlanResultCache(  # nds-guarded-by: cache_lock
             int(self.conf.get("engine.plan_cache_bytes", 1 << 30))
         )
         # fused entries (engine/fuse.py): they survive catalog changes on
@@ -714,13 +710,13 @@ class Session:
         # per-query view churn must not evict them
         from .fuse import ExecutableCache
 
-        self.exec_cache = ExecutableCache(
+        self.exec_cache = ExecutableCache(  # nds-guarded-by: cache_lock
             int(self.conf.get("engine.exec_cache_entries", 512))
         )
         # MultiJoin greedy-order memo: fingerprint -> recorded join steps
         # (exec._multijoin_greedy); a replay skips the cost scan's row
         # count syncs
-        self.join_order_cache = {}
+        self.join_order_cache = {}  # nds-guarded-by: cache_lock
         # the persistent cache (engine/aotcache.py): fused entries' build
         # products and pins, and the kernel promotion verdicts, shared on
         # disk by every process of the directory. Off with
@@ -734,6 +730,19 @@ class Session:
             self.aot_cache = AOTC.AotCache(
                 aot_dir, AOTC.resolve_aot_cache_bytes(self.conf, aot_dir),
                 self.device, tracer=lambda: self.tracer,
+            )
+        # estimate-vs-actual cardinality feedback (analysis/feedback.py):
+        # persistent (node_fp, scale)-keyed actuals shared across processes
+        # and serve replicas. Rides the AOT cache dir by default
+        # (<dir>/feedback), so one shared dir shares learned cardinalities
+        # as it shares fused entries. Disable with NDS_FEEDBACK_DIR=0 /
+        # engine.plan_feedback=off.
+        self.feedback_store = None  # nds-guarded-by: cache_lock
+        fb_dir = FB.resolve_feedback_dir(self.conf)
+        if fb_dir:
+            AOTC.sweep_at_session_start(fb_dir)  # same .tmp-<pid> naming
+            self.feedback_store = FB.FeedbackStore(
+                fb_dir, FB.resolve_feedback_bytes(self.conf, fb_dir)
             )
         # stats of the most recent blocked union aggregation (windows,
         # window rows and cap, total rows, largest table cap), or None
@@ -755,11 +764,11 @@ class Session:
         # the host-RAM spill pool, built on first use; session start sweeps
         # the segment files a crashed process left in the spill dir (once
         # per process and directory)
-        self._spill_pool = None
+        self._spill_pool = None  # nds-guarded-by: cache_lock
         SP.sweep_at_session_start(SP.resolve_spill_dir(self.conf))
         # (thread id, monotonic seconds) of the last out-of-core partition
         # or run: a watchdog tells a slow spill from a hang by it
-        self._progress_ts = None
+        self._progress_ts = None  # nds-guarded-by: none
 
     @property
     def spill_pool(self) -> SP.SpillPool:
@@ -1146,8 +1155,9 @@ class Session:
 # Zone-map pruning: the prunable conjuncts of a scan's filter
 # ---------------------------------------------------------------------------
 
-#: the mirror of each comparison (a literal-on-left comparison flips)
-_ZONE_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
+#: the mirror of each comparison (a literal-on-left comparison flips);
+#: never mutated
+_ZONE_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}  # nds-lint: disable=mutable-module-global
 
 
 def _zone_preds(pred, alias):

@@ -36,7 +36,6 @@ import itertools
 import json
 import os
 import tempfile
-import threading
 import time
 import uuid
 from collections import OrderedDict
@@ -45,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import faults
+from .lockdebug import make_lock
 
 #: default host-RAM budget for spilled segments; beyond it segments tier
 #: down to spill_dir
@@ -154,18 +154,20 @@ class SpillPool:
         self.dir = spill_dir
         self.app = app_id or f"pid{os.getpid()}-{uuid.uuid4().hex[:6]}"
         self._seq = itertools.count()
-        self._lock = threading.Lock()
+        self._lock = make_lock("SpillPool._lock")
+        # nds-guarded-by: _lock
         self._host = OrderedDict()  # sid -> RAM-resident segment, LRU order
+        # nds-guarded-by: _lock
         self._all = {}  # sid -> segment
-        self.host_bytes = 0
-        self.stats = {
+        self.host_bytes = 0  # nds-guarded-by: _lock
+        self.stats = {  # nds-guarded-by: _lock
             "bytes_in": 0, "bytes_out": 0, "evictions": 0, "segments": 0,
             "disk_bytes_written": 0, "disk_bytes_read": 0,
         }
         # set once by the disk-tier writer; a repeated manifest write is
         # an atomic replace of identical content
-        self._manifest_written = False
-        self._ram_only_warned = False
+        self._manifest_written = False  # nds-guarded-by: none
+        self._ram_only_warned = False  # nds-guarded-by: _lock
 
     # ------------------------------------------------------------------
     def put(self, table) -> SpillSegment:
@@ -477,7 +479,9 @@ def sweep_orphans(spill_dir: str) -> int:
 
 
 # one sweep per (process, directory): re-listing the spill dir for every
-# session buys nothing; a race costs at most a second, idempotent sweep
+# session buys nothing; a race costs at most a second, idempotent sweep.
+# A process-lifetime once-latch, not per-stream state.
+# nds-lint: disable=mutable-module-global
 _SWEPT_DIRS = set()
 
 

@@ -63,6 +63,8 @@ import sys
 import threading
 import time
 
+from .engine.lockdebug import make_lock
+
 # ---------------------------------------------------------------------------
 # failure taxonomy
 # ---------------------------------------------------------------------------
@@ -230,7 +232,7 @@ class FaultRule:
 class FaultRegistry:
     def __init__(self, rules):
         self.rules = list(rules)
-        self._lock = threading.Lock()
+        self._lock = make_lock("FaultRegistry._lock")
 
     @classmethod
     def parse(cls, spec: str) -> "FaultRegistry":

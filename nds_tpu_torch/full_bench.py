@@ -714,11 +714,10 @@ def _run_full_bench_phases(params, resume, num_streams, device, tracer,
     if mul_error:
         metrics["maintenance_under_load_error"] = mul_error
     # budgeter-accuracy headline beside the composite metric, from the
-    # trace directory's plan_feedback events (fail-soft: a torn trace file
-    # must not cost a finished benchmark). The port emits no plan_feedback
-    # event until cardinality feedback (ROADMAP.md queue 1 item 14), so
-    # both keys stay at that item's default, None, as the reference's do
-    # with feedback off.
+    # trace directory's plan_feedback events: the trace dir aggregates
+    # every phase subprocess's events (fail-soft: a torn trace file must
+    # not cost a finished benchmark). With feedback off no event carries
+    # them, and both keys stay None.
     if trace_dir:
         errs = []
 

@@ -43,11 +43,11 @@ import json
 import os
 import posixpath
 import socket
-import threading
 import time
 import uuid
 
 from .. import faults
+from ..engine.lockdebug import make_lock
 from ..io.fs import get_fs, put_if_absent
 
 #: catalog state directory inside a table root, sibling of _manifests/
@@ -128,7 +128,7 @@ def is_tcp_spec(spec) -> bool:
 #: one client per backend spec: the fs client is stateless and the tcp
 #: client holds its (host, port)
 _CLIENTS = {}
-_CLIENTS_LOCK = threading.Lock()
+_CLIENTS_LOCK = make_lock("lakehouse/catalog.py:_CLIENTS_LOCK")
 
 
 def resolve_catalog(conf: dict | None = None):
@@ -515,10 +515,9 @@ class CatalogCoordinator:
 
     def __init__(self, tracer=None):
         self._fs = FsCatalog()
-        # a plain lock, as lakehouse/leases.py's (the reference's lock
-        # debugging, engine/lockdebug.py, is ROADMAP.md queue 1 item 15)
-        self._lock = threading.Lock()
+        self._lock = make_lock("CatalogCoordinator._lock")
         self.tracer = tracer
+        # nds-guarded-by: _lock
         self._refs = {}  # path -> _TableRef, under _lock
         self.started_ts_ms = _now_ms()
         #: kept False so obs/httpserv.py's /healthz answers 200

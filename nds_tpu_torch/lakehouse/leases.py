@@ -1,7 +1,5 @@
 """In-process reader-lease table: the snapshot pins vacuum must respect;
-the port of nds_tpu/lakehouse/leases.py, with a plain threading.Lock where
-the reference takes a lock-debugging lock (engine.lock_debug is ROADMAP.md
-queue 1 item 15).
+the port of nds_tpu/lakehouse/leases.py.
 
 Iceberg/Delta get reader safety from their catalogs: `expire_snapshots`
 never deletes a data file a live reader's snapshot still references,
@@ -32,8 +30,9 @@ from __future__ import annotations
 
 import itertools
 import os
-import threading
 from time import monotonic as _monotonic
+
+from ..engine.lockdebug import make_lock
 
 #: default reader-lease TTL in seconds (engine.lake_lease_ttl_s /
 #: NDS_LAKE_LEASE_TTL_S): long enough for any benchmarked query, short
@@ -62,8 +61,9 @@ class ReaderLeases:
     holds at most the leases of its last activity burst."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("ReaderLeases._lock")
         self._ids = itertools.count(1)
+        # nds-guarded-by: _lock
         self._leases = {}  # id -> lease record, under _lock
 
     def acquire(self, root: str, version: int, files, ttl_s: float,

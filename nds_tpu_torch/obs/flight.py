@@ -41,11 +41,11 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-import threading
 import time
 from collections import OrderedDict, deque
 
 from .. import __version__
+from ..engine.lockdebug import make_lock
 
 
 #: default ring capacity (events); enough to hold a failing query's last
@@ -132,7 +132,7 @@ class FlightRecorder:
         self._ring = deque(maxlen=capacity)  # nds-guarded-by: none
         self.capacity = capacity
         self.events_recorded = 0  # approximate under races  # nds-guarded-by: none
-        self._lock = threading.Lock()
+        self._lock = make_lock("FlightRecorder._lock")
         self._plans = OrderedDict()  # query label -> explain  # nds-guarded-by: _lock
 
     # -- hot path --------------------------------------------------------
@@ -283,7 +283,7 @@ def is_bundle_path(path) -> bool:
 # process-wide singleton (one black box per process, like the sink)
 # ---------------------------------------------------------------------------
 
-_SHARED_LOCK = threading.Lock()
+_SHARED_LOCK = make_lock("obs/flight.py:_SHARED_LOCK")
 _SHARED = {}  # "recorder": FlightRecorder
 
 

@@ -53,6 +53,8 @@ import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..engine.lockdebug import make_lock
+
 
 #: largest accepted POST body (a query request is SQL text + a small JSON
 #: envelope; anything bigger is a client bug or a flood)
@@ -62,7 +64,7 @@ MAX_BODY_BYTES = 8 << 20
 #: lock because two /debug/jaxprof POSTs may race on the threading server.
 #: The route keeps the reference's name and payload, so its clients work
 #: here; the profiler behind it is torch.profiler (_ProfilerThread).
-_JAXPROF_LOCK = threading.Lock()
+_JAXPROF_LOCK = make_lock("obs/httpserv.py:_JAXPROF_LOCK")
 _JAXPROF = {"dir": None, "started_ts_ms": None, "prof": None}
 
 
@@ -133,20 +135,27 @@ def _jaxprof_action(payload: dict) -> tuple:
     action = str(payload.get("action") or "").lower()
     if action not in ("start", "stop"):
         return 400, {"error": "action must be 'start' or 'stop'"}
+    running = {"error": "profiler already running"}
+    if action == "start":
+        # the output directory is made outside the lock (a syscall under
+        # it would hold up a concurrent stop); the peek spares a running
+        # profiler a stray directory, the check under the lock decides
+        if _JAXPROF["dir"] is not None:
+            return 409, dict(running, dir=_JAXPROF["dir"])
+        from .flight import resolve_flight_dir
+
+        d = payload.get("dir") or os.path.join(
+            resolve_flight_dir(), f"jaxprof-{int(time.time())}"
+        )
+        try:
+            os.makedirs(str(d), exist_ok=True)
+        except OSError as exc:
+            return 500, {"error": f"start_trace: {exc}"}
     with _JAXPROF_LOCK:
         if action == "start":
             if _JAXPROF["dir"] is not None:
-                return 409, {
-                    "error": "profiler already running",
-                    "dir": _JAXPROF["dir"],
-                }
-            from .flight import resolve_flight_dir
-
-            d = payload.get("dir") or os.path.join(
-                resolve_flight_dir(), f"jaxprof-{int(time.time())}"
-            )
+                return 409, dict(running, dir=_JAXPROF["dir"])
             try:
-                os.makedirs(str(d), exist_ok=True)
                 prof = _ProfilerThread(str(d))
             except Exception as exc:
                 return 500, {"error": f"start_trace: {exc}"}

@@ -36,9 +36,9 @@ from __future__ import annotations
 
 import os
 import re
-import threading
 import time
 
+from ..engine.lockdebug import make_lock
 from .trace import EVENT_SCHEMA
 
 
@@ -160,7 +160,7 @@ class MetricsRegistry:
     lock; there is no per-series allocation after first touch."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("MetricsRegistry._lock")
         # (name, labels) -> float                # nds-guarded-by: _lock
         self._counters = {}
         # (name, labels) -> float                # nds-guarded-by: _lock
@@ -334,7 +334,7 @@ class MetricsSink:
 
     def __init__(self):
         self.registry = MetricsRegistry()
-        self._slock = threading.Lock()
+        self._slock = make_lock("MetricsSink._slock")
         self._status = {  # nds-guarded-by: _slock
             "pid": os.getpid(),
             "started_ts_ms": int(time.time() * 1000),
@@ -1101,7 +1101,7 @@ assert set(_HANDLERS) <= set(EVENT_SCHEMA)
 # process-wide singletons: one sink + one endpoint per process
 # ---------------------------------------------------------------------------
 
-_SHARED_LOCK = threading.Lock()
+_SHARED_LOCK = make_lock("obs/metrics.py:_SHARED_LOCK")
 _SHARED = {}  # "sink": MetricsSink, "server": MetricsServer, "warned": bool
 
 

@@ -57,6 +57,7 @@ import uuid
 
 from .. import faults
 from .. import __version__
+from ..engine.lockdebug import make_lock
 
 
 #: kind -> tuple of required per-kind fields (beyond ts/kind/app).
@@ -416,7 +417,7 @@ class Tracer:
             [] if (trace_dir is None and collect) else None
         )
         self._fh = None  # nds-guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = make_lock("Tracer._lock")
         self._broken = False  # nds-guarded-by: _lock
         self._closed = False  # nds-guarded-by: _lock
         self._close_warned = False  # nds-guarded-by: _lock

@@ -21,13 +21,15 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-NVCC_FLAGS = [
+NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+)
 
 _lock = threading.Lock()
-_libs = {}  # name -> ctypes.CDLL, guarded by _lock
+# name -> ctypes.CDLL, guarded by _lock: one loaded library per process
+# BY DESIGN (every session and stream launches through the same handles)
+_libs = {}  # nds-lint: disable=mutable-module-global
 
 
 class KernelBuildError(RuntimeError):

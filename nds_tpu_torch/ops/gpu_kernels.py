@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import types
 from typing import NamedTuple
 
 import torch
@@ -43,7 +44,9 @@ SORT_MAX_DOMAIN = 2048
 SORT_MAX_ROWS = 1 << 24
 
 #: launches of each kernel since the last reset_launches(); a wrapper adds
-#: one where it launches its kernel, and nowhere else
+#: one where it launches its kernel, and nowhere else. Process-wide BY
+#: DESIGN (the count of a run over all its streams), under _LAUNCHES_LOCK
+# nds-lint: disable=mutable-module-global
 LAUNCHES = {
     "segment_sums": 0,
     "segment_extreme": 0,
@@ -70,7 +73,7 @@ def _launched(name: str):
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_SIGNATURES = {
+_SIGNATURES = types.MappingProxyType({
     ("segment_sums", "seg_sums_launch"):
         [_P, _P, _I64, _INT, _P, _P, _P, _INT, _INT, _P],
     ("segment_extreme", "seg_extreme_launch"):
@@ -79,19 +82,16 @@ _SIGNATURES = {
         [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _INT, _INT, _INT, _P],
     ("sort_perm", "sort_perm_launch"):
         [_P, _INT, _I64, _INT, _I64, _INT, _P, _P, _P, _P, _P],
-}
+})
 
 
-_FNS = {}  # (source, symbol) -> ctypes function, argtypes set
-
-
+@functools.lru_cache(maxsize=None)
 def _fn(source: str, symbol: str):
-    fn = _FNS.get((source, symbol))
-    if fn is None:
-        fn = getattr(_build.load(source), symbol)
-        fn.argtypes = _SIGNATURES[(source, symbol)]
-        fn.restype = ctypes.c_int
-        _FNS[(source, symbol)] = fn
+    """The ctypes function of `symbol` in csrc/<source>.cu, its argument
+    types set (memoized: one lookup per process)."""
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = _SIGNATURES[(source, symbol)]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -118,15 +118,15 @@ def _check(what: str, t: torch.Tensor, dtype, n=None):
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-_SM_COUNT = {}  # device index -> streaming multiprocessors
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch_args(t: torch.Tensor):
     dev = t.device
-    n_sm = _SM_COUNT.get(dev.index)
-    if n_sm is None:
-        n_sm = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
+    n_sm = _sm_count(dev.index)
     # the raw cudaStream_t of the current stream, without building a
     # torch.cuda.Stream object on every launch (what torch's own generated
     # kernels call)
@@ -362,7 +362,7 @@ def dense_build_plain(rkey, rlive, rmin: int, table_cap: int):
 DENSE_OWNER_SLOTS = 4096
 DENSE_OWNER_MAX_ROWS = 8192
 DENSE_OWNER_MAX_READS = 1 << 22
-_DENSE_PATHS = {"owner": 0, "cooperative": 1}
+_DENSE_PATHS = types.MappingProxyType({"owner": 0, "cooperative": 1})
 
 
 class DensePlan(NamedTuple):

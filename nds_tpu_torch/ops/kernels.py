@@ -26,6 +26,7 @@ from time import perf_counter as _perf
 
 import torch
 
+from ..engine.columnar import _HOST, bucket_cap
 from ..obs import trace as _obs_trace
 
 I64 = torch.int64
@@ -63,9 +64,6 @@ def _ktracer():
 
 
 def _in_fused_chain() -> bool:
-    # lazy import: engine.columnar imports this module
-    from ..engine.columnar import _HOST
-
     return getattr(_HOST, "tape", None) is not None
 
 
@@ -571,8 +569,6 @@ def _check_pair_count(total: int):
 def join_candidates(lkeys, lvalids, llive, rkeys, rvalids, rlive):
     """Hash-match candidate pairs; caller MUST verify real key equality.
     Returns (li, ri, pair_live, total_candidates)."""
-    from ..engine.columnar import bucket_cap
-
     lh = hash_columns(lkeys, lvalids)
     rh = hash_columns(rkeys, rvalids)
     lnn = _all_valid(lvalids, llive)

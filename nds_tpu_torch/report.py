@@ -694,6 +694,7 @@ class BenchReport:
         self.summary["startTime"] = start_time
         # the epoch-ms difference is the queryTimes report contract; the
         # monotonic duration rides the query_span event below
+        # nds-lint: disable=perf-counter
         self.summary["queryTimes"].append(end_time - start_time)
         if failures:
             self.summary["taskFailures"] = list(failures)

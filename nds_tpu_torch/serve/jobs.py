@@ -19,6 +19,7 @@ import os
 import threading
 import time
 
+from ..engine.lockdebug import make_lock
 from ..io.fs import fs_open_atomic
 
 
@@ -52,9 +53,8 @@ class StreamJobs:
         self.job_dir = job_dir or resolve_job_dir(
             getattr(service.session, "conf", None)
         )
-        # plain locks, as lakehouse/leases.py's: the reference's lock
-        # debugging (engine/lockdebug.py) is ROADMAP.md queue 1 item 15
-        self._lock = threading.Lock()
+        self._lock = make_lock("StreamJobs._lock")
+        # nds-guarded-by: _lock
         self._jobs = {}  # job_id -> state dict, under _lock
 
     # ------------------------------------------------------------------

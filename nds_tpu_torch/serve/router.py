@@ -69,6 +69,7 @@ import time
 import uuid
 
 from .. import faults
+from ..engine.lockdebug import make_lock
 
 #: default per-request upstream attempt budget (first try + failovers)
 DEFAULT_ROUTE_RETRIES = 3
@@ -144,19 +145,19 @@ class Replica:
         self.port = int(port)
         self.name = f"{host}:{port}"
         self.mesh = mesh
-        self.healthy = True  # under the router's _lock
-        self.draining = False  # under the router's _lock
-        self.in_flight = 0  # under the router's _lock
-        self.requests = 0  # under the router's _lock
-        self.failures = 0  # under the router's _lock
-        self.consecutive_errors = 0  # under the router's _lock
-        self.last_latency_ms = None  # under the router's _lock
-        self.last_probe_ok_ts = None  # under the router's _lock
+        self.healthy = True  # nds-guarded-by: _lock
+        self.draining = False  # nds-guarded-by: _lock
+        self.in_flight = 0  # nds-guarded-by: _lock
+        self.requests = 0  # nds-guarded-by: _lock
+        self.failures = 0  # nds-guarded-by: _lock
+        self.consecutive_errors = 0  # nds-guarded-by: _lock
+        self.last_latency_ms = None  # nds-guarded-by: _lock
+        self.last_probe_ok_ts = None  # nds-guarded-by: _lock
         #: bumped each time the router puts the replica back in rotation
         #: (a roll's reload, a probe's 200): a `draining` answer to a
-        #: request sent at an older epoch is stale. Under the router's
-        #: _lock
-        self.epoch = 0
+        #: request sent at an older epoch is stale (the port's own field;
+        #: the reference's Replica has none)
+        self.epoch = 0  # nds-guarded-by: _lock
 
     def snapshot(self) -> dict:
         return {
@@ -238,20 +239,18 @@ class QueryRouter:
             "NDS_ROUTE_REQUEST_TIMEOUT_S", DEFAULT_REQUEST_TIMEOUT_S,
             floor=1.0,
         )
-        # plain locks, as lakehouse/leases.py's: the reference's lock
-        # debugging (engine/lockdebug.py) is ROADMAP.md queue 1 item 15
-        self._lock = threading.Lock()
-        self._rr = 0  # under the router's _lock
-        self._tenant_in_flight = {}  # under the router's _lock
+        self._lock = make_lock("QueryRouter._lock")
+        self._rr = 0  # nds-guarded-by: _lock
+        self._tenant_in_flight = {}  # nds-guarded-by: _lock
         # (tenant, class) -> [tokens, last_refill_monotonic]
-        self._buckets = {}  # under the router's _lock
+        self._buckets = {}  # nds-guarded-by: _lock
         # plan fingerprint -> /plan verdict payload (LRU via re-insert)
-        self._verdicts = {}  # under the router's _lock
-        self._verdict_order = []  # under the router's _lock
+        self._verdicts = {}  # nds-guarded-by: _lock
+        self._verdict_order = []  # nds-guarded-by: _lock
         # capability -> {"reason", "since_ts_ms"} while degraded
-        self._degraded = {}  # under the router's _lock
-        self._dml_half_open_at = 0.0  # under the router's _lock
-        self.draining = False  # under the router's _lock
+        self._degraded = {}  # nds-guarded-by: _lock
+        self._dml_half_open_at = 0.0  # nds-guarded-by: _lock
+        self.draining = False  # nds-guarded-by: _lock
         self.started_ts_ms = int(time.time() * 1000)
         self._closed = threading.Event()
         self._prober = None

@@ -51,6 +51,7 @@ import uuid
 
 from .. import faults
 from ..analysis.budget import PlanBudgetError, serve_concurrency
+from ..engine.lockdebug import make_lock
 from ..engine.sql import ast as A
 from ..engine.sql.parser import parse_script
 from ..obs import trace as obs_trace
@@ -164,7 +165,7 @@ class _RequestTracer:
         self._inner = inner
         self.request_id = request_id
         self.tenant = tenant
-        self._tally_lock = threading.Lock()
+        self._tally_lock = make_lock("_RequestTracer._tally_lock")
         self.tallies = {
             "exec_cache_hits": 0, "exec_cache_lookups": 0,
             "plan_cache_hits": 0, "plan_cache_lookups": 0,
@@ -247,25 +248,23 @@ class QueryService:
         # planning is serialized (Session.plan_stmt holds cache_lock), but
         # the writer path needs its own mutual exclusion: one in-process
         # writer at a time, OCC arbitrates across processes
-        # plain locks, as lakehouse/leases.py's: the reference's lock
-        # debugging (engine/lockdebug.py) is ROADMAP.md queue 1 item 15
-        self._writer_lock = threading.Lock()
-        self._state_lock = threading.Lock()
-        self._in_flight = 0  # under _state_lock
-        self._active_rids = set()  # under _state_lock
+        self._writer_lock = make_lock("QueryService._writer_lock", conf)
+        self._state_lock = make_lock("QueryService._state_lock", conf)
+        self._in_flight = 0  # nds-guarded-by: _state_lock
+        self._active_rids = set()  # nds-guarded-by: _state_lock
         # /reload lease hygiene: [(rids-still-running-at-reload, lease
         # ids dropped by that reload)] — each batch releases when the
         # LAST of its in-flight statements finishes, instead of
         # abandoning the leases to TTL expiry)
-        self._deferred_leases = []  # under _state_lock
-        self._tenant_in_flight = {}  # under _state_lock
+        self._deferred_leases = []  # nds-guarded-by: _state_lock
+        self._tenant_in_flight = {}  # nds-guarded-by: _state_lock
         # DML idempotency ledger (router retries): request_key -> the
         # recorded completed envelope, or None while the original
         # delivery is still running. Bounded FIFO — the keys are
         # router-minted uuids, one per client DML request.
-        self._dml_keys = {}  # under _state_lock
-        self._dml_key_order = []  # under _state_lock
-        self.draining = False  # under _state_lock
+        self._dml_keys = {}  # nds-guarded-by: _state_lock
+        self._dml_key_order = []  # nds-guarded-by: _state_lock
+        self.draining = False  # nds-guarded-by: _state_lock
         self.started_ts_ms = int(time.time() * 1000)
         from .jobs import StreamJobs
 

@@ -375,7 +375,10 @@ def _run_throughput_processes(
                 cmd += ["--device", str(device)]
             # each child logs to its own file: a shared PIPE read in turn
             # would block a chatty stream on pipe backpressure, stretching
-            # its window and corrupting Ttt
+            # its window and corrupting Ttt. An append-style live log, not a
+            # parsed artifact: a torn final line is crash evidence, so no
+            # atomic rename here
+            # nds-lint: disable=atomic-write
             logf = open(f"{time_log_base}_{n}.out", "w")
             # per-child trace context: the child adopts this trace_id
             # (tracer_from_conf reads NDS_TRACE_CONTEXT), and the parent

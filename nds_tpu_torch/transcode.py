@@ -136,6 +136,7 @@ def transcode_table(
         import json as _json
 
         os.makedirs(dst, exist_ok=True)
+        # nds-lint: disable=atomic-write
         with open(os.path.join(dst, basename.format(i=0)), "w") as f:
             for b in batches():
                 for row in b.to_pylist():

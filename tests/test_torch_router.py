@@ -670,6 +670,7 @@ def test_cli_serve_aot_cache_dir_flag(tmp_path, monkeypatch):
     from nds_tpu_torch.cli.serve import build_service
 
     monkeypatch.setenv("NDS_AOT_CACHE_DIR", "0")  # restored at teardown
+    monkeypatch.setenv("NDS_FEEDBACK_DIR", "0")
     wh = tmp_path / "wh"
     wh.mkdir()
     TORCH.T.LakehouseTable.create(str(wh / "store_sales"), fact_table(4))
@@ -689,10 +690,15 @@ def test_cli_serve_aot_cache_dir_flag(tmp_path, monkeypatch):
         status, body, _ = post(server.port, {
             "sql": "select count(*) c from store_sales"}, path="/plan")
         assert status == 200 and body["kind"] == "select"
-        # feedback is not ported: its flag raises, naming the item
+        # ported (item 14): the flag points the replica's sessions at a
+        # shared feedback store
         args.feedback_dir = str(tmp_path / "fb")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            build_service(args)
+        fb_service, _ = build_service(args)
+        try:
+            assert os.environ["NDS_FEEDBACK_DIR"] == args.feedback_dir
+            assert fb_service.session.feedback_store.dir == args.feedback_dir
+        finally:
+            fb_service.close()
     finally:
         service.close()
         TORCH.M.reset_shared()

@@ -57,6 +57,8 @@ def _jax(tmp_path, **conf):
 
 def _torch(tmp_path, **conf):
     s = TorchSession(conf={"engine.spill_dir": str(tmp_path / "spill"),
+                           "engine.feedback_dir":
+                               str(tmp_path / "torch_feedback"),
                            **conf}, device="cpu")
     for name, t in TABLES.items():
         s.register_arrow(name, t)
@@ -176,10 +178,9 @@ def test_spill_verdict_drives_auto_mode(tmp_path):
     got, ev_t = _run(t, TX.Executor, sql)
     j = _jax(tmp_path, **{"engine.fuse": "off", **conf})
     want, ev_j = _run(j, JX.Executor, sql)
-    # the JAX session records cardinality feedback into its private
-    # directory; the port records none (ROADMAP.md queue 1 item 14)
-    assert t.last_plan_budget == {**j.last_plan_budget,
-                                  "feedback_mode": "off"}
+    # both sessions record cardinality feedback into private directories
+    assert t.last_plan_budget == j.last_plan_budget
+    assert t.last_plan_budget["feedback_mode"] == "record"
     parts = t.last_plan_budget["spill_partitions"]
     assert t.last_plan_budget["verdict"] == "spill" and parts >= 2
     assert got == want and ev_t == ev_j

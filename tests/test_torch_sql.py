@@ -267,10 +267,13 @@ UNPORTED = {
 UNPORTED_ITEMS = {"lake_catalog_http": "item 12b",
                   "plan_feedback_on": "item 14", "trace_dir": "item 12a"}
 
-#: UNPORTED cases and layer knobs that item 12a (obs/) and item 12b (the
-#: tcp catalog) ported: their session now starts and turns the layer on
+#: UNPORTED cases and layer knobs that item 12a (obs/), item 12b (the tcp
+#: catalog), item 14 (cardinality feedback) and item 15 (lock debugging)
+#: ported: their session now starts and turns the layer on
 ONCE_UNPORTED_KNOBS = {"trace_dir", "engine.flight_recorder",
-                       "engine.trace_kernels", "lake_catalog_http"}
+                       "engine.trace_kernels", "lake_catalog_http",
+                       "plan_feedback_on", "engine.plan_feedback",
+                       "engine.lock_debug"}
 
 #: the statements other than SELECT that raised until item 9.6 was ported,
 #: now run by both packages over the star's store_sales as a lakehouse
@@ -398,6 +401,23 @@ def test_unported_branches_raise(tables, qname, tmp_path):
     if qname == "lake_catalog_http":
         # ported: a session over a coordinator commits through it
         _lake_catalog_session_commits(tables, tmp_path)
+        return
+    if qname == "plan_feedback_on":
+        # ported: a recording pass, then a consuming one, over one store
+        fb = {"engine.feedback_dir": str(tmp_path / "fb")}
+        q = ("select ss_store_sk, count(*) c from store_sales "
+             "where ss_quantity < 10 group by ss_store_sk")
+        runs = []
+        for mode in ("record", "on"):
+            t = TorchSession(conf={**_conf("on"), **fb,
+                                   "engine.plan_feedback": mode},
+                             device="cpu")
+            t.register_arrow("store_sales", tables["store_sales"])
+            runs.append(t.sql(q).collect().to_pylist())
+            pb = t.last_plan_budget
+            assert pb["feedback_mode"] == mode
+        assert runs[0] == runs[1]
+        assert pb["feedback_hits"] > 0
         return
     if qname in ONCE_UNPORTED_KNOBS:
         # ported: the session writes its events under the trace directory
@@ -542,11 +562,23 @@ def test_unported_conf_knobs_raise(key, env, on, off, item, monkeypatch):
     TorchSession(device="cpu")  # unset: every layer stays off
     if key in ONCE_UNPORTED_KNOBS:
         # ported: the knob turns its layer on by the reference's resolver
-        # (the recorder's ring, the tracer's kernel spans), conf over env
-        attr = {"engine.flight_recorder": "ring",
-                "engine.trace_kernels": "kernel_spans"}[key]
+        # (the recorder's ring, the tracer's kernel spans, the budgeter's
+        # consuming feedback mode, the order-asserting locks), conf over
+        # env
+        from nds_tpu_torch.analysis import feedback as TFB
+        from nds_tpu_torch.engine import lockdebug as TLD
+
+        layer = {
+            "engine.flight_recorder":
+                lambda s: bool(getattr(s.tracer, "ring", None)),
+            "engine.trace_kernels":
+                lambda s: bool(getattr(s.tracer, "kernel_spans", None)),
+            "engine.plan_feedback":
+                lambda s: TFB.resolve_feedback_mode(s.conf) == "on",
+            "engine.lock_debug":
+                lambda s: isinstance(s.cache_lock, TLD.DebugLock),
+        }[key]
         default_on = key == "engine.flight_recorder"
-        layer = lambda s: bool(getattr(s.tracer, attr, None))  # noqa: E731
         assert layer(TorchSession(device="cpu")) == default_on
         for v in on:
             assert layer(TorchSession(conf={key: v}, device="cpu"))
@@ -581,16 +613,17 @@ def test_unported_conf_knobs_raise(key, env, on, off, item, monkeypatch):
 
 
 def test_ported_conf_knobs_are_accepted():
-    """Forced spill, fault injection, plan verification, and feedback
-    accepted with nothing recorded; the fusion, donation, plan cache,
-    join-order cache and AOT cache keys are accepted and honoured
-    (engine/fuse.py, engine/aotcache.py)."""
+    """Forced spill, fault injection, plan verification and feedback's
+    modes are accepted; the fusion, donation, plan cache, join-order
+    cache and AOT cache keys are accepted and honoured (engine/fuse.py,
+    engine/aotcache.py)."""
     from nds_tpu_torch import faults
 
     try:
         for conf in ({"engine.spill": "force"},
                      {"engine.plan_feedback": "record"},
                      {"engine.plan_feedback": "off"},
+                     {"engine.plan_feedback": "on"},
                      {"engine.fault_spec": "io:nowhere:1"},
                      {"engine.verify_plans": "all"},
                      {"engine.fuse": "on"}, {"engine.plan_cache": "on"},
@@ -707,7 +740,13 @@ def test_port_imports_neither_jax_nor_nds_tpu():
             "nds_tpu_torch/serve/jobs.py",
             "nds_tpu_torch/cli/serve.py",
             "nds_tpu_torch/cli/route.py",
-            "nds_tpu_torch/cli/catalog.py"} <= rel
+            "nds_tpu_torch/cli/catalog.py",
+            "nds_tpu_torch/analysis/feedback.py",
+            "nds_tpu_torch/analysis/lint.py",
+            "nds_tpu_torch/analysis/concurrency.py",
+            "nds_tpu_torch/engine/lockdebug.py",
+            "nds_tpu_torch/engine/arrowlib.py",
+            "nds_tpu_torch/cli/lint.py"} <= rel
     for path in files:
         for mod, level in _imports(path):
             if level:  # relative: stays inside nds_tpu_torch

@@ -35,10 +35,12 @@ TEMPLATES = {
 
 #: the verbs the port had not ported -> the ROADMAP.md item that ports them
 #: (`profile` was ported by item 12a, `serve`, `catalog` and `route` by item
-#: 12b: ONCE_UNPORTED_VERBS, each with flags its --help shows)
+#: 12b, `lint` by item 15: ONCE_UNPORTED_VERBS, each with flags its --help
+#: shows)
 UNPORTED_VERBS = {"profile": "12a", "lint": 15, "serve": "12b",
                   "catalog": "12b", "route": "12b"}
 ONCE_UNPORTED_VERBS = {"profile": ("--critical-path", "--check"),
+                       "lint": ("--write-lock-order", "--list-rules"),
                        "serve": ("--stream", "--device"),
                        "catalog": ("--recover_only",),
                        "route": ("--mesh_replica",)}
@@ -139,5 +141,5 @@ def test_no_template_or_verb_names_the_jax_package():
         assert not re.search(r"\bnds_tpu\.", code), code
     modules = re.findall(r"python -m (\S+)", texts[0])
     assert modules == ["nds_tpu_torch.cli.explain", "nds_tpu_torch.cli.cache",
-                       "nds_tpu_torch.cli.profile",
+                       "nds_tpu_torch.cli.lint", "nds_tpu_torch.cli.profile",
                        '"nds_tpu_torch.cli.$verb"', '"$MODULE"'], modules
